@@ -1,0 +1,78 @@
+"""Import tripwire: the port and chip_smoke.py load no JAX and nothing of the
+JAX package, and the entry points refuse to fall back to the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "multimodal_auv_tpu")
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {repo!r})
+import multimodal_auv_torch
+names = [m.name for m in pkgutil.walk_packages(
+    multimodal_auv_torch.__path__, "multimodal_auv_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({{"modules": names, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in {forbidden!r})}}))
+"""
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh process (this one has
+    JAX loaded by the test configuration)."""
+    import json
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(repo=REPO,
+                                             forbidden=set(FORBIDDEN))],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "multimodal_auv_torch.engine.predict" in out["modules"]
+    assert "multimodal_auv_torch.ops.sampling" in out["modules"]
+    assert out["loaded"] == []
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_import_anywhere_in_port_sources():
+    """Imports inside functions too: every import statement of the port's
+    sources and of chip_smoke.py."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "multimodal_auv_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    bad = {p: r for p in paths for r in _imported_roots(p) if r in FORBIDDEN}
+    assert bad == {}
+    assert len(paths) > 15
+
+
+def test_entry_points_need_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+    from multimodal_auv_torch.pipelines.inference import run_auv_inference
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_multimodal_bundle(7, BNNPriorSpec(), None, ArchConfig.micro())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_auv_inference(REPO, allow_random_init=True,
+                          arch=ArchConfig.micro())
