@@ -16,16 +16,41 @@ result line):
    1, 2 and 3; sampler moments at full P; times of the kernel, the plain
    version, one ``torch.normal`` call over the same work (a yardstick the
    port never calls), and the kernel's bound.
-4. main path: a packed set of 10 random 256 px samples (numpy, --seed), the
-   full-width model (three ResNet-50 trunks, bf16, 7 classes, MOPED random
-   weights), ``multimodal_predict_and_save_packed`` with 20 MC samples at
-   batch 4 (a ragged tail of 2). Checks the CSV, that the port on the card
-   agrees with the port on the CPU at micro() size, and the kernel launch
-   counts of the timed run. ``--profile`` also writes a profiler summary of
-   one batch to chiprun_out/chip_smoke/.
+4. inference path: a packed set of 10 random 256 px samples (numpy,
+   --seed), the full-width model (three ResNet-50 trunks, bf16, 7 classes,
+   MOPED random weights), ``multimodal_predict_and_save_packed`` with 20 MC
+   samples at batch 4 (a ragged tail of 2). Checks the CSV, that the port
+   on the card agrees with the port on the CPU at micro() size, and the
+   kernel launch counts of the timed run: 30 split_sampler, no other.
+5. training kernels: the stacked sampler and the eps kernel against their
+   plain versions bit for bit (small ragged P and full P, chunks 1, 2, 3,
+   f32 and bf16 outputs); eps kernel == stacked at (0, 1) == split (f32
+   noise) at (0, 1); eps moments at full P; times beside the bound, the
+   plain version and one library call (``torch.normal`` over the expanded
+   (n, P) mu and sigma; ``torch.randn``); the autograd backward on the
+   card against autograd through the plain version (1e-6 relative).
+6. training, card vs CPU: one micro() train step from the same seeds on
+   both; loss and CE to 1e-4 relative, mu and rho gradients to 2e-2 with
+   a leaf-scaled floor, new running statistics to 1e-5.
+7. training path: a survey tree of 32 sample folders of random 256 px
+   images over 7 classes (PIL, --seed); one epoch of
+   ``run_AUV_training_from_scratch`` on the card (folder scan, decode into
+   the packed cache, split 25 / 7) at batch 12 x 20 MC, chunks of 1, remat
+   on, f32 posterior, full width: 3 train steps (a ragged tail of 1) and
+   one padded eval batch. Checks that it returns True, the saved train
+   state's epoch and step count, that mu, rho and the running statistics
+   moved, both ledgers, the run manifest, the posterior checkpoint, and
+   the launch counts of the epoch: 120 stacked_sampler (forward and
+   re-forward), 60 eps, 20 split_sampler. Prints the time of each train
+   step (the smoke wraps the step the pipeline builds), samples per
+   second and peak memory.
 
-The line before the last is the kernels' JSON; the last line is
-``{"ok": true, "device": {...}}``.
+``--profile`` also writes profiler summaries of one inference batch and of
+one train step to chiprun_out/chip_smoke/. Launch counts are reset at the
+start of each counted run, and each phase expects exactly its own kernels.
+Before them it prints the script's own wall time. The line before the
+last is the kernels' JSON; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -36,6 +61,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -48,10 +74,12 @@ OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 NUM_CLASSES, NUM_MC, BATCH, N_SAMPLES, IMAGE = 7, 20, 4, 10, 256
+TRAIN_BATCH, TRAIN_SAMPLES = 12, 32  # the reference's b12 x 20 MC
 SMALL_P = 512 * 128 + 1024  # one full block and a partial one
 # f32 operations per element pair per draw of the split sampler
 # (Box-Muller with the JAX package's polynomials, plus two mu + sigma*eps)
 SAMPLER_F32_OPS = {False: 53, True: 41}
+EPS_F32_OPS = SAMPLER_F32_OPS[False] - 4  # the noise alone
 
 
 def log(msg: str) -> None:
@@ -71,6 +99,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def reset_launches() -> None:
+    from multimodal_auv_torch.ops import kernels
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+
+
+def check_launches(phase: str, want: dict) -> dict:
+    """The launch counts since the last reset must be exactly ``want``
+    (every kernel not named there: 0)."""
+    from multimodal_auv_torch.ops import kernels
+
+    got = dict(kernels.LAUNCHES)
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{phase}: kernel launches {got}, want {full}")
+    return got
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(bound in ms, "bytes" or "operations") on an H100 SXM."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_device():
@@ -252,7 +306,7 @@ def check_card_vs_cpu() -> None:
         f"{err:.2e}")
 
 
-def phase_main_path(args, smi: str):
+def phase_main_path(args, smi: str, work: str):
     from multimodal_auv_torch.config import BNNPriorSpec
     from multimodal_auv_torch.engine.predict import (
         make_packed_predict_step,
@@ -274,7 +328,7 @@ def phase_main_path(args, smi: str):
     entry = check_sampler(bundle.post, bundle.meta.n_padded)
     check_card_vs_cpu()
 
-    packed = write_packed(os.path.join(OUT_DIR, "packed"), args.seed)
+    packed = write_packed(os.path.join(work, "packed"), args.seed)
     csv_path = os.path.join(OUT_DIR, "predictions.csv")
     step = make_packed_predict_step(bundle, NUM_MC)
     run = lambda: multimodal_predict_and_save_packed(
@@ -286,53 +340,52 @@ def phase_main_path(args, smi: str):
     torch.cuda.synchronize()
     log(f"warm-up run {time.perf_counter() - t0:.2f} s")
 
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
     n_batches = -(-N_SAMPLES // BATCH)
+    launches = check_launches("inference path",
+                              {"split_sampler": n_batches * NUM_MC // 2})
     log(f"main path: {N_SAMPLES} patches, {n_batches} batches of {BATCH} x "
         f"{NUM_MC} MC in {wall:.3f} s = {N_SAMPLES / wall:.3f} patches/s "
         f"[{smi}]; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{launches}")
-    want = n_batches * NUM_MC // 2
-    if launches["split_sampler"] != want:
-        raise AssertionError(f"split_sampler launched "
-                             f"{launches['split_sampler']} times, want {want}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
     check_csv(csv_path)
     entry["launches"] = launches["split_sampler"]
 
     if args.profile:
         profile_batch(bundle, step, args.seed)
-    return [entry]
+    return bundle, entry
 
 
 def profile_batch(bundle, step, seed: int) -> None:
-    """Device time by kernel over one batch of the main path, and the
-    device's busy share (union of kernel intervals over the wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time by kernel over one batch of the inference path."""
     u8 = [torch.from_numpy(np.random.default_rng(seed).integers(
         0, 256, (BATCH, IMAGE, IMAGE, c), dtype=np.uint8)).cuda()
         for c in (3, 3, 1)]
     mask = torch.ones(BATCH, dtype=torch.bool, device="cuda")
     gen = torch.Generator().manual_seed(seed)
-    step(bundle.post, bundle.batch_stats, u8, gen, mask)
+    profile_run(f"one batch of {BATCH} x {NUM_MC} MC", "profile.txt",
+                lambda: step(bundle.post, bundle.batch_stats, u8, gen, mask))
+
+
+def profile_run(label: str, filename: str, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (after one unprofiled
+    call), and the device's busy share (union of kernel intervals over the
+    wall time), written to chiprun_out/chip_smoke/<filename>."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(bundle.post, bundle.batch_stats, u8, gen, mask)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -349,16 +402,374 @@ def profile_batch(bundle, step, seed: int) -> None:
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     total_ms = sum(t for t, _ in by_name.values())
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
-        f.write(f"one batch of {BATCH} x {NUM_MC} MC: wall {wall_ms:.2f} ms, "
-                f"kernels {total_ms:.2f} ms in {len(kern)} launches, busy "
-                f"{busy_ms:.2f} ms\n")
+    with open(os.path.join(OUT_DIR, filename), "w") as f:
+        f.write(f"{label}: wall {wall_ms:.2f} ms, kernels {total_ms:.2f} ms "
+                f"in {len(kern)} launches, busy {busy_ms:.2f} ms\n")
         for name, (t, c) in rows:
             f.write(f"{t:10.3f} ms {c:7d}  {name}\n")
-    log(f"profile (one batch): wall {wall_ms:.2f} ms, kernels "
+    log(f"profile ({label}): wall {wall_ms:.2f} ms, kernels "
         f"{total_ms:.2f} ms in {len(kern)} launches, device busy share "
         f"{busy_ms / wall_ms:.3f}; top: " + "; ".join(
             f"{n[:50]} {t:.2f} ms x{c}" for n, (t, c) in rows[:6]))
+
+
+def check_train_kernels(post, n_padded: int):
+    """Kernels #2 (stacked sampler) and #3 (eps) against their plain
+    versions and each other's noise; eps moments; the backward; times.
+    Returns their kernels-line entries (launches filled in later)."""
+    from multimodal_auv_torch.bayes.packing import softplus
+    from multimodal_auv_torch.ops import sampling as S
+
+    g = torch.Generator().manual_seed(1)
+    small = (torch.randn(SMALL_P, generator=g).cuda(),
+             (torch.rand(SMALL_P, generator=g) + 0.01).cuda())
+    with torch.no_grad():
+        full = (post.mu.detach(), softplus(post.rho.detach().float()))
+    err = {"stacked_sampler": 0.0, "eps": 0.0}
+    for label, (mu, sg) in (("small", small), ("full", full)):
+        P = mu.numel()
+        for n in (1, 2, 3):
+            seed = (4321 + n, 8765)
+            for dt in (torch.float32, torch.bfloat16):
+                with torch.no_grad():
+                    got = S.gaussian_shift_scale(mu, sg, seed, n, out_dtype=dt)
+                want = S.stacked_plain(mu, sg, seed, n, dt)
+                torch.cuda.synchronize()
+                err["stacked_sampler"] = max(err["stacked_sampler"], float(
+                    (got.float() - want.float()).abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"stacked_sampler != plain ({dt}, "
+                                         f"{label} P={P}, chunk {n})")
+                del got, want
+            eps = S.gaussian_noise(P, seed, n, "cuda")
+            want = S.eps_plain(P, seed, n, "cuda")
+            torch.cuda.synchronize()
+            err["eps"] = max(err["eps"], float((eps - want).abs().max()))
+            if not torch.equal(eps, want):
+                raise AssertionError(f"eps != plain ({label} P={P}, chunk {n})")
+            zeros = torch.zeros(P, device="cuda")
+            ones = torch.ones(P, device="cuda")
+            with torch.no_grad():
+                at01 = S.gaussian_shift_scale(zeros, ones, seed, n)
+            split = S.gaussian_shift_scale_split(zeros, ones, seed, n)
+            if not (torch.equal(at01, eps)
+                    and all(torch.equal(a, b) for a, b in zip(split, eps))):
+                raise AssertionError(f"the three kernels' noise differs "
+                                     f"({label} P={P}, chunk {n})")
+            del eps, want, at01, split, zeros, ones
+        log(f"stacked_sampler, eps == plain bit for bit, eps == stacked(0, 1) "
+            f"== split f32 (0, 1): {label} P={P}, chunks 1,2,3, f32 and bf16")
+
+    P = n_padded
+    e0, e1 = (e.double() for e in S.gaussian_noise(P, (77, 5), 2, "cuda"))
+    se = 1.0 / math.sqrt(P)
+    blk = S.BLOCK_ELEMS
+    corr = lambda a, b: float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    stats = {"mean": float(e0.mean()), "std": float(e0.std()),
+             "corr_draws": corr(e0, e1),
+             "corr_blocks": corr(e0[:blk], e0[blk:2 * blk])}
+    del e0, e1
+    log(f"eps moments at P={P}: {json.dumps(stats)}")
+    if not (abs(stats["mean"]) < 5 * se and abs(stats["std"] - 1) < 10 * se
+            and abs(stats["corr_draws"]) < 5 * se
+            and abs(stats["corr_blocks"]) < 5 / math.sqrt(blk)):
+        raise AssertionError(f"eps moments off: {stats}")
+
+    # the backward on the card against autograd through the plain version
+    mu = small[0].clone().requires_grad_()
+    sg = small[1].clone().requires_grad_()
+    cot = torch.randn(3, SMALL_P, generator=g).cuda()
+    got = torch.autograd.grad(S.gaussian_shift_scale(mu, sg, (9, 4), 3),
+                              (mu, sg), cot)
+    want = torch.autograd.grad(mu + sg * S.eps_plain(SMALL_P, (9, 4), 3,
+                                                     "cuda"), (mu, sg), cot)
+    for name, a, b in zip(("dmu", "dsigma"), got, want):
+        rel = float((a - b).abs().max() / b.abs().max())
+        if rel > 1e-6:
+            raise AssertionError(f"backward {name} off the plain autograd: "
+                                 f"{rel:.2e} relative")
+        log(f"backward {name} on the card == plain autograd: max error "
+            f"{rel:.2e} relative (3 draws, P={SMALL_P})")
+
+    # times at the training path's point: f32 mu and sigma, f32 out, chunk 1
+    mu, sg = full
+    n = 1
+    ms = cuda_ms(lambda: S.gaussian_shift_scale(mu, sg, (1, 2), n), 50)
+    plain_ms = cuda_ms(lambda: S.stacked_plain(mu, sg, (1, 2), n,
+                                               torch.float32), 3, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mun, sgn = mu.expand(n, P), sg.expand(n, P)
+    lib_ms = cuda_ms(lambda: torch.normal(mun, sgn, generator=gen), 50)
+    b_ms, b_by = bound_ms(2 * P * 4 + n * P * 4,
+                          (P // 2) * n * SAMPLER_F32_OPS[False])
+    log(f"stacked_sampler chunk 1 f32 at P={P}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    entries = [{"name": "stacked_sampler", "route": "cuda",
+                "source": "multimodal_auv_torch/csrc/sampling.cu",
+                "replaces": "multimodal_auv_tpu/ops/sampling.py:198",
+                "launches": None, "max_abs_err": err["stacked_sampler"],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}]
+    ms = cuda_ms(lambda: S.gaussian_noise(P, (1, 2), n, "cuda"), 50)
+    plain_ms = cuda_ms(lambda: S.eps_plain(P, (1, 2), n, "cuda"), 3, 1)
+    lib_ms = cuda_ms(lambda: torch.randn(n, P, device="cuda", generator=gen),
+                     50)
+    b_ms, b_by = bound_ms(n * P * 4, (P // 2) * n * EPS_F32_OPS)
+    log(f"eps chunk 1 at P={P}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.randn {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    entries.append({"name": "eps", "route": "cuda",
+                    "source": "multimodal_auv_torch/csrc/sampling.cu",
+                    "replaces": "multimodal_auv_tpu/ops/sampling.py:213",
+                    "launches": None, "max_abs_err": err["eps"], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms})
+    return entries
+
+
+def _leaf_close(got, want, name, rtol=2e-2, floor_frac=1e-3) -> None:
+    """tests/test_train_parity.py's criterion: elementwise rtol with a
+    floor of floor_frac * max|want|."""
+    scale = max(float(want.abs().max()), 1e-12)
+    bad = (got - want).abs() > rtol * want.abs() + floor_frac * scale
+    if bool(bad.any()):
+        raise AssertionError(f"card vs CPU gradient {name}: "
+                             f"{int(bad.sum())} elements off")
+
+
+def check_train_card_vs_cpu() -> None:
+    """One micro() train step on the card and on the CPU from the same
+    seeds: the kernels' eps equal the plain versions', so the two differ
+    only in the f32 forwards' summation order (TF32 off)."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.engine.optim import BayesTrainState, make_optimizer
+    from multimodal_auv_torch.engine.steps import make_train_step
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+
+    rng = np.random.default_rng(2)
+    u8 = [rng.integers(0, 256, (3, 32, 32, c), dtype=np.uint8)
+          for c in (3, 3, 1)]
+    labels, mask = np.array([1, 4, 6]), np.array([1.0, 1.0, 0.0], np.float32)
+    out = []
+    for dev in ("cuda", "cpu"):
+        b = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                   torch.Generator().manual_seed(0),
+                                   ArchConfig.micro(), device=dev)
+        state = BayesTrainState(b.post, make_optimizer(1e-3, 1e-5).init(b.post),
+                                b.batch_stats)
+        step = make_train_step(b.module, b.meta, BNNPriorSpec(), 3,
+                               packed_inputs=True)
+        state, m = step(state, [torch.from_numpy(a).to(dev) for a in u8],
+                        torch.from_numpy(labels).to(dev),
+                        torch.from_numpy(mask).to(dev),
+                        torch.Generator().manual_seed(3), 1e-6, 3.0)
+        stats = {}
+
+        def flat(t, path=()):
+            if isinstance(t, dict):
+                for k in sorted(t):
+                    flat(t[k], path + (k,))
+            else:
+                stats[path] = t.cpu()
+
+        flat(state.batch_stats)
+        out.append({"loss": float(m["loss"]),
+                    "ce": float(m["cross_entropy"]),
+                    "gmu": b.post.mu.grad.cpu(), "grho": b.post.rho.grad.cpu(),
+                    "entries": b.meta.entries, "stats": stats})
+    card, cpu = out
+    for k in ("loss", "ce"):
+        if abs(card[k] - cpu[k]) > 1e-4 * abs(cpu[k]):
+            raise AssertionError(f"card vs CPU {k}: {card[k]} vs {cpu[k]}")
+    for e in cpu["entries"]:
+        sl = slice(e.offset, e.offset + e.size)
+        for g in ("gmu", "grho"):
+            _leaf_close(card[g][sl], cpu[g][sl], f"{g}{e.path}")
+    err = max(float((card["stats"][k] - v).abs().max())
+              for k, v in cpu["stats"].items())
+    if err > 1e-5:
+        raise AssertionError(f"card vs CPU running statistics: {err:.2e}")
+    log(f"train step card == CPU at micro(): loss {card['loss']:.6f} vs "
+        f"{cpu['loss']:.6f}, CE {card['ce']:.6f} vs {cpu['ce']:.6f}, "
+        f"gradients within 2e-2 + leaf floor, statistics max error "
+        f"{err:.2e}")
+
+
+def write_training_tree(root: str, seed: int) -> str:
+    """A labelled survey tree that ``MultimodalFolderDataset`` accepts:
+    TRAIN_SAMPLES sample folders of random 256 px images (main frame, SSS,
+    combined bathymetry, 10 m and 30 m patches of both) over NUM_CLASSES
+    classes, made from ``seed``."""
+    from PIL import Image
+
+    from multimodal_auv_torch.config import HABITAT_CLASSES
+
+    rng = np.random.default_rng(seed + 100)
+    labels = rng.permutation(np.arange(TRAIN_SAMPLES) % NUM_CLASSES)
+    img = lambda c: Image.fromarray(np.squeeze(rng.integers(
+        0, 256, (IMAGE, IMAGE, c), dtype=np.uint8)))
+    for i, lab in enumerate(labels):
+        d = os.path.join(root, f"sample_{i:03d}")
+        os.makedirs(d)
+        img(3).save(os.path.join(d, f"frame_{i:04d}.jpg"))
+        img(1).save(os.path.join(d, f"survey_SSS_{i}.png"))
+        img(3).save(os.path.join(d, "combined_rgb_bathymetry.jpg"))
+        for ps in ("10m", "30m"):
+            img(3).save(os.path.join(d, f"patch_{ps}_combined_bathy.png"))
+            img(1).save(os.path.join(d, f"patch_{ps}_survey_SSS.png"))
+        with open(os.path.join(d, f"{HABITAT_CLASSES[lab]}.txt"), "w") as f:
+            f.write(HABITAT_CLASSES[lab])
+        with open(os.path.join(d, "normalised_meta.csv"), "w") as f:
+            f.write("easting,northing\n1,2\n")
+    return root
+
+
+def phase_training(args, smi: str, bundle, work: str):
+    """The training path at full width: kernels, card vs CPU, then one
+    epoch through ``run_AUV_training_from_scratch`` on a folder tree in
+    ``work``. ``bundle`` is the inference phase's model, built from the
+    same seed as the pipeline's: the posterior before training."""
+    from multimodal_auv_torch.data.loaders import split_indices
+    from multimodal_auv_torch.engine import checkpointing as ckpt
+    from multimodal_auv_torch.engine.loops import (
+        EVAL_CSV_HEADER,
+        TRAIN_CSV_HEADER,
+    )
+    from multimodal_auv_torch.models.model_utils import ArchConfig
+    from multimodal_auv_torch.pipelines import training as pipeline
+
+    entries = check_train_kernels(bundle.post, bundle.meta.n_padded)
+    check_train_card_vs_cpu()
+
+    root = write_training_tree(os.path.join(work, "tree"), args.seed)
+    state_path = os.path.join(work, "train_state.pt")
+    # the smoke times each train step the pipeline builds (host clock,
+    # ending in a synchronize); the step itself is the pipeline's own
+    times, steps = [], []
+    build_step = pipeline.make_train_step
+
+    def timed_build(*a, **kw):
+        step = build_step(*a, **kw)
+        steps.append(step)
+
+        def timed_step(*sa):
+            t0 = time.perf_counter()
+            out = step(*sa)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return timed_step
+
+    cwd = os.getcwd()
+    pipeline.make_train_step = timed_build
+    os.chdir(work)  # the pipeline logs under ./logs and ./tensorboard_logs
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        ok = pipeline.run_AUV_training_from_scratch(
+            {}, 1e-5, 1, NUM_MC, "10m", "30m", TRAIN_BATCH, root,
+            arch=ArchConfig(), mc_chunk=1, seed=args.seed,
+            use_packed_loader=True, strict_errors=True,
+            resume_checkpoint=state_path, remat="on")
+        torch.cuda.synchronize()
+    finally:
+        pipeline.make_train_step = build_step
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    if ok is not True:
+        raise AssertionError(f"run_AUV_training_from_scratch returned {ok}")
+    train_idx, test_idx = split_indices(TRAIN_SAMPLES)
+    n_steps = -(-len(train_idx) // TRAIN_BATCH)
+    launches = check_launches("training path", {
+        "stacked_sampler": n_steps * NUM_MC * 2, "eps": n_steps * NUM_MC,
+        "split_sampler": -(-len(test_idx) // TRAIN_BATCH) * NUM_MC})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    later = times[1:]
+    per_step = sum(later) / len(later)
+    log(f"training path: run_AUV_training_from_scratch, 1 epoch over "
+        f"{TRAIN_SAMPLES} folders (scan, decode and pack included), "
+        f"{len(train_idx)} train samples in {n_steps} steps of {TRAIN_BATCH} "
+        f"x {NUM_MC} MC (chunk 1, remat on, f32 posterior) and "
+        f"{len(test_idx)} eval samples, in {wall:.2f} s [{smi}]; steps "
+        f"{', '.join(f'{t:.3f}' for t in times)} s; {per_step:.3f} s per "
+        f"step after the first = {TRAIN_BATCH / per_step:.3f} samples/s; "
+        f"peak memory {peak:.2f} GiB; launches {launches}")
+
+    saved = torch.load(state_path, map_location="cpu", weights_only=True)
+    st = saved["state"]
+    if saved["epoch"] != 1 or st["step"] != n_steps:
+        raise AssertionError(f"train state at epoch {saved['epoch']}, step "
+                             f"{st['step']}; want 1, {n_steps}")
+    # Adam at lr 1e-5 moves each element by about 1e-5 per step: a small
+    # nonzero change shows the pipeline's model started from ``bundle``'s
+    # weights and trained
+    for k in ("mu", "rho"):
+        d = float((st["post"][k] - getattr(bundle.post, k).detach().cpu())
+                  .abs().max())
+        if not 0 < d < 1e-3:
+            raise AssertionError(f"{k} moved by {d:.3e}, want (0, 1e-3)")
+    var = lambda bs: bs["image_model_feat"]["bn1"]["var"].cpu()
+    if torch.equal(var(st["batch_stats"]), var(bundle.batch_stats)):
+        raise AssertionError("the running statistics did not move")
+    csv_dir = os.path.join(root, "csvs")
+    for name, head in (("multimodal_train_results.csv", TRAIN_CSV_HEADER),
+                       ("multimodal_eval_results.csv", EVAL_CSV_HEADER)):
+        with open(os.path.join(csv_dir, name), newline="") as f:
+            rows = list(csv.reader(f))
+        if rows[0] != head or len(rows) != 2:
+            raise AssertionError(f"{name}: {rows}")
+        vals = [float(v) for v in rows[1][2:-2]]  # up to the patch types
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{name}: non-finite values {rows[1]}")
+        log(f"{name}: {rows[1]}")
+    with open(os.path.join(csv_dir, "run_manifest.json")) as f:
+        platform = json.load(f)["devices"]["platform"]
+    if platform != "cuda":
+        raise AssertionError(f"run manifest platform {platform!r}")
+    path = ckpt.model_checkpoint_path(
+        os.path.join(csv_dir, "multimodal_train_results.csv"),
+        "multimodal_bathy_patch10m_sss_patch30m")
+    post = ckpt.load_posterior(path)
+    if not (torch.equal(post.mu, st["post"]["mu"])
+            and torch.equal(post.rho, st["post"]["rho"])):
+        raise AssertionError("the posterior checkpoint differs from the "
+                             "train state")
+    log(f"train state (epoch 1, step {n_steps}), posterior checkpoint "
+        f"{os.path.relpath(path, work)} and run manifest ok")
+    del saved, st, post
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+
+    if args.profile:
+        from multimodal_auv_torch.engine.optim import (
+            BayesTrainState,
+            make_optimizer,
+        )
+
+        rng = np.random.default_rng(args.seed + 7)
+        inputs = [torch.from_numpy(rng.integers(
+            0, 256, (TRAIN_BATCH, IMAGE, IMAGE, c), dtype=np.uint8)).cuda()
+            for c in (3, 3, 1)]
+        labels = torch.from_numpy(
+            rng.integers(0, NUM_CLASSES, TRAIN_BATCH)).cuda()
+        mask = torch.ones(TRAIN_BATCH, device="cuda")
+        gen = torch.Generator().manual_seed(args.seed + 7)
+        box = [BayesTrainState(bundle.post,
+                               make_optimizer(1e-5, 1e-5).init(bundle.post),
+                               bundle.batch_stats)]
+
+        def one_step():
+            box[0], _ = steps[0](box[0], inputs, labels, mask, gen, 1.0,
+                                 float(TRAIN_BATCH))
+
+        profile_run(f"one train step of {TRAIN_BATCH} x {NUM_MC} MC",
+                    "profile_train.txt", one_step)
+    return entries
 
 
 def main() -> int:
@@ -367,6 +778,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, HERE)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -374,7 +786,13 @@ def main() -> int:
 
     resolve_device("cuda")  # TF32 off: f32 checks are full f32
     phase_build()
-    kernels_line = phase_main_path(args, smi)
+    # bulky work files (packed sets, the survey tree, GB-sized checkpoints)
+    # stay out of OUT_DIR, which is kept after the run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        bundle, split_entry = phase_main_path(args, smi, work)
+        kernels_line = [split_entry] + phase_training(args, smi, bundle,
+                                                      work)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

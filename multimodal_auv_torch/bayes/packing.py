@@ -202,6 +202,22 @@ def prune_none(tree):
     return tree
 
 
+def sigma_of(rho: torch.Tensor) -> torch.Tensor:
+    return softplus(rho)
+
+
+def kl_divergence(post: PackedPosterior, spec: BNNPriorSpec) -> torch.Tensor:
+    """Closed-form KL(q || prior) summed over every packed element, in f32
+    (the sum the reference's ``get_kl_loss`` accumulates per layer). The
+    pad holds the prior's values, so it contributes exactly zero."""
+    mu = post.mu.to(torch.float32)
+    sigma = sigma_of(post.rho.to(torch.float32))
+    ps = torch.tensor(spec.prior_sigma, dtype=torch.float32, device=mu.device)
+    kl = (torch.log(ps) - torch.log(sigma)
+          + (sigma ** 2 + (mu - spec.prior_mu) ** 2) / (2.0 * ps ** 2) - 0.5)
+    return kl.sum()
+
+
 def mean_params(post: PackedPosterior, meta: PackMeta) -> Params:
     """Deterministic parameters at the posterior mean (no sampling)."""
     return meta.unpack(post.mu, post.det)

@@ -1,18 +1,29 @@
-"""Inference folder dataset (port of the inference half of
+"""Folder-scanning datasets with the reference's discovery rules (port of
 ``multimodal_auv_tpu/data/datasets.py``).
 
-``InferenceFolderDataset`` follows the reference's scan rules: per sample
-folder, main = ``[fF]rame*.jpg``, bathy = ``patch_30m_combined_bathy.png``
-or ``combined_bathy.jpg``, SSS = the non-patch ``*SSS*`` image with the most
-nonzero pixels; folders with missing or all-black images are skipped;
-per-image decode failures fall back to black images. Samples are NHWC
-float32 numpy arrays.
+* ``MultimodalFolderDataset`` (labelled, training and eval): per sample
+  folder a ``*frame*.jpg`` main image, the max-nonzero ``*SSS*`` image
+  (excluding ``patch_`` files), ``combined_rgb_bathymetry.jpg``, at least
+  one ``patch_<N>m_combined_bathy.png`` / ``patch_<N>m_*_SSS.(png|jpg)``
+  patch, a ``normalised_meta.csv``, and a label from the newest
+  non-underscore ``.txt`` basename. Labels are encoded alphabetically
+  (``LabelEncoder``, sklearn's rule without sklearn). Missing patch sizes
+  yield zero dummies so every sample carries the full discovered set.
+* ``InferenceFolderDataset`` (unlabelled): main = ``[fF]rame*.jpg``, bathy =
+  ``patch_30m_combined_bathy.png`` or ``combined_bathy.jpg``, SSS = the
+  non-patch ``*SSS*`` image with the most nonzero pixels; folders with
+  missing or all-black images are skipped; per-image decode failures fall
+  back to black images.
+
+Samples are NHWC float32 numpy arrays. PIL is imported only inside the
+decode functions (data/transforms.py).
 """
 from __future__ import annotations
 
 import glob
 import logging
 import os
+import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +34,151 @@ from multimodal_auv_torch.data import transforms as T
 logger = logging.getLogger(__name__)
 
 _SSS_SUFFIXES = (".png", ".jpg", ".jpeg", ".tif", ".bmp")
+_PATCH_TYPE_SIZE_RE = re.compile(r"patch_(\d+m?)_")
+_BATHY_PATCH_RE = re.compile(r"patch_(\d+m)_combined_bathy\.png")
+_SSS_PATCH_RE = re.compile(r"patch_(\d+m)_.*_SSS\.(png|jpg)")
+
+
+def resolve_patch_size(patch_type, kind: str, available) -> Optional[str]:
+    """The reference's patch-type resolution (its train/multimodal.py:
+    93-102), shared by the epoch loops (``select_patch``) and the packer:
+    the size key to take from ``available``, or None for the
+    full-resolution fallback (``patch_30_<kind>`` aliases the full
+    tensor). Accepts ``patch_10m_bathy`` and the reference's bare ``10m``
+    spelling."""
+    if not patch_type or patch_type == f"patch_30_{kind}":
+        return None
+    s = str(patch_type)
+    m = _PATCH_TYPE_SIZE_RE.match(s)
+    if m and m.group(1) in available:
+        return m.group(1)
+    if s in available:
+        return s
+    return None
+
+
+class LabelEncoder:
+    """sklearn's LabelEncoder rule: classes are the sorted unique labels,
+    a label's code its index among them."""
+
+    def fit(self, labels: Sequence[str]) -> "LabelEncoder":
+        self.classes_ = np.unique(np.asarray(labels))
+        return self
+
+    def transform(self, labels: Sequence[str]) -> np.ndarray:
+        labels = np.asarray(labels)
+        codes = np.searchsorted(self.classes_, labels)
+        if len(labels) and not np.array_equal(
+                self.classes_[np.minimum(codes, len(self.classes_) - 1)],
+                labels):
+            raise ValueError("labels not seen in fit")
+        return codes
+
+    def inverse_transform(self, codes) -> np.ndarray:
+        return self.classes_[np.asarray(codes)]
+
+
+class MultimodalFolderDataset:
+    """Labelled multimodal dataset (training and eval)."""
+
+    def __init__(self, root_dir: str, image_size: int = IMAGE_SIZE):
+        self.image_size = image_size
+        self.root_dir = root_dir
+        self.data_paths: List[Dict] = []
+        discovered: set = set()
+        all_labels: List[str] = []
+        for folder in os.listdir(root_dir):
+            folder_path = os.path.join(root_dir, folder)
+            if os.path.isdir(folder_path):
+                item = self._scan(folder_path, discovered)
+                if item is not None:
+                    self.data_paths.append(item[0])
+                    all_labels.append(item[1])
+        if not self.data_paths:
+            raise RuntimeError(
+                "No valid data samples found in root_dir. "
+                "Check your data paths and filters.")
+        self.label_encoder = LabelEncoder().fit(all_labels)
+        self.labels = self.label_encoder.transform(all_labels)
+        self.all_discovered_patch_sizes = sorted(discovered)
+        logger.info("Discovered patch sizes: %s",
+                    self.all_discovered_patch_sizes)
+
+    @staticmethod
+    def _scan(folder_path: str, discovered: set):
+        """(paths record, label) of one sample folder, or None to skip."""
+        files = os.listdir(folder_path)
+        mains = glob.glob(os.path.join(folder_path, "*frame*.jpg"))
+        sss = [os.path.join(folder_path, f) for f in files
+               if "SSS" in f and "patch_" not in f]
+        labels = [f for f in files
+                  if f.endswith(".txt") and not f.startswith("_")]
+        bathy = os.path.join(folder_path, "combined_rgb_bathymetry.jpg")
+        if not (mains and sss and labels and os.path.exists(bathy)):
+            logger.debug("Skipping %s (main, SSS, label or bathy missing)",
+                         folder_path)
+            return None
+        try:
+            sss_image = max(sss, key=lambda p: T.image_nonzero_count(p, "L"))
+        except (OSError, ValueError) as e:
+            logger.debug("Skipping %s (SSS): %s", folder_path, e)
+            return None
+        labels.sort(key=lambda x: os.path.getmtime(
+            os.path.join(folder_path, x)), reverse=True)
+        patch_bathy: Dict[str, str] = {}
+        patch_sss: Dict[str, str] = {}
+        for f in files:
+            m, s = _BATHY_PATCH_RE.match(f), _SSS_PATCH_RE.match(f)
+            if m:
+                patch_bathy[m.group(1)] = os.path.join(folder_path, f)
+                discovered.add(m.group(1))
+            elif s:
+                patch_sss[s.group(1)] = os.path.join(folder_path, f)
+                discovered.add(s.group(1))
+        if not patch_bathy and not patch_sss:
+            logger.debug("Skipping %s (no patches)", folder_path)
+            return None
+        if not os.path.exists(os.path.join(folder_path,
+                                           "normalised_meta.csv")):
+            logger.debug("Skipping %s (no normalised_meta.csv)", folder_path)
+            return None
+        return ({"main_image": mains[0], "bathy_image": bathy,
+                 "sss_image": sss_image, "patch_bathy": patch_bathy,
+                 "patch_sss": patch_sss},
+                os.path.splitext(labels[0])[0])
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.label_encoder.classes_)
+
+    def __len__(self):
+        return len(self.data_paths)
+
+    def _patch(self, path: Optional[str], mode: str, channels: int):
+        if path and os.path.exists(path):
+            try:
+                return T.load_image(path, mode, (self.image_size,) * 2)
+            except (OSError, ValueError) as e:
+                logger.warning("Error loading patch %s: %s; dummy used",
+                               path, e)
+        return T.zeros(channels, self.image_size)
+
+    def __getitem__(self, idx: int) -> Dict:
+        paths = self.data_paths[idx]
+        sz = (self.image_size, self.image_size)
+        sample = {
+            "main_image": T.load_main_image(paths["main_image"], sz),
+            "bathy_image": T.load_image(paths["bathy_image"], "RGB", sz),
+            "sss_image": T.load_image(paths["sss_image"], "L", sz),
+            "label": np.int32(self.labels[idx]),
+        }
+        sizes = self.all_discovered_patch_sizes
+        sample["patch_bathy"] = {
+            s: self._patch(paths["patch_bathy"].get(s), "RGB", 3)
+            for s in sizes}
+        sample["patch_sss"] = {
+            s: self._patch(paths["patch_sss"].get(s), "L", 1) for s in sizes}
+        return sample
 
 
 class InferenceFolderDataset:

@@ -1,26 +1,83 @@
-"""Inference data loader (port of the inference half of
-``multimodal_auv_tpu/data/loaders.py``): a non-shuffling loader that decodes
-samples in a thread pool and prefetches collated numpy batches while the
-device runs the previous one.
+"""Data loaders and the train/test split (port of
+``multimodal_auv_tpu/data/loaders.py``): a loader that decodes samples in a
+thread pool and prefetches collated numpy batches while the device runs
+the previous one, optionally shuffling per epoch.
+
+The split is the reference's: sklearn's ``train_test_split`` over indices
+with test_size=0.2, random_state=42 (its data/loaders.py:12-17), here
+computed without sklearn by the same rule.
 """
 from __future__ import annotations
 
+import logging
+import math
 import os
 import queue
 import threading
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from multimodal_auv_torch.data.datasets import ConcatDataset, InferenceFolderDataset
+from multimodal_auv_torch.config import IMAGE_SIZE
+from multimodal_auv_torch.data.datasets import (
+    ConcatDataset,
+    InferenceFolderDataset,
+    MultimodalFolderDataset,
+)
+
+logger = logging.getLogger(__name__)
 
 _PREFETCH = 4  # collated batches queued ahead of the consumer
 
 
+class Subset:
+    def __init__(self, dataset, indices: Sequence[int]):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[self.indices[i]]
+
+    # index-dependent attributes are re-indexed to the subset: delegating
+    # them would return all-N records for an n-row split
+    _REINDEXED = ("labels", "data", "data_paths")
+
+    def __getattr__(self, name):
+        if name.startswith("__") or "dataset" not in self.__dict__:
+            raise AttributeError(name)
+        if name in self._REINDEXED:
+            full = getattr(self.dataset, name)
+            return [full[i] for i in self.indices]
+        return getattr(self.dataset, name)
+
+
+def split_indices(n: int, test_size: float = 0.2, random_state: int = 42):
+    """The train/test index split, as sklearn's ``train_test_split(
+    list(range(n)), test_size, random_state)`` computes it: a
+    ``RandomState(random_state)`` permutation, the first ceil(test_size * n)
+    indices for test, the rest for train. The packed and unpacked training
+    paths share this one helper, so neither trains on the other's test
+    samples."""
+    perm = np.random.RandomState(random_state).permutation(n)
+    n_test = math.ceil(test_size * n)
+    return perm[n_test:].tolist(), perm[:n_test].tolist()
+
+
+def split_dataset(dataset, test_size: float = 0.2, random_state: int = 42):
+    train_idx, test_idx = split_indices(len(dataset), test_size, random_state)
+    return Subset(dataset, train_idx), Subset(dataset, test_idx)
+
+
 def _collate(samples: List[Any]):
-    """Stack a list of samples (tuples, arrays, strings)."""
+    """Stack a list of samples (dicts, tuples, arrays, scalars, strings)."""
     first = samples[0]
+    if isinstance(first, dict):
+        return {k: _collate([s[k] for s in samples]) for k in first}
     if isinstance(first, tuple):
         return tuple(_collate([s[i] for s in samples])
                      for i in range(len(first)))
@@ -30,13 +87,17 @@ def _collate(samples: List[Any]):
 
 
 class DataLoader:
-    """Iterable over collated numpy batches in dataset order, with threaded
-    decode and a bounded prefetch queue (``num_workers=0``: inline)."""
+    """Iterable over collated numpy batches, with threaded decode and a
+    bounded prefetch queue (``num_workers=0``: inline). ``shuffle``
+    permutes the samples with ``np.random.default_rng(seed + epoch)``."""
 
-    def __init__(self, dataset, batch_size: int,
-                 num_workers: Optional[int] = None):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 num_workers: Optional[int] = None, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
         if num_workers is None:
             num_workers = max((os.cpu_count() or 2) - 2, 0)
         self.num_workers = num_workers
@@ -44,12 +105,22 @@ class DataLoader:
     def __len__(self):
         return -(-len(self.dataset) // self.batch_size)
 
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the shuffle epoch to an absolute index (the epoch loops do,
+        so a resumed run replays an uninterrupted run's sample order);
+        standalone iteration counts epochs itself."""
+        self._epoch = int(epoch)
+
     def _batches(self) -> List[List[int]]:
-        n, bs = len(self.dataset), self.batch_size
-        return [list(range(i, min(i + bs, n))) for i in range(0, n, bs)]
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        return [idx[i:i + self.batch_size].tolist()
+                for i in range(0, len(idx), self.batch_size)]
 
     def __iter__(self) -> Iterator:
         batches = self._batches()
+        self._epoch += 1
         if self.num_workers == 0:
             for b in batches:
                 yield _collate([self.dataset[i] for i in b])
@@ -95,6 +166,75 @@ class DataLoader:
         finally:
             stop.set()
             t.join(timeout=10)
+
+
+def prepare_datasets_and_loaders(
+    root_dir: str,
+    batch_size_unimodal: int = 8,
+    batch_size_multimodal: int = 12,
+    num_workers: Optional[int] = None,
+    image_size: Optional[int] = None,
+):
+    """The reference's loaders (its data/loaders.py:19-60): the labelled
+    dataset, its class histogram logged, split 80/20, and 4 loaders
+    (unimodal/multimodal x train/test), num_classes, and the dataset."""
+    kw = {"image_size": image_size} if image_size else {}
+    dataset = MultimodalFolderDataset(root_dir, **kw)
+    counts = Counter(dataset.label_encoder.inverse_transform(dataset.labels))
+    logger.info("Class histogram: %s", dict(counts))
+    train_ds, test_ds = split_dataset(dataset)
+    loaders = [DataLoader(ds, bs, shuffle=shuffle, num_workers=num_workers)
+               for bs in (batch_size_unimodal, batch_size_multimodal)
+               for ds, shuffle in ((train_ds, True), (test_ds, False))]
+    return (*loaders, dataset.num_classes, dataset)
+
+
+def prepare_packed_train_loaders(
+    root_dir: str,
+    batch_size: int,
+    bathy_patch_type: Optional[str] = None,
+    sss_patch_type: Optional[str] = None,
+    cache_dir: Optional[str] = None,
+    seed: int = 0,
+    image_size: Optional[int] = None,
+):
+    """Decode-once training loaders: pack the labelled dataset for a fixed
+    patch-type pair (data/packing.py) and serve uint8 dict batches from
+    memmaps, with the same 80/20 split as ``prepare_datasets_and_loaders``.
+    Pair with steps built with ``packed_inputs=True``. A cache packed from
+    other files is repacked. Returns (train_batches, test_batches,
+    num_classes, dataset)."""
+    from multimodal_auv_torch.data.packing import (
+        PackedTrainBatches,
+        dataset_fingerprint,
+        load_packed_training,
+        pack_training_dataset,
+    )
+
+    kw = {"image_size": image_size} if image_size else {}
+    dataset = MultimodalFolderDataset(root_dir, **kw)
+    counts = Counter(dataset.label_encoder.inverse_transform(dataset.labels))
+    logger.info("Class histogram: %s", dict(counts))
+    sz = image_size or IMAGE_SIZE
+    out = os.path.join(
+        cache_dir or os.path.join(root_dir, ".packed_train_cache"),
+        f"{bathy_patch_type or 'full'}_{sss_patch_type or 'full'}_{sz}")
+    if not os.path.exists(os.path.join(out, "meta.json")):
+        pack_training_dataset(dataset, out, bathy_patch_type, sss_patch_type,
+                              size=sz)
+    packed = load_packed_training(out)
+    if (packed["main"].shape[0] != len(dataset)
+            or packed["meta"].get("fingerprint") != dataset_fingerprint(
+                dataset)):
+        logger.warning("Stale packed cache %s (content mismatch); "
+                       "repacking", out)
+        packed = pack_training_dataset(dataset, out, bathy_patch_type,
+                                       sss_patch_type, size=sz)
+    train_idx, test_idx = split_indices(len(dataset))
+    train = PackedTrainBatches(packed, batch_size, train_idx, shuffle=True,
+                               seed=seed)
+    test = PackedTrainBatches(packed, batch_size, test_idx)
+    return train, test, dataset.num_classes, dataset
 
 
 def prepare_inference_datasets_and_loaders(

@@ -1,0 +1,371 @@
+"""Epoch loops and orchestration of multimodal training (port of the
+multimodal half of ``multimodal_auv_tpu/engine/loops.py``).
+
+The reference's ledgers and cadence are kept: the same CSV columns, the KL
+annealing schedule, a posterior checkpoint every 5 epochs plus a
+crash-save, and the StepLR stepped twice per epoch (its loop_utils.py:233,
+246). Randomness: each epoch's train and eval generators are derived from
+the base seed and the absolute epoch index, and the loaders' shuffle epoch
+is pinned to that index, so a run resumed at epoch e replays an
+uninterrupted run exactly.
+"""
+from __future__ import annotations
+
+import csv
+import logging
+import os
+from pathlib import Path
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multimodal_auv_torch.engine import checkpointing as ckpt
+from multimodal_auv_torch.engine.optim import (
+    BayesTrainState,
+    StepLR,
+    kl_annealing_weight,
+    set_learning_rate,
+)
+from multimodal_auv_torch.engine.steps import (
+    unfuse_eval_metrics,
+    unfuse_train_metrics,
+)
+from multimodal_auv_torch.utils.plotting import save_confusion_matrix
+
+logger = logging.getLogger(__name__)
+
+TRAIN_CSV_HEADER = ["Epoch", "Model type", "Loss", "Accuracy", "lr",
+                    "kl loss", "cross entropy loss", "SSS Patch Type",
+                    "Channel Patch Type"]
+EVAL_CSV_HEADER = ["Epoch", "Model Type", "Test Loss", "Test Accuracy",
+                   "Predictive Uncertainty", "Model Uncertainty", "Scaled KL",
+                   "Cross Entropy Loss", "bathy Patch Type", "SSS Patch Type"]
+
+
+def epoch_generator(seed: int, index: int) -> torch.Generator:
+    """The generator of stream ``index`` of base ``seed`` (the counterpart
+    of ``jax.random.fold_in(key, index)``)."""
+    word = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(word[0]))
+
+
+def _patch_size_str(patch_type: Optional[str], kind: str) -> str:
+    """'patch_30m_sss' -> '30m' (the reference's multimodal.py:178-179)."""
+    if not patch_type:
+        return "none"
+    return patch_type.replace("patch_", "").replace(f"_{kind}", "")
+
+
+def select_patch(batch: Dict, patch_type: Optional[str], kind: str) -> np.ndarray:
+    """The reference's patch selection (multimodal.py:93-102): the patch
+    of the resolved size, else the full-resolution tensor."""
+    from multimodal_auv_torch.data.datasets import resolve_patch_size
+
+    full = batch["bathy_image"] if kind == "bathy" else batch["sss_image"]
+    patches = batch.get(f"patch_{kind}", {}) or {}
+    size = resolve_patch_size(patch_type, kind, patches)
+    return patches[size] if size is not None else full
+
+
+def _fetch(m) -> dict:
+    """A step's metrics on the host: one copy of its ``fused`` tensor."""
+    vec = m["fused"].cpu().numpy()
+    if "skipped" in m:  # train-step layout
+        return unfuse_train_metrics(vec)
+    return unfuse_eval_metrics(vec, m["predicted"].shape[0])
+
+
+class _LaggedFetch:
+    """One-batch-lagged device-to-host metrics: ``push`` returns the
+    previous batch's metrics (or None) while the device runs the current
+    one; ``flush`` drains the last."""
+
+    def __init__(self):
+        self._pending = None
+
+    def push(self, item):
+        prev, self._pending = self._pending, item
+        return None if prev is None else (prev[0], _fetch(prev[1]))
+
+    def flush(self):
+        return self.push(None)
+
+
+def _ledger_open(csv_path: str):
+    """(file, writer, write_header) of an appended CSV ledger."""
+    exists = os.path.isfile(csv_path)
+    f = open(csv_path, mode="a", newline="")
+    return f, csv.writer(f), not exists
+
+
+def _pad_batch(arrays, labels, nominal: int):
+    """Pad a ragged final batch to the nominal size by repeating its last
+    row; returns (arrays, labels, mask) with mask 0.0 on the pad."""
+    n = labels.shape[0]
+    mask = np.ones((nominal,), np.float32)
+    if n == nominal:
+        return arrays, labels, mask
+    pad = nominal - n
+    mask[n:] = 0.0
+    arrays = [np.concatenate([a, np.repeat(a[-1:], pad, 0)]) for a in arrays]
+    labels = np.concatenate([labels, np.repeat(labels[-1:], pad, 0)])
+    return arrays, labels, mask
+
+
+def _device_batch(batch, bathy_patch_type, sss_patch_type, nominal, device):
+    """(inputs, labels, mask, n_valid) of a loader batch, padded to the
+    nominal size and placed on ``device``."""
+    inputs = [np.asarray(batch["main_image"]),
+              np.asarray(select_patch(batch, bathy_patch_type, "bathy")),
+              np.asarray(select_patch(batch, sss_patch_type, "sss"))]
+    labels = np.asarray(batch["label"], np.int32)
+    valid = labels.shape[0]
+    inputs, labels, mask = _pad_batch(inputs, labels, nominal)
+    place = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return [place(a) for a in inputs], place(labels), place(mask), valid
+
+
+def train_multimodal_model(
+    train_step, state: BayesTrainState, dataloader, epoch: int,
+    total_num_epochs: int, csv_path: str, model_type: str, sum_writer,
+    generator: torch.Generator, lr: float,
+    bathy_patch_type: Optional[str] = None,
+    sss_patch_type: Optional[str] = None,
+    strict_errors: bool = False,
+    stop_check: Optional[Callable[[], bool]] = None,
+) -> Tuple[BayesTrainState, float, float]:
+    """One training epoch (the reference's multimodal.py:25-202). Returns
+    (state, train_loss, train_accuracy).
+
+    ``strict_errors=False`` is the reference's behaviour: an exception
+    mid-epoch crash-saves the posterior and returns zero metrics; ``True``
+    crash-saves and re-raises. ``stop_check`` (engine/preemption.py) is
+    polled each batch; when it turns true the loop stops at the batch
+    boundary without the epoch's CSV row or 5-epoch checkpoint."""
+    csv_path = str(Path(csv_path))
+    sss_size = _patch_size_str(sss_patch_type, "sss")
+    bathy_size = _patch_size_str(bathy_patch_type, "bathy")
+    name = f"{model_type}_bathy_patch{bathy_size}_sss_patch{sss_size}"
+    device = state.post.mu.device
+    try:
+        csvfile, writer, write_header = _ledger_open(csv_path)
+        with csvfile:
+            if write_header:
+                writer.writerow(TRAIN_CSV_HEADER)
+            total_loss, correct, total = 0.0, 0.0, 0.0
+            kl_weight = kl_annealing_weight(epoch, total_num_epochs)
+            nominal = dataloader.batch_size
+            last_kl, last_ce = 0.0, 0.0
+            lag = _LaggedFetch()
+
+            def account(done):
+                nonlocal total_loss, correct, total, last_kl, last_ce
+                if done is None:
+                    return
+                j, m = done
+                loss = float(m["loss"])
+                loss_bad = not np.isfinite(loss)
+                if m["skipped"]:
+                    logger.warning(
+                        "Skipping %s %d due to NaN/Inf",
+                        "batch" if loss_bad else "optimizer step for batch", j)
+                # kl/ce are computed before the reference's NaN check, so
+                # the last-batch columns update even for a skipped batch
+                last_kl, last_ce = m["scaled_kl"], m["cross_entropy"]
+                if loss_bad:
+                    # the reference skips such a batch before any count
+                    return
+                total_loss += loss
+                correct += m["correct"]
+                total += m["total"]
+                sum_writer.add_scalar("Loss/train", loss, j)
+
+            preempted = False
+            for i, batch in enumerate(dataloader):
+                if stop_check is not None and stop_check():
+                    logger.warning(
+                        "Preemption requested — stopping train epoch %d at "
+                        "batch %d (partial-epoch updates are discarded by a "
+                        "checkpoint resume)", epoch, i)
+                    preempted = True
+                    break
+                inputs, labels, mask, _ = _device_batch(
+                    batch, bathy_patch_type, sss_patch_type, nominal, device)
+                state, m = train_step(state, inputs, labels, mask, generator,
+                                      kl_weight, float(nominal))
+                account(lag.push((i, m)))
+            account(lag.flush())
+
+            train_accuracy = correct / max(total, 1.0)
+            train_loss = total_loss / max(total, 1.0)
+            if not preempted:
+                logger.info("Epoch %d complete. Loss: %.4f, Accuracy: %.4f, "
+                            "LR: %.6f", epoch + 1, train_loss, train_accuracy,
+                            lr)
+                writer.writerow([epoch, model_type, train_loss, train_accuracy,
+                                 lr, last_kl, last_ce, sss_size, bathy_size])
+        if epoch % 5 == 0 and not preempted:
+            ckpt.save_model(state.post, csv_path, name)
+        return state, train_loss, train_accuracy
+    except Exception:
+        # crash-save, as the reference's bare except (multimodal.py:194-200)
+        ckpt.save_model(state.post, csv_path, name)
+        logger.error("Error at epoch %d", epoch, exc_info=True)
+        if strict_errors:
+            raise
+        return state, 0.0, 0.0
+
+
+def evaluate_multimodal_model(
+    eval_step, state: BayesTrainState, dataloader, epoch: int,
+    total_num_epochs: int, csv_path: str, model_type: str,
+    generator: torch.Generator,
+    bathy_patch_type: Optional[str] = None,
+    sss_patch_type: Optional[str] = None,
+    class_names=None,
+    strict_errors: bool = False,
+) -> float:
+    """MC evaluation epoch (the reference's multimodal.py:204-369), with
+    the entropy-decomposition uncertainty family; KL scaled by
+    len(dataloader), then kl_weight. Returns test_accuracy."""
+    csv_path = str(Path(csv_path))
+    device = state.post.mu.device
+    try:
+        csvfile, writer, write_header = _ledger_open(csv_path)
+        with csvfile:
+            if write_header:
+                writer.writerow(EVAL_CSV_HEADER)
+            kl_weight = kl_annealing_weight(epoch, total_num_epochs)
+            kl_scale = kl_weight / max(len(dataloader), 1)
+            nominal = dataloader.batch_size
+            total_loss, correct, total = 0.0, 0.0, 0.0
+            all_pred, all_lab = [], []
+            all_predictive, all_model_unc = [], []
+            last_kl, last_ce = 0.0, 0.0
+            lag = _LaggedFetch()
+
+            def account(done):
+                nonlocal total_loss, correct, total, last_kl, last_ce
+                if done is None:
+                    return
+                (labels, valid), m = done
+                total_loss += m["loss"]
+                correct += m["correct"]
+                total += m["total"]
+                all_pred.extend(m["predicted"][:valid])
+                all_lab.extend(labels[:valid])
+                all_predictive.extend(m["predictive_entropy"][:valid])
+                all_model_unc.extend(m["model_uncertainty"][:valid])
+                last_kl, last_ce = m["kl_scaled"], m["cross_entropy"]
+
+            for batch in dataloader:
+                inputs, labels, mask, valid = _device_batch(
+                    batch, bathy_patch_type, sss_patch_type, nominal, device)
+                m = eval_step(state.post, state.batch_stats, inputs, labels,
+                              mask, generator, kl_scale)
+                account(lag.push(((np.asarray(batch["label"]), valid), m)))
+            account(lag.flush())
+
+            test_accuracy = correct / max(total, 1.0)
+            test_loss = total_loss / max(len(dataloader), 1)
+            save_confusion_matrix(all_lab, all_pred, csv_path, model_type,
+                                  epoch, class_names)
+            writer.writerow([
+                epoch + 1, model_type, test_loss, test_accuracy,
+                float(np.mean(all_predictive)) if all_predictive else 0.0,
+                float(np.mean(all_model_unc)) if all_model_unc else 0.0,
+                last_kl, last_ce,
+                bathy_patch_type or "patch_30_bathy",
+                sss_patch_type or "patch_30_sss",
+            ])
+            logger.info("Epoch %d: Test Loss: %.4f, Accuracy: %.4f",
+                        epoch + 1, test_loss, test_accuracy)
+        return test_accuracy
+    except Exception as e:
+        logger.error("Critical error at epoch %d: %s", epoch, e, exc_info=True)
+        if strict_errors:
+            raise
+        return 0.0
+
+
+def train_and_evaluate_multimodal_model(
+    train_loader, test_loader, num_epochs: int, train_step, eval_step,
+    state: BayesTrainState, scheduler: StepLR, csv_dir: str,
+    sum_writer, seed: int, model_type: str = "multimodal",
+    bathy_patch_type: Optional[str] = None,
+    sss_patch_type: Optional[str] = None,
+    class_names=None,
+    double_scheduler_step: bool = True,
+    checkpoint_resume_path: Optional[str] = None,
+    strict_errors: bool = False,
+    preemption_guard=None,
+) -> BayesTrainState:
+    """The reference's loop_utils.py:162-250: per epoch, train ->
+    scheduler.step() -> eval -> scheduler.step() again (the reference's
+    double step, ``double_scheduler_step=False`` to switch it off).
+
+    ``checkpoint_resume_path``: the train state is saved there after every
+    epoch and, if the file exists, restored first; a checkpoint without
+    scheduler metadata, or of another ``model_type``, is refused.
+    ``preemption_guard`` (engine/preemption.py): the train loop stops at
+    the next batch boundary, and the orchestrator returns without eval or
+    the epoch's save, so the resume point stays at the last completed
+    epoch."""
+    os.makedirs(csv_dir, exist_ok=True)
+    train_csv = os.path.join(csv_dir, "multimodal_train_results.csv")
+    eval_csv = os.path.join(csv_dir, "multimodal_eval_results.csv")
+
+    start_epoch = 0
+    if checkpoint_resume_path and os.path.exists(checkpoint_resume_path):
+        state, start_epoch, sched = ckpt.restore_train_state(
+            checkpoint_resume_path, state)
+        if sched is None:
+            raise ValueError(
+                f"checkpoint {checkpoint_resume_path!r} has no scheduler "
+                f"metadata — refusing a blind resume")
+        if model_type not in sched:
+            raise ValueError(
+                f"checkpoint {checkpoint_resume_path!r} was saved for "
+                f"model_type(s) {sorted(sched)} — refusing to resume "
+                f"{model_type!r} from it (use one resume path per model)")
+        scheduler.load_state_dict({"epoch_count": sched[model_type]})
+        logger.info("Resumed from %s at epoch %d", checkpoint_resume_path,
+                    start_epoch)
+
+    stop_check = (preemption_guard.check if preemption_guard is not None
+                  else None)
+    for epoch in range(start_epoch, num_epochs):
+        set_learning_rate(state.opt_state, scheduler.lr)
+        if hasattr(train_loader, "set_epoch"):
+            train_loader.set_epoch(epoch)
+        state, train_loss, _ = train_multimodal_model(
+            train_step, state, train_loader, epoch, num_epochs, train_csv,
+            model_type, sum_writer, epoch_generator(seed, 2 * epoch),
+            scheduler.lr, bathy_patch_type, sss_patch_type,
+            strict_errors=strict_errors, stop_check=stop_check)
+        if preemption_guard is not None and preemption_guard.triggered:
+            logger.warning(
+                "Preempted during epoch %d — stopping without its boundary "
+                "save; resume%s replays it from the last completed epoch",
+                epoch, f" ({checkpoint_resume_path})"
+                if checkpoint_resume_path else "")
+            break
+        scheduler.step()
+        test_acc = evaluate_multimodal_model(
+            eval_step, state, test_loader, epoch, num_epochs, eval_csv,
+            model_type, epoch_generator(seed, 2 * epoch + 1),
+            bathy_patch_type, sss_patch_type, class_names,
+            strict_errors=strict_errors)
+        if double_scheduler_step:
+            scheduler.step()  # the reference's loop_utils.py:246
+        sum_writer.add_scalar("Loss/train_epoch", train_loss, epoch)
+        sum_writer.add_scalar("Accuracy/val_epoch", test_acc, epoch)
+        if checkpoint_resume_path:
+            ckpt.save_train_state(checkpoint_resume_path, state, epoch + 1,
+                                  {model_type: scheduler.epoch_count})
+        if preemption_guard is not None and preemption_guard.triggered:
+            logger.warning("Preempted after completed epoch %d — stopping "
+                           "cleanly", epoch)
+            break
+    return state

@@ -1,30 +1,48 @@
-"""Monte-Carlo forward machinery (port of ``multimodal_auv_tpu/engine/mc.py``,
-split-sampling path).
+"""Monte-Carlo forward machinery (port of ``multimodal_auv_tpu/engine/mc.py``).
 
-``mc_logits`` samples the packed posterior a chunk at a time with one
-launch of the split sampler (``ops/sampling.py``), then runs one
+``mc_logits`` samples the packed posterior a chunk at a time, then runs one
 sequential forward per draw. Each chunk takes its own seed pair from a
-``torch.Generator``, as the JAX package takes one key per chunk.
+``torch.Generator``, as the JAX package takes one key per chunk; every path
+draws the seeds the same way and in the same order (``_dispatch_chunks``).
+
+Two ways to consume a chunk:
+
+* split (inference): one launch of the split sampler gives separate
+  weight vectors (``gaussian_shift_scale_split``); not differentiable.
+* stacked (training): the differentiable ``gaussian_shift_scale``. With
+  ``remat`` and a chunk of at most 4 draws, sampling and the chunk's
+  forwards run under one ``torch.utils.checkpoint``, so the backward
+  samples the weights again from the chunk's seed and regenerates eps from
+  it: nothing but the seed pair is kept per chunk. The seeds are drawn from
+  the generator before any checkpoint, so the re-forward sees the same
+  weights.
 
 BatchNorm: the reference runs BN in train mode even at inference, so the
 forward normalises by the current batch's statistics (real rows only when
-``batch_mask`` is given) and never updates the running statistics.
+``batch_mask`` is given). ``return_batch_stats`` chains the running-statistics
+update through the draws, one momentum step per stochastic forward, as the
+reference's training does; otherwise the running statistics are untouched.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_auv_torch.bayes.packing import PackedPosterior, PackMeta, softplus
-from multimodal_auv_torch.ops.sampling import gaussian_shift_scale_split
+from multimodal_auv_torch.ops.sampling import (
+    gaussian_shift_scale,
+    gaussian_shift_scale_split,
+)
 
-_LATER = ("is not ported yet: ROADMAP.md, Open items, 1 'Modules to port' "
-          "item {item}")
 
-
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} " + _LATER.format(item=item))
+def not_ported(flag: str, item: str) -> NotImplementedError:
+    """The error of a flag whose path is not ported yet, naming its item
+    in ROADMAP.md."""
+    return NotImplementedError(
+        f"{flag} is not ported yet: ROADMAP.md, Open items, 1 'Modules to "
+        f"port' item {item}")
 
 
 def chunk_seeds(generator: torch.Generator, nchunks: int
@@ -46,49 +64,105 @@ def _resolve_fast(fast_sampling: Optional[bool],
 def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
               inputs: Sequence[torch.Tensor], generator: torch.Generator,
               num_mc: int, *, mc_chunk: int = 1, train: bool = True,
-              sample_dtype: Optional[torch.dtype] = None, batch_mask=None,
-              split_sampling: bool = True, fast_sampling: Optional[bool] = None,
-              antithetic: bool = False, ws_sharding=None,
-              return_batch_stats: bool = False,
-              pipelined: bool = False) -> torch.Tensor:
-    """Stacked logits over MC draws: (num_mc, batch, num_classes).
+              remat: bool = True, ws_sharding=None,
+              sample_dtype: Optional[torch.dtype] = None,
+              cast_posterior: bool = True, antithetic: bool = False,
+              batch_mask=None, return_batch_stats: bool = False,
+              split_sampling: bool = False, pipelined: bool = False,
+              fast_sampling: Optional[bool] = None):
+    """Stacked logits over MC draws: (num_mc, batch, num_classes); with
+    ``return_batch_stats`` the pair (logits, new running statistics).
 
-    ``sample_dtype``: dtype of the sampled weights; mu and sigma are cast to
-    it once, before sampling (None: mu's dtype). ``fast_sampling``:
-    the bf16-budget noise polynomials (None = exactly when sampling to
-    bf16). ``train``: BN from batch statistics (else running statistics)."""
+    ``sample_dtype``: dtype of the sampled weights (None: mu's dtype).
+    ``cast_posterior``: with ``sample_dtype`` set, cast mu and sigma to it
+    before sampling (inference); False keeps them f32 and casts only the
+    sampler's output (training: f32 master posterior and f32 gradients).
+    ``split_sampling``: the split sampler; ignored (stacked) with
+    ``return_batch_stats``. ``fast_sampling``: the bf16-budget noise on the
+    split path (None = exactly when sampling to bf16); the stacked path
+    always uses the f32 noise its backward regenerates. ``train``: BN from
+    batch statistics (else running statistics). ``remat``: checkpoint each
+    chunk's sampling and forwards when gradients are being recorded."""
     if antithetic:
-        raise _not_ported("antithetic", "5 (training, kernel #2)")
+        raise not_ported("antithetic", "5 (training: antithetic draws)")
     if ws_sharding is not None:
-        raise _not_ported("ws_sharding", "8 (parallel)")
-    if return_batch_stats:
-        raise _not_ported("return_batch_stats", "5 (training, kernel #2)")
+        raise not_ported("ws_sharding", "8 (parallel)")
     if pipelined:
-        raise _not_ported("pipelined", "4 (MC inference, pipelined variant)")
-    if not split_sampling:
-        raise _not_ported("the stacked sampling path",
-                          "5 (training, kernel #2)")
+        raise not_ported("pipelined", "4 (MC inference, pipelined variant)")
     if num_mc % mc_chunk != 0:
         raise ValueError(f"num_mc={num_mc} must be divisible by "
                          f"mc_chunk={mc_chunk}")
+    if return_batch_stats and not train:
+        raise ValueError("return_batch_stats requires train=True")
     nchunks = num_mc // mc_chunk
 
     # sigma = softplus(rho) is loop-invariant across draws: computed once
     # (f32), then cast with mu for the sampling kernel.
     mu = post.mu
     sigma = softplus(post.rho.to(torch.float32))
-    if sample_dtype is not None:
+    if sample_dtype is not None and cast_posterior:
         mu = mu.to(sample_dtype)
-    sigma = sigma.to(mu.dtype)
-    fast = _resolve_fast(fast_sampling, sample_dtype)
+        sigma = sigma.to(sample_dtype)
+    else:
+        sigma = sigma.to(mu.dtype)
 
+    split_sampling = split_sampling and not return_batch_stats
+    # seeds come from the generator here, outside any checkpoint: drawn
+    # inside, the re-forward would sample other weights
+    seeds = chunk_seeds(generator, nchunks)
+
+    def fwd(w, bs):
+        params = meta.unpack(w, post.det)
+        if return_batch_stats:
+            return module(params, bs, *inputs, train=True,
+                          batch_mask=batch_mask, mutable=True)
+        return module(params, batch_stats, *inputs, train=train,
+                      batch_mask=batch_mask), bs
+
+    if split_sampling:
+        fast = _resolve_fast(fast_sampling, sample_dtype)
+        logits = []
+        for seed in seeds:
+            for w in gaussian_shift_scale_split(mu, sigma, seed, mc_chunk,
+                                                out_dtype=sample_dtype,
+                                                fast_math=fast):
+                logits.append(fwd(w, None)[0])
+        return torch.stack(logits)
+
+    recording = torch.is_grad_enabled() and (mu.requires_grad
+                                             or sigma.requires_grad)
+    if remat and recording and mc_chunk > 4:
+        raise not_ported("remat with mc_chunk > 4 (per-draw checkpoints "
+                         "keeping the sampled weights)", "5 (training)")
+
+    def chunk(seed, bs):
+        ws = gaussian_shift_scale(mu, sigma, seed, mc_chunk,
+                                  out_dtype=sample_dtype)
+        outs = []
+        for w in ws.unbind(0):
+            out, bs = fwd(w, bs)
+            outs.append(out)
+        return torch.stack(outs), bs
+
+    bs = batch_stats if return_batch_stats else None
     logits = []
-    for seed in chunk_seeds(generator, nchunks):
-        ws = gaussian_shift_scale_split(mu, sigma, seed, mc_chunk,
-                                        out_dtype=sample_dtype,
-                                        fast_math=fast)
-        for w in ws:
-            params = meta.unpack(w, post.det)
-            logits.append(module(params, batch_stats, *inputs, train=train,
-                                 batch_mask=batch_mask))
-    return torch.stack(logits)
+    for seed in seeds:
+        if remat and recording:
+            out, bs = checkpoint(chunk, seed, bs, use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            out, bs = chunk(seed, bs)
+        logits.append(out)
+    logits = torch.cat(logits)
+    return (logits, bs) if return_batch_stats else logits
+
+
+def refresh_batch_stats(module, meta: PackMeta, post: PackedPosterior,
+                        batch_stats, inputs, batch_mask=None):
+    """One posterior-mean forward that advances the running statistics
+    (momentum 0.9, as torch BN momentum=0.1); returns the new statistics."""
+    with torch.no_grad():
+        params = meta.unpack(post.mu, post.det)
+        _, new = module(params, batch_stats, *inputs, train=True,
+                        batch_mask=batch_mask, mutable=True)
+    return new

@@ -74,8 +74,9 @@ def make_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
     def step(post, batch_stats, inputs, generator, mask=None):
         logits = mc_logits(module, meta, post, batch_stats, inputs, generator,
                            num_mc_samples, mc_chunk=mc_chunk,
-                           train=(bn_mode == "train"),
+                           train=(bn_mode == "train"), remat=False,
                            sample_dtype=sample_dtype, batch_mask=mask,
+                           split_sampling=True,
                            fast_sampling=fast_sampling)
         return _mc_outputs(logits)
 

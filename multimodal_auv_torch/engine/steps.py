@@ -1,0 +1,227 @@
+"""Train and eval steps: the MC-ELBO recipe (port of
+``multimodal_auv_tpu/engine/steps.py``).
+
+Loss semantics are the reference's (train/multimodal.py:104-130):
+
+    logits_mc  : num_mc stochastic forwards (weights re-sampled per draw)
+    output     = mean(logits_mc, axis=0)
+    scaled_kl  = KL(q || prior) / batch_size * kl_weight
+    loss       = CrossEntropy(output, labels) + scaled_kl
+
+(The per-draw KL is a deterministic function of (mu, rho), so it is
+computed once.) A step whose loss or gradients are not finite updates
+neither the posterior nor the Adam state, as the reference skips such
+batches (multimodal.py:133-145). The JAX step selects branchlessly inside
+one program; here the guard costs one host sync per step.
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from multimodal_auv_torch.bayes.packing import kl_divergence
+from multimodal_auv_torch.config import BNNPriorSpec
+from multimodal_auv_torch.engine import uncertainty as U
+from multimodal_auv_torch.engine.mc import mc_logits, not_ported
+from multimodal_auv_torch.engine.optim import BayesTrainState, trainable_leaves
+from multimodal_auv_torch.ops.preprocess import normalize_multimodal
+
+
+def _masked_ce(output: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    ce_vec = F.cross_entropy(output, labels.long(), reduction="none")
+    return (ce_vec * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def make_elbo_loss_fn(module, meta, spec: BNNPriorSpec, num_mc: int, *,
+                      mc_chunk: int = 1, sample_dtype=None,
+                      packed_inputs: bool = False, remat: bool = True):
+    """The training ELBO that ``make_train_step`` differentiates.
+
+    Returns loss_fn(post, batch_stats, inputs, labels, mask, generator,
+    kl_weight, bs_scale) -> (loss, (output, ce, scaled_kl,
+    new_batch_stats)). ``mask`` is f32 (batch,): 1.0 for real rows, 0.0
+    for the padding of a ragged last batch. The running statistics are
+    chained through the draws (``mc_logits(return_batch_stats=True)``)."""
+
+    def loss_fn(post, batch_stats, inputs, labels, mask, generator,
+                kl_weight, bs_scale):
+        if packed_inputs:
+            inputs = normalize_multimodal(*inputs)
+        logits, new_bs = mc_logits(
+            module, meta, post, batch_stats, inputs, generator, num_mc,
+            mc_chunk=mc_chunk, train=True, remat=remat, batch_mask=mask,
+            sample_dtype=sample_dtype, cast_posterior=False,
+            return_batch_stats=True)
+        output = logits.to(torch.float32).mean(dim=0)
+        ce = _masked_ce(output, labels, mask)
+        scaled_kl = kl_divergence(post, spec) / bs_scale * kl_weight
+        return ce + scaled_kl, (output, ce, scaled_kl, new_bs)
+
+    return loss_fn
+
+
+def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
+                    mc_chunk: int = 1, sample_dtype=None,
+                    packed_inputs: bool = False, remat="on"):
+    """Returns (state, inputs, labels, mask, generator, kl_weight,
+    batch_size_scale) -> (state, metrics). ``mask`` is f32[batch]
+    (1.0 = real row, 0.0 = ragged-tail padding) and sits BEFORE the
+    generator. The state's posterior and Adam state are updated in place;
+    the step's gradients stay in the leaves' ``.grad`` until the next step.
+
+    BN running statistics are chained through the MC loop (one momentum
+    update per stochastic forward, the reference's semantics) at no extra
+    forward.
+
+    ``sample_dtype``: dtype of the sampled weights fed to the forward
+    (``torch.bfloat16``: mixed precision; mu, rho, gradients and Adam stay
+    f32). ``remat``: "on" (checkpoint each chunk's sampling and forwards,
+    memory flat in num_mc) or "off"."""
+    if remat == "auto":
+        raise not_ported("remat='auto' (it rests on XLA's compiled memory "
+                         "analysis)", "5 (training: remat='auto')")
+    remat = remat if isinstance(remat, bool) else {"on": True,
+                                                   "off": False}[remat]
+    loss_fn = make_elbo_loss_fn(module, meta, spec, num_mc,
+                                mc_chunk=mc_chunk, sample_dtype=sample_dtype,
+                                packed_inputs=packed_inputs, remat=remat)
+
+    def step(state: BayesTrainState, inputs, labels, mask, generator,
+             kl_weight, batch_size_scale) -> Tuple[BayesTrainState, Any]:
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        loss, (output, ce, scaled_kl, new_bs) = loss_fn(
+            state.post, state.batch_stats, inputs, labels, mask, generator,
+            kl_weight, batch_size_scale)
+        loss.backward()
+        grads = [p.grad for p in trainable_leaves(state.post)
+                 if p.grad is not None]
+        finite = torch.stack([torch.isfinite(loss)]
+                             + [torch.isfinite(g).all() for g in grads])
+        loss_ok, *grads_ok = finite.tolist()  # the step's one host sync
+        ok = loss_ok and all(grads_ok)
+        if ok:
+            opt.step()
+
+        loss = loss.detach()
+        predicted = output.detach().argmax(dim=-1)
+        correct = ((predicted == labels) * mask).sum()
+        loss_out = loss if loss_ok else torch.full_like(loss, float("nan"))
+        total = mask.sum()
+        skipped = torch.tensor(float(not ok), device=loss.device)
+        metrics = {
+            "loss": loss_out,
+            "cross_entropy": ce.detach(),
+            "scaled_kl": scaled_kl.detach(),
+            "correct": correct,
+            "total": total,
+            "skipped": not ok,
+            "predicted": predicted,
+            # every scalar and the per-sample vector as one f32 tensor: one
+            # device-to-host copy per batch (parse with unfuse_train_metrics)
+            "fused": torch.cat([
+                torch.stack([loss_out, ce.detach(), scaled_kl.detach(),
+                             correct.to(torch.float32), total, skipped]),
+                predicted.to(torch.float32)]),
+        }
+        new_state = BayesTrainState(post=state.post, opt_state=opt,
+                                    batch_stats=new_bs, step=state.step + 1)
+        return new_state, metrics
+
+    return step
+
+
+def make_eval_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
+                   mc_chunk: int = 1, packed_inputs: bool = False):
+    """Returns (post, batch_stats, inputs, labels, mask, generator,
+    kl_scale) -> metrics with both uncertainty families, on the split
+    sampling path with f32 noise. ``kl_scale`` absorbs the call site's
+    divisor and the annealed kl_weight (multimodal eval divides the KL by
+    len(dataloader), the reference's multimodal.py:293)."""
+
+    @torch.no_grad()
+    def step(post, batch_stats, inputs, labels, mask, generator, kl_scale):
+        if packed_inputs:
+            inputs = normalize_multimodal(*inputs)
+        logits = mc_logits(module, meta, post, batch_stats, inputs,
+                           generator, num_mc, mc_chunk=mc_chunk, train=True,
+                           remat=False, batch_mask=mask, split_sampling=True)
+        probs = U.softmax_probs(logits)
+        output_mean = logits.to(torch.float32).mean(dim=0)
+        ce = _masked_ce(output_mean, labels, mask)
+        kl_scaled = kl_divergence(post, spec) * kl_scale
+        predicted = output_mean.argmax(dim=-1)
+        ent = U.entropy_decomposition(probs, eps=1e-8)
+        mean_prob = U.mean_probs(probs)
+        correct = ((predicted == labels) * mask).sum()
+        total = mask.sum()
+        epi_var = U.variance_uncertainty(probs)
+        alea_mc = U.aleatoric_uncertainty(probs, eps=1e-7)
+        loss = ce + kl_scaled
+        f32 = lambda t: t.to(torch.float32)
+        return {
+            "loss": loss,
+            "cross_entropy": ce,
+            "kl_scaled": kl_scaled,
+            "predicted": predicted,
+            "mean_prob": mean_prob,
+            "correct": correct,
+            "total": total,
+            # entropy-decomposition family (the reference's multimodal eval)
+            "predictive_entropy": ent.predictive,
+            "aleatoric_entropy": ent.aleatoric,
+            "model_uncertainty": ent.model,
+            # variance family (the reference's unimodal eval; eps 1e-7)
+            "epistemic_variance": epi_var,
+            "aleatoric_mc_entropy": alea_mc,
+            # one-copy bundle, parse with unfuse_eval_metrics
+            "fused": torch.cat([
+                torch.stack([loss, ce, kl_scaled, f32(correct), total]),
+                f32(predicted), f32(ent.predictive), f32(ent.aleatoric),
+                f32(ent.model), f32(epi_var), f32(alea_mc),
+                f32(mean_prob).reshape(-1)]),
+        }
+
+    return step
+
+
+def unfuse_train_metrics(vec) -> dict:
+    """Host-side parse of ``make_train_step``'s ``fused`` tensor."""
+    vec = np.asarray(vec)
+    return {
+        "loss": float(vec[0]),
+        "cross_entropy": float(vec[1]),
+        "scaled_kl": float(vec[2]),
+        "correct": float(vec[3]),
+        "total": float(vec[4]),
+        "skipped": bool(vec[5]),
+        "predicted": vec[6:].astype(np.int32),
+    }
+
+
+def unfuse_eval_metrics(vec, batch_size: int) -> dict:
+    """Host-side parse of ``make_eval_step``'s ``fused`` tensor: 5 scalars,
+    6 per-sample vectors of length ``batch_size``, then the (batch, C)
+    mean_prob raveled."""
+    vec = np.asarray(vec)
+    b = batch_size
+    names = ["predicted", "predictive_entropy", "aleatoric_entropy",
+             "model_uncertainty", "epistemic_variance", "aleatoric_mc_entropy"]
+    out = {
+        "loss": float(vec[0]),
+        "cross_entropy": float(vec[1]),
+        "kl_scaled": float(vec[2]),
+        "correct": float(vec[3]),
+        "total": float(vec[4]),
+    }
+    off = 5
+    for n in names:
+        out[n] = vec[off:off + b]
+        off += b
+    out["predicted"] = out["predicted"].astype(np.int32)
+    out["mean_prob"] = vec[off:].reshape(b, -1)
+    return out

@@ -9,7 +9,8 @@
   with no nonlinearity between the fc layers.
 
 Functional like ``models/resnet.py``: ``forward`` takes the param and
-BatchNorm-statistics trees.
+BatchNorm-statistics trees, and with ``mutable=True`` also returns the
+three trunks' new running statistics.
 """
 from __future__ import annotations
 
@@ -79,14 +80,18 @@ class MultiModalModel(nn.Module):
     def forward(self, p: Tree, s: Tree, inputs: torch.Tensor,
                 bathy_tensor: torch.Tensor, sss_image: torch.Tensor,
                 train: bool = True,
-                batch_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        attended = []
+                batch_mask: Optional[torch.Tensor] = None,
+                mutable: bool = False):
+        attended, new_s = [], {}
         for (trunk, _), attn, x in zip(_TRUNKS, _ATTN,
                                        (inputs, bathy_tensor, sss_image)):
             feats = getattr(self, trunk)(p[trunk], s.get(trunk, {}), x,
-                                         train, batch_mask)
+                                         train, batch_mask, mutable)
+            if mutable:
+                feats, new_s[trunk] = feats
             attended.append(getattr(self, attn)(p[attn], feats))
         x = torch.cat(attended, dim=1)
         x = dense(x, p["fc"], self.dtype)
         x = dense(x, p["fc1"], self.dtype)
-        return dense(x, p["fc2"], self.dtype)
+        x = dense(x, p["fc2"], self.dtype)
+        return (x, new_s) if mutable else x

@@ -14,8 +14,12 @@ NHWC, as in the JAX package, and are permuted to NCHW inside.
 BatchNorm follows flax, not ``nn.BatchNorm2d``: statistics in f32 with the
 biased variance E[x^2] - E[x]^2 (clipped at 0), taken in train mode over
 the rows where ``batch_mask`` is true; eps 1e-5; normalisation in f32, then
-a cast to the activation dtype. Running statistics are read only in eval
-mode; inference never updates them.
+a cast to the activation dtype. Running statistics are read in eval mode.
+With ``mutable=True`` (train mode only) ``forward`` also returns them
+advanced by flax's update, ra = 0.9 ra + (1 - 0.9) batch_stat with the
+biased batch variance over the ``batch_mask`` rows, detached. The update
+is functional: it returns new tensors and mutates nothing, so a forward
+that ``torch.utils.checkpoint`` runs again in the backward changes nothing.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from torch import nn
 Tree = Dict[str, object]
 
 EXPANSION = 4
+MOMENTUM = 0.9
 
 
 def conv(x: torch.Tensor, kernel: torch.Tensor, stride: int,
@@ -45,8 +50,10 @@ def dense(x: torch.Tensor, p: Tree, dtype: torch.dtype) -> torch.Tensor:
 
 def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
                batch_mask: Optional[torch.Tensor], dtype: torch.dtype,
-               eps: float = 1e-5) -> torch.Tensor:
-    """flax BatchNorm over NCHW ``x``; ``batch_mask`` is a bool (B,)."""
+               eps: float = 1e-5, mutable: bool = False
+               ) -> Tuple[torch.Tensor, Optional[Tree]]:
+    """flax BatchNorm over NCHW ``x``; ``batch_mask`` is a bool (B,).
+    Returns (y, new running statistics if ``mutable`` else None)."""
     x32 = x.to(torch.float32)
     if train:
         if batch_mask is None:
@@ -62,10 +69,16 @@ def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
     else:
         mean, var = stats["mean"], stats["var"]
+    new = None
+    if mutable:
+        if not train:
+            raise ValueError("running statistics update only in train mode")
+        new = {k: MOMENTUM * stats[k] + (1 - MOMENTUM) * v.detach()
+               for k, v in (("mean", mean), ("var", var))}
     y = x32 - mean.view(1, -1, 1, 1)
     mul = torch.rsqrt(var + eps) * p["scale"]
     y = y * mul.view(1, -1, 1, 1) + p["bias"].view(1, -1, 1, 1)
-    return y.to(dtype)
+    return y.to(dtype), new
 
 
 def _conv_init(gen, k, cin, cout):
@@ -107,11 +120,16 @@ class Bottleneck(nn.Module):
         return p, s
 
     def forward(self, p: Tree, s: Tree, x: torch.Tensor, train: bool = True,
-                batch_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                batch_mask: Optional[torch.Tensor] = None,
+                mutable: bool = False):
+        """The block's output, and with ``mutable`` its new statistics."""
         dt = self.dtype
+        new_s = {}
 
         def bn(name, y):
-            return batch_norm(y, p[name], s.get(name), train, batch_mask, dt)
+            y, new_s[name] = batch_norm(y, p[name], s.get(name), train,
+                                        batch_mask, dt, mutable=mutable)
+            return y
 
         out = torch.relu(bn("bn1", conv(x, p["conv1"]["kernel"], 1, dt)))
         out = torch.relu(bn("bn2", conv(out, p["conv2"]["kernel"],
@@ -121,7 +139,8 @@ class Bottleneck(nn.Module):
         if self.downsample:
             identity = bn("downsample_bn", conv(
                 x, p["downsample_conv"]["kernel"], self.stride, dt))
-        return torch.relu(out + identity)
+        out = torch.relu(out + identity)
+        return (out, new_s) if mutable else out
 
 
 class ResNet(nn.Module):
@@ -163,19 +182,25 @@ class ResNet(nn.Module):
         return p, s
 
     def forward(self, p: Tree, s: Tree, x: torch.Tensor, train: bool = True,
-                batch_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                batch_mask: Optional[torch.Tensor] = None,
+                mutable: bool = False):
+        """(B, feature_size) features or (B, num_classes) logits, and with
+        ``mutable`` the trunk's new running statistics."""
         if batch_mask is not None:
             batch_mask = batch_mask.reshape(-1).to(torch.bool)
         dt = self.dtype
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW (a view)
         x = conv(x, p["conv1"]["kernel"], 2, dt)
-        x = torch.relu(batch_norm(x, p["bn1"], s.get("bn1"), train,
-                                  batch_mask, dt))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
+        x, new_s = batch_norm(x, p["bn1"], s.get("bn1"), train, batch_mask,
+                              dt, mutable=mutable)
+        new_s = {"bn1": new_s}
+        x = F.max_pool2d(torch.relu(x), 3, stride=2, padding=1)  # -inf pad
         for name in self.block_names:
             x = getattr(self, name)(p[name], s.get(name, {}), x, train,
-                                    batch_mask)
+                                    batch_mask, mutable)
+            if mutable:
+                x, new_s[name] = x
         x = x.mean(dim=(2, 3))  # global average pool -> (B, C)
         if self.num_classes is not None:
             x = dense(x, p["fc"], dt)
-        return x
+        return (x, new_s) if mutable else x

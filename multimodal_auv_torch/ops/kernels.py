@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {"split_sampler": 0}
+LAUNCHES: Dict[str, int] = {"split_sampler": 0, "stacked_sampler": 0,
+                            "eps": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

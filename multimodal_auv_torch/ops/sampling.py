@@ -1,14 +1,22 @@
-"""Split posterior sampler: ``num_draws`` draws w_d = mu + sigma * eps_d.
+"""Posterior samplers: ``num_draws`` draws w_d = mu + sigma * eps_d.
 
-Port of the split path of ``multimodal_auv_tpu/ops/sampling.py``
-(``gaussian_shift_scale_split`` and its Pallas kernel
-``_pallas_reparam_split``). On a CUDA tensor the wrapper launches the
-hand-written kernel in ``csrc/sampling.cu``; on a CPU tensor it runs the
-plain PyTorch version below, which does the same arithmetic op for op, so
-the two agree bit for bit on the card.
+Port of ``multimodal_auv_tpu/ops/sampling.py``:
 
-The noise contract (shared with the later stacked and noise-only kernels,
-which must regenerate the same eps from the same seed):
+* ``gaussian_shift_scale_split`` (Pallas ``_pallas_reparam_split``): the
+  inference sampler, a list of separate draws, not differentiable;
+* ``gaussian_shift_scale`` (Pallas ``_reparam_sigma_kernel``): the training
+  sampler, a stacked (num_draws, P) tensor, differentiable. Its backward
+  regenerates eps from the seed (Pallas ``_eps_kernel``, here
+  ``gaussian_noise``) instead of saving it, as ``_gss_bwd`` does.
+
+On a CUDA tensor each wrapper launches its hand-written kernel in
+``csrc/sampling.cu``; on a CPU tensor it runs the plain PyTorch version
+below, which does the same arithmetic op for op, so the two agree bit for
+bit on the card. Every plain version draws its noise from the one function
+``eps_plain``.
+
+The noise contract (the same for the three kernels, so the backward
+regenerates exactly the forward's eps):
 
 * P elements form blocks of 512 x 128 = 65536 (``BLOCK_ROWS`` x ``LANES``);
   the last block may be partial.
@@ -148,41 +156,97 @@ def noise_bits(P: int, seed: Tuple[int, int], draw: int, device=None
     return x0, x1
 
 
+def eps_plain(P: int, seed: Tuple[int, int], num_draws: int, device=None,
+              fast_math: bool = False) -> torch.Tensor:
+    """The (num_draws, P) f32 eps of a seed: the noise of every plain
+    version (one draw at a time, to bound the int64 temporaries)."""
+    out = torch.empty((num_draws, P), dtype=torch.float32, device=device)
+    for d in range(num_draws):
+        b1, b2 = noise_bits(P, seed, d, device)
+        out[d] = block_noise(b1, b2, P, fast_math)
+    return out
+
+
+def stacked_plain(mu: torch.Tensor, sigma: torch.Tensor,
+                  seed: Tuple[int, int], num_draws: int,
+                  out_dtype: torch.dtype, fast_math: bool = False
+                  ) -> torch.Tensor:
+    """The plain version of the samplers: (num_draws, P) mu + sigma * eps,
+    in f32, then cast."""
+    eps = eps_plain(mu.shape[0], seed, num_draws, mu.device, fast_math)
+    return (mu.to(torch.float32) + sigma.to(torch.float32) * eps).to(out_dtype)
+
+
 def split_plain(mu: torch.Tensor, sigma: torch.Tensor, seed: Tuple[int, int],
                 num_draws: int, out_dtype: torch.dtype,
                 fast_math: bool = False) -> List[torch.Tensor]:
-    """The plain PyTorch version of the kernel, on any device."""
-    P = mu.shape[0]
-    mu32, sg32 = mu.to(torch.float32), sigma.to(torch.float32)
-    outs = []
-    for d in range(num_draws):
-        b1, b2 = noise_bits(P, seed, d, mu.device)
-        eps = block_noise(b1, b2, P, fast_math)
-        outs.append((mu32 + sg32 * eps).to(out_dtype))
-    return outs
+    """The plain version of the split kernel, on any device."""
+    return list(stacked_plain(mu, sigma, seed, num_draws, out_dtype,
+                              fast_math).unbind(0))
 
 
 _DTYPE_OK = (torch.float32, torch.bfloat16)
 
 
-def _launch_split(mu, sigma, seed, num_draws, out_dtype, fast_math):
-    lib = kernels.load("sampling")
-    fn = lib.split_sampler_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
-                   ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+def _fn(name: str, argtypes):
+    fn = getattr(kernels.load("sampling"), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_sampler(mu, sigma, seed, num_draws, out_dtype, fast_math,
+                    stacked: bool) -> torch.Tensor:
+    """One launch of the sampler into a (num_draws, P) buffer: the split
+    kernel (``stacked=False``) or the stacked one."""
     P = mu.shape[0]
     out = torch.empty((num_draws, P), dtype=out_dtype, device=mu.device)
-    stream = torch.cuda.current_stream(mu.device).cuda_stream
-    rc = fn(mu.data_ptr(), sigma.data_ptr(), out.data_ptr(), P, num_draws,
+    args = [mu.data_ptr(), sigma.data_ptr(), out.data_ptr(), P, num_draws,
             int(seed[0]) & _M32, int(seed[1]) & _M32,
-            int(mu.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), int(fast_math), stream)
-    kernels.check(rc, "split_sampler")
-    kernels.LAUNCHES["split_sampler"] += 1
-    return list(out.unbind(0))
+            int(mu.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)]
+    types = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+             ctypes.c_int, ctypes.c_int]
+    name = "stacked_sampler" if stacked else "split_sampler"
+    if not stacked:
+        args.append(int(fast_math))
+        types.append(ctypes.c_int)
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    fn = _fn(f"{name}_launch", types + [ctypes.c_void_p])
+    kernels.check(fn(*args, stream), name)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def _launch_eps(P, seed, num_draws, device) -> torch.Tensor:
+    out = torch.empty((num_draws, P), dtype=torch.float32, device=device)
+    fn = _fn("eps_launch", [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    kernels.check(fn(out.data_ptr(), P, num_draws, int(seed[0]) & _M32,
+                     int(seed[1]) & _M32, stream), "eps")
+    kernels.LAUNCHES["eps"] += 1
+    return out
+
+
+def _check_args(mu, sigma, num_draws, out_dtype):
+    if mu.dim() != 1 or mu.shape != sigma.shape:
+        raise ValueError(f"mu {tuple(mu.shape)} and sigma "
+                         f"{tuple(sigma.shape)} must be equal 1-D shapes")
+    if mu.shape[0] % LANES != 0:
+        raise ValueError(f"packed size {mu.shape[0]} not a multiple of {LANES}")
+    if mu.dtype != sigma.dtype or mu.dtype not in _DTYPE_OK \
+            or out_dtype not in _DTYPE_OK:
+        raise ValueError(f"dtypes mu={mu.dtype} sigma={sigma.dtype} "
+                         f"out={out_dtype}: f32 or bf16, mu and sigma alike")
+    if num_draws < 1:
+        raise ValueError(f"num_draws={num_draws} must be >= 1")
+    if mu.device != sigma.device:
+        raise ValueError(f"mu on {mu.device}, sigma on {sigma.device}")
+    if mu.is_cuda and not (mu.is_contiguous() and sigma.is_contiguous()):
+        raise ValueError("mu and sigma must be contiguous")
+    if not mu.is_cuda and mu.device.type != "cpu":
+        raise ValueError(f"no sampler for device {mu.device}")
 
 
 def gaussian_shift_scale_split(mu: torch.Tensor, sigma: torch.Tensor,
@@ -199,23 +263,72 @@ def gaussian_shift_scale_split(mu: torch.Tensor, sigma: torch.Tensor,
     if fast_math and out_dtype != torch.bfloat16:
         raise ValueError("fast_math sampling is bf16-output-only (its error "
                          f"budget is the bf16 quantum); got {out_dtype}")
-    if mu.dim() != 1 or mu.shape != sigma.shape:
-        raise ValueError(f"mu {tuple(mu.shape)} and sigma "
-                         f"{tuple(sigma.shape)} must be equal 1-D shapes")
-    if mu.shape[0] % LANES != 0:
-        raise ValueError(f"packed size {mu.shape[0]} not a multiple of {LANES}")
-    if mu.dtype != sigma.dtype or mu.dtype not in _DTYPE_OK \
-            or out_dtype not in _DTYPE_OK:
-        raise ValueError(f"dtypes mu={mu.dtype} sigma={sigma.dtype} "
-                         f"out={out_dtype}: f32 or bf16, mu and sigma alike")
-    if num_draws < 1:
-        raise ValueError(f"num_draws={num_draws} must be >= 1")
-    if mu.device != sigma.device:
-        raise ValueError(f"mu on {mu.device}, sigma on {sigma.device}")
+    _check_args(mu, sigma, num_draws, out_dtype)
     if mu.is_cuda:
-        if not (mu.is_contiguous() and sigma.is_contiguous()):
-            raise ValueError("mu and sigma must be contiguous")
-        return _launch_split(mu, sigma, seed, num_draws, out_dtype, fast_math)
-    if mu.device.type == "cpu":
-        return split_plain(mu, sigma, seed, num_draws, out_dtype, fast_math)
-    raise ValueError(f"no sampler for device {mu.device}")
+        return list(_launch_sampler(mu, sigma, seed, num_draws, out_dtype,
+                                    fast_math, stacked=False).unbind(0))
+    return split_plain(mu, sigma, seed, num_draws, out_dtype, fast_math)
+
+
+def gaussian_noise(P: int, seed: Tuple[int, int], num_draws: int,
+                   device) -> torch.Tensor:
+    """The (num_draws, P) f32 eps that ``gaussian_shift_scale`` draws for
+    ``seed`` (the port of ``_pallas_eps``). On a CUDA device this launches
+    the eps kernel; on the CPU it runs ``eps_plain``."""
+    device = torch.device(device)
+    if P <= 0 or P % LANES != 0 or num_draws < 1:
+        raise ValueError(f"P={P} (a positive multiple of {LANES}) and "
+                         f"num_draws={num_draws} (>= 1)")
+    if device.type == "cuda":
+        return _launch_eps(P, seed, num_draws, device)
+    if device.type == "cpu":
+        return eps_plain(P, seed, num_draws, device)
+    raise ValueError(f"no sampler for device {device}")
+
+
+class _GaussianShiftScale(torch.autograd.Function):
+    """``_gss``: forward w = mu + sigma * eps (stacked kernel); backward
+    dmu = sum_d g, dsigma = sum_d g * eps with eps regenerated from the
+    seed (eps kernel). Nothing but the seed is kept for the backward: no
+    eps, no w, no mu or sigma."""
+
+    @staticmethod
+    def forward(ctx, mu, sigma, seed0, seed1, num_draws, out_dtype):
+        ctx.seed = (seed0, seed1)
+        ctx.num_draws = num_draws
+        ctx.dtypes = (mu.dtype, sigma.dtype)
+        ctx.P, ctx.device = mu.shape[0], mu.device
+        if mu.is_cuda:
+            return _launch_sampler(mu, sigma, (seed0, seed1), num_draws,
+                                   out_dtype, False, stacked=True)
+        return stacked_plain(mu, sigma, (seed0, seed1), num_draws, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps = gaussian_noise(ctx.P, ctx.seed, ctx.num_draws, ctx.device)
+        g32 = g.to(torch.float32)
+        dmu = g32.sum(dim=0).to(ctx.dtypes[0])
+        dsigma = (g32 * eps).sum(dim=0).to(ctx.dtypes[1])
+        return dmu, dsigma, None, None, None, None
+
+
+def gaussian_shift_scale(mu: torch.Tensor, sigma: torch.Tensor,
+                         seed: Tuple[int, int], num_draws: int, *,
+                         out_dtype: torch.dtype = None,
+                         fast_math: bool = False) -> torch.Tensor:
+    """(num_draws, P) posterior draws mu + sigma * eps with a precomputed
+    sigma = softplus(rho), differentiable in mu and sigma.
+
+    f32 noise only: ``fast_math`` is refused, because the backward
+    regenerates eps with the f32 generator and must see the forward's eps
+    bit for bit. On a CUDA tensor this launches the kernels or raises; on
+    a CPU tensor it runs their plain versions."""
+    if fast_math:
+        raise ValueError("fast_math is refused on the differentiable path: "
+                         "its backward regenerates the f32 eps and must "
+                         "match the forward bit for bit")
+    out_dtype = out_dtype or mu.dtype
+    _check_args(mu, sigma, num_draws, out_dtype)
+    return _GaussianShiftScale.apply(mu, sigma, int(seed[0]) & _M32,
+                                     int(seed[1]) & _M32, num_draws,
+                                     out_dtype)

@@ -48,6 +48,54 @@ def test_kernel_bit_equal_plain(fast_math, num_draws):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("num_draws", [1, 2, 3])
+def test_stacked_and_eps_kernels_bit_equal_plain(out_dtype, num_draws):
+    """The stacked sampler (f32 mu and sigma in) and the eps kernel equal
+    their plain versions bit for bit, and the eps kernel's noise is the
+    samplers' noise at (mu, sigma) = (0, 1)."""
+    _cuda_or_skip()
+    g = torch.Generator().manual_seed(1)
+    mu = torch.randn(RAGGED_P, generator=g).cuda()
+    sg = torch.rand(RAGGED_P, generator=g).cuda()
+    before = dict(kernels.LAUNCHES)
+    got = S.gaussian_shift_scale(mu, sg, (3, 5), num_draws,
+                                 out_dtype=out_dtype)
+    eps = S.gaussian_noise(RAGGED_P, (3, 5), num_draws, "cuda")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stacked_sampler"] == before["stacked_sampler"] + 1
+    assert kernels.LAUNCHES["eps"] == before["eps"] + 1
+    assert torch.equal(got, S.stacked_plain(mu, sg, (3, 5), num_draws,
+                                            out_dtype))
+    assert torch.equal(eps, S.eps_plain(RAGGED_P, (3, 5), num_draws, "cuda"))
+    zeros, ones = torch.zeros_like(mu), torch.ones_like(mu)
+    at01 = S.gaussian_shift_scale(zeros, ones, (3, 5), num_draws)
+    split = S.gaussian_shift_scale_split(zeros, ones, (3, 5), num_draws)
+    assert torch.equal(at01, eps)
+    assert all(torch.equal(s, e) for s, e in zip(split, eps))
+
+
+def test_backward_on_card_matches_plain_autograd():
+    """dmu and dsigma of the kernels' autograd Function on the card equal
+    autograd through mu + sigma * eps_plain, to 1e-6 relative (both sum
+    the same f32 products over 3 draws)."""
+    _cuda_or_skip()
+    g = torch.Generator().manual_seed(2)
+    mu = torch.randn(RAGGED_P, generator=g).cuda().requires_grad_()
+    sg = torch.rand(RAGGED_P, generator=g).cuda().requires_grad_()
+    cot = torch.randn(3, RAGGED_P, generator=g).cuda()
+    before = kernels.LAUNCHES["eps"]
+    dmu, dsg = torch.autograd.grad(
+        S.gaussian_shift_scale(mu, sg, (9, 4), 3), (mu, sg), cot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["eps"] == before + 1
+    w = mu + sg * S.eps_plain(RAGGED_P, (9, 4), 3, "cuda")
+    want_mu, want_sg = torch.autograd.grad(w, (mu, sg), cot)
+    torch.testing.assert_close(dmu, want_mu, rtol=1e-6, atol=0)
+    torch.testing.assert_close(dsg, want_sg, rtol=1e-6, atol=1e-7)
+
+
 def test_card_step_matches_cpu_step():
     """The micro() packed predict step on the card (kernel) and on the CPU
     (plain version) from the same seeds: draws are bit-equal, so the f32

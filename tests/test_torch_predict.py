@@ -142,6 +142,7 @@ def test_mc_logits_seeds_and_unported_flags():
         (2, 32, 32, c)).astype(np.float32)) for c in (3, 3, 1)]
 
     def run(seed, **kw):
+        kw.setdefault("split_sampling", True)
         return torch_mc.mc_logits(b.module, b.meta, b.post, b.batch_stats, x,
                                   torch.Generator().manual_seed(seed), 2,
                                   mc_chunk=2, sample_dtype=torch.bfloat16,
@@ -153,8 +154,7 @@ def test_mc_logits_seeds_and_unported_flags():
     assert not torch.equal(a, run(1))
     assert not torch.equal(a[0], a[1])
     for kw in ({"antithetic": True}, {"ws_sharding": object()},
-               {"return_batch_stats": True}, {"pipelined": True},
-               {"split_sampling": False}):
+               {"pipelined": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run(0, **kw)
 
