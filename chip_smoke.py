@@ -45,6 +45,34 @@ result line):
    step (the smoke wraps the step the pipeline builds), samples per
    second and peak memory.
 
+8. kernel #4 (the reparam sampler, softplus inside) against its plain
+   version bit for bit: a small ragged P and the full multimodal P, 1, 2
+   and 3 draws, f32 and bf16 in and out, rho over [-30, 25] so both
+   branches of softplus_k run; its eps == the eps kernel's (mu = 0,
+   rho = 32: w / 32 bit for bit); moments at full P; the wrapper refuses
+   inputs that require grad; times of the kernel, the plain version, one
+   ``torch.normal(mu, std)`` with std precomputed, and the byte bound.
+9. ``define_models(7, BNNPriorSpec(), gen, ArchConfig())`` on the card at
+   full width (three unimodal ResNet-50 classifiers, the multimodal model,
+   three feature trunks; bf16, 256 px): each Bayesian bundle's P, one
+   ``sample_and_apply(mutable=True)`` per Bayesian bundle at batch 4
+   (finite (4, 7) logits, running statistics that moved), ``apply_mean``,
+   the trunks' features; exactly 4 reparam_sampler launches, no other;
+   one micro() ``sample_and_apply`` card == CPU.
+10. unimodal inference (BASELINE.json configs[0]): a 10-folder inference
+    tree of random 256 px images (PIL), ``prepare_inference_dataloader``
+    at batch 4 and ``unimodal_predict_and_save`` (optical image, 10 MC) on
+    the full-width image bundle: the CSV, patches per second, exactly 30
+    stacked_sampler launches (3 batches x 10 draws, chunk 1), no other.
+11. unimodal training (BASELINE.json configs[1]): the survey-tree writer
+    of phase 7, ``run_unimodal_training(model_type="sss", num_epochs=2,
+    num_mc=5, batch_size=8, device=None)``: epoch 0 is skipped, so one
+    epoch of 4 train steps (a ragged tail of 1) and one eval batch padded
+    to 8; its ledgers, manifest, confusion-matrix PNG (where matplotlib
+    is installed), that mu, rho and the running statistics moved; exactly 40 stacked_sampler (forward and
+    re-forward), 20 eps and 5 split_sampler launches; seconds per step,
+    samples per second, peak memory.
+
 ``--profile`` also writes profiler summaries of one inference batch and of
 one train step to chiprun_out/chip_smoke/. Launch counts are reset at the
 start of each counted run, and each phase expects exactly its own kernels.
@@ -56,6 +84,8 @@ from __future__ import annotations
 
 import argparse
 import csv
+import gc
+import importlib.util
 import json
 import math
 import os
@@ -80,6 +110,11 @@ SMALL_P = 512 * 128 + 1024  # one full block and a partial one
 # (Box-Muller with the JAX package's polynomials, plus two mu + sigma*eps)
 SAMPLER_F32_OPS = {False: 53, True: 41}
 EPS_F32_OPS = SAMPLER_F32_OPS[False] - 4  # the noise alone
+# the reparam sampler adds softplus_k per element: a compare, libdevice's
+# expf and log1pf, counted as 30 f32 operations (an estimate)
+REPARAM_F32_OPS = SAMPLER_F32_OPS[False] + 2 * 30
+UNI_MC, UNI_BATCH, UNI_CLASSES = 10, 4, 7      # BASELINE.json configs[0]
+UNI_TRAIN_MC, UNI_TRAIN_BATCH = 5, 8           # BASELINE.json configs[1]
 
 
 def log(msg: str) -> None:
@@ -772,6 +807,363 @@ def phase_training(args, smi: str, bundle, work: str):
     return entries
 
 
+def check_reparam_kernel(P_full: int):
+    """Phase 8: kernel #4 against its plain version and the eps kernel;
+    moments; grad refusal; times. Returns its kernels-line entry
+    (launches filled in by phase 9)."""
+    from multimodal_auv_torch.ops import sampling as S
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    max_err = 0.0
+    for label, P in (("small", SMALL_P), ("full", P_full)):
+        mu32 = torch.randn(P, device="cuda", generator=g)
+        rho32 = torch.rand(P, device="cuda", generator=g) * 55 - 30
+        for in_dt in (f32, bf16):
+            mu, rho = mu32.to(in_dt), rho32.to(in_dt)
+            for out_dt in (f32, bf16):
+                for n in (1, 2, 3):
+                    seed = (2468 + n, 1357)
+                    got = S.gaussian_reparam(mu, rho, seed, n,
+                                             out_dtype=out_dt)
+                    want = S.reparam_plain(mu, rho, seed, n, out_dt)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want.float()).abs().max())
+                    max_err = max(max_err, err)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"reparam_sampler != plain (in {in_dt}, out "
+                            f"{out_dt}, {label} P={P}, {n} draws): max abs "
+                            f"err {err}")
+                    del got, want
+        zeros = torch.zeros(P, device="cuda")
+        rho_big = torch.full((P,), 32.0, device="cuda")
+        for n in (1, 2, 3):
+            w = S.gaussian_reparam(zeros, rho_big, (97, n), n)
+            eps = S.gaussian_noise(P, (97, n), n, "cuda")
+            if not torch.equal(w / 32.0, eps):
+                raise AssertionError(f"reparam_sampler's eps != the eps "
+                                     f"kernel's ({label} P={P}, {n} draws)")
+            del w, eps
+        log(f"reparam_sampler == plain bit for bit: {label} P={P}, 1,2,3 "
+            f"draws, f32 and bf16 in and out, rho in [-30, 25]; eps == eps "
+            f"kernel (mu 0, rho 32)")
+        del mu32, rho32, mu, rho, zeros, rho_big
+
+    # moments at full P: mu 0.5, rho 0, so sigma = softplus(0) = ln 2
+    P = P_full
+    w0, w1 = (w.double() for w in S.gaussian_reparam(
+        torch.full((P,), 0.5, device="cuda"), torch.zeros(P, device="cuda"),
+        (55, 9), 2))
+    sd = math.log(2.0)
+    se = sd / math.sqrt(P)
+    corr = float(torch.corrcoef(torch.stack([w0, w1]))[0, 1])
+    stats = {"mean": float(w0.mean()), "std": float(w0.std()),
+             "corr_draws": corr}
+    del w0, w1
+    log(f"reparam moments at P={P} (mu 0.5, sigma ln 2): {json.dumps(stats)}")
+    if not (abs(stats["mean"] - 0.5) < 5 * se
+            and abs(stats["std"] - sd) < 10 * se
+            and abs(corr) < 5 / math.sqrt(P)):
+        raise AssertionError(f"reparam moments off: {stats}")
+
+    try:
+        S.gaussian_reparam(torch.zeros(1024, device="cuda",
+                                       requires_grad=True),
+                           torch.zeros(1024, device="cuda"), (1, 2))
+    except ValueError as e:
+        log(f"reparam_sampler refuses inputs that require grad: {e}")
+    else:
+        raise AssertionError("gaussian_reparam took inputs requiring grad")
+
+    # times at the path's point: f32 in and out, one draw
+    mu = torch.randn(P, device="cuda", generator=g)
+    rho = torch.rand(P, device="cuda", generator=g) * 55 - 30
+    ms = cuda_ms(lambda: S.gaussian_reparam(mu, rho, (1, 2)), 50)
+    plain_ms = cuda_ms(lambda: S.reparam_plain(mu, rho, (1, 2), 1, f32), 3, 1)
+    std = S.softplus_k(rho)
+    lib_ms = cuda_ms(lambda: torch.normal(mu, std, generator=g), 50)
+    b_ms, b_by = bound_ms(3 * P * 4, (P // 2) * REPARAM_F32_OPS)
+    log(f"reparam_sampler 1 draw f32 at P={P}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, torch.normal(mu, std) {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {3 * P * 4 / 1e9:.3f} GB)")
+    return {"name": "reparam_sampler", "route": "cuda",
+            "source": "multimodal_auv_torch/csrc/sampling.cu",
+            "replaces": "multimodal_auv_tpu/ops/sampling.py:186",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def check_sample_and_apply_card_vs_cpu() -> None:
+    """One micro() unimodal ``sample_and_apply`` on the card and on the CPU
+    from the same generators: the kernel's softplus (libdevice) and the CPU
+    plain version's may differ in the last ulp, and the f32 forwards
+    (TF32 off) in summation order; logits to atol 1e-4."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_unimodal_bundle,
+    )
+
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 32, 32, 3)).astype(np.float32))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        b = make_unimodal_bundle(3, NUM_CLASSES, BNNPriorSpec(),
+                                 torch.Generator().manual_seed(0),
+                                 ArchConfig.micro(), device=dev)
+        outs.append(b.sample_and_apply(torch.Generator().manual_seed(5),
+                                       x.to(dev)).cpu())
+    err = float((outs[0] - outs[1]).abs().max())
+    if not err < 1e-4:
+        raise AssertionError(f"sample_and_apply card vs CPU: {err:.2e}")
+    log(f"sample_and_apply card == CPU at micro(): logits max abs err "
+        f"{err:.2e} (atol 1e-4)")
+
+
+def phase_models(args, smi: str):
+    """Phase 9: ``define_models`` at full width on the card and one
+    ``sample_and_apply`` per Bayesian bundle. Returns (the models, the
+    reparam_sampler launches of the counted run)."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        define_models,
+    )
+    from multimodal_auv_torch.ops import sampling as S
+
+    t0 = time.perf_counter()
+    models = define_models(NUM_CLASSES, BNNPriorSpec(),
+                           torch.Generator().manual_seed(args.seed + 20),
+                           ArchConfig())
+    torch.cuda.synchronize()
+    log(f"define_models at full width on the card in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{k} P={v.meta.n_padded}" for k, v in models.items()
+            if hasattr(v, "meta")))
+    rng = np.random.default_rng(args.seed + 21)
+    x = {c: torch.from_numpy(rng.standard_normal(
+        (BATCH, IMAGE, IMAGE, c)).astype(np.float32)).cuda() for c in (1, 3)}
+    inputs = {"image_model": (x[3],), "bathy_model": (x[3],),
+              "sss_model": (x[1],), "multimodal_model": (x[3], x[3], x[1])}
+    first_bn = {"image_model": ("model", "bn1"),
+                "bathy_model": ("model", "bn1"), "sss_model": ("model", "bn1"),
+                "multimodal_model": ("sss_model_feat", "bn1")}
+    reset_launches()
+    for i, (name, xs) in enumerate(inputs.items()):
+        b = models[name]
+        logits, new = b.sample_and_apply(
+            torch.Generator().manual_seed(args.seed + 30 + i), *xs,
+            mutable=True)
+        mean = b.apply_mean(*xs)
+        torch.cuda.synchronize()
+        for what, t in (("sample_and_apply", logits), ("apply_mean", mean)):
+            if t.shape != (BATCH, NUM_CLASSES) or not bool(
+                    torch.isfinite(t).all()):
+                raise AssertionError(f"{name} {what}: {tuple(t.shape)}, "
+                                     f"finite {bool(torch.isfinite(t).all())}")
+        old, upd = b.batch_stats, new
+        for k in first_bn[name]:
+            old, upd = old[k], upd[k]
+        if torch.equal(old["var"], upd["var"]) or torch.equal(old["mean"],
+                                                              upd["mean"]):
+            raise AssertionError(f"{name}: the running statistics did not "
+                                 f"move")
+    for name, c in (("image_model_feat", 3), ("bathy_model_feat", 3),
+                    ("sss_model_feat", 1)):
+        t = models[name]
+        feats = t["module"](t["variables"]["params"],
+                            t["variables"]["batch_stats"], x[c], train=False)
+        if feats.shape != (BATCH, 2048) or not bool(
+                torch.isfinite(feats).all()):
+            raise AssertionError(f"{name} features {tuple(feats.shape)}")
+    torch.cuda.synchronize()
+    launches = check_launches("define_models / sample_and_apply",
+                              {"reparam_sampler": 4})
+    log(f"sample_and_apply (mutable) and apply_mean on the 4 Bayesian bundles "
+        f"at batch {BATCH}, 256 px, bf16: finite (4, 7) logits, running "
+        f"statistics moved; trunks' features (4, 2048) finite; launches "
+        f"{launches} [{smi}]")
+    post = models["image_model"].post
+    P = post.mu.numel()
+    ms = cuda_ms(lambda: S.gaussian_reparam(post.mu, post.rho, (1, 2)), 50)
+    b_ms, _ = bound_ms(3 * P * 4, (P // 2) * REPARAM_F32_OPS)
+    log(f"reparam_sampler 1 draw f32 at the unimodal P={P}: kernel {ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms (bytes)")
+    check_sample_and_apply_card_vs_cpu()
+    return models, launches["reparam_sampler"]
+
+
+def write_inference_tree(root: str, seed: int, n: int) -> str:
+    """``n`` sample folders that ``InferenceFolderDataset`` accepts (a
+    Frame_*.jpg main image, a *SSS* image, patch_30m_combined_bathy.png) of
+    random 256 px images, made from ``seed``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 200)
+    img = lambda c: Image.fromarray(np.squeeze(rng.integers(
+        1, 256, (IMAGE, IMAGE, c), dtype=np.uint8)))
+    for i in range(n):
+        d = os.path.join(root, f"dive_{i:03d}")
+        os.makedirs(d)
+        img(3).save(os.path.join(d, f"Frame_{i:04d}.jpg"))
+        img(1).save(os.path.join(d, f"line_SSS_{i}.png"))
+        img(3).save(os.path.join(d, "patch_30m_combined_bathy.png"))
+    return root
+
+
+def phase_unimodal_inference(args, smi: str, bundle, work: str) -> None:
+    """Phase 10: ``unimodal_predict_and_save`` over an inference tree."""
+    from multimodal_auv_torch.data.loaders import prepare_inference_dataloader
+    from multimodal_auv_torch.engine.predict import CSV_HEADER
+    from multimodal_auv_torch.pipelines.unimodal import (
+        unimodal_predict_and_save,
+    )
+
+    root = write_inference_tree(os.path.join(work, "dives"), args.seed,
+                                N_SAMPLES)
+    csv_path = os.path.join(OUT_DIR, "unimodal_predictions.csv")
+    run = lambda: unimodal_predict_and_save(
+        bundle, prepare_inference_dataloader(root, batch_size=UNI_BATCH),
+        csv_path, num_mc_samples=UNI_MC, model_type="image",
+        generator=torch.Generator().manual_seed(args.seed + 40))
+    run()  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_batches = -(-N_SAMPLES // UNI_BATCH)
+    launches = check_launches("unimodal inference",
+                              {"stacked_sampler": n_batches * UNI_MC})
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
+    vals = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
+    names = sorted(r[0] for r in rows[1:])
+    if (rows[0] != CSV_HEADER or names != [f"Frame_{i:04d}.jpg"
+                                           for i in range(N_SAMPLES)]
+            or not np.isfinite(vals).all()
+            or not ((vals[:, 0] >= 0) & (vals[:, 0] < UNI_CLASSES)).all()
+            or not ((vals[:, 1] >= 0) & (vals[:, 2] >= 0) & (
+                vals[:, 2] <= math.log(UNI_CLASSES) + 1e-4)).all()):
+        raise AssertionError(f"unimodal CSV: {rows}")
+    log(f"unimodal inference: {N_SAMPLES} folders (decode included), "
+        f"{n_batches} batches of {UNI_BATCH} x {UNI_MC} MC, optical image, "
+        f"full width, in {wall:.3f} s = {N_SAMPLES / wall:.3f} patches/s "
+        f"[{smi}]; CSV ok ({len(rows) - 1} rows, classes "
+        f"{sorted(set(vals[:, 0]))}); launches {launches}")
+
+
+def phase_unimodal_training(args, smi: str, work: str) -> None:
+    """Phase 11: ``run_unimodal_training`` on the card over a survey tree."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.data.loaders import split_indices
+    from multimodal_auv_torch.engine.loops import (
+        UNIMODAL_EVAL_CSV_HEADER,
+        UNIMODAL_TRAIN_CSV_HEADER,
+    )
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_unimodal_bundle,
+    )
+    from multimodal_auv_torch.pipelines import unimodal as pipeline
+
+    root = write_training_tree(os.path.join(work, "uni_tree"), args.seed)
+    # the pipeline's starting posterior, built the same way on the CPU
+    before = make_unimodal_bundle(1, NUM_CLASSES, BNNPriorSpec(),
+                                  torch.Generator().manual_seed(args.seed),
+                                  ArchConfig(), device="cpu")
+    times = []
+    build_step = pipeline.make_train_step
+
+    def timed_build(*a, **kw):
+        step = build_step(*a, **kw)
+
+        def timed_step(*sa):
+            t0 = time.perf_counter()
+            out = step(*sa)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return timed_step
+
+    pipeline.make_train_step = timed_build
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state = pipeline.run_unimodal_training(
+            root, model_type="sss", num_epochs=2, num_mc=UNI_TRAIN_MC,
+            batch_size=UNI_TRAIN_BATCH, seed=args.seed, strict_errors=True)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.make_train_step = build_step
+    wall = time.perf_counter() - t0
+    train_idx, test_idx = split_indices(TRAIN_SAMPLES)
+    n_steps = -(-len(train_idx) // UNI_TRAIN_BATCH)
+    launches = check_launches("unimodal training", {
+        "stacked_sampler": n_steps * UNI_TRAIN_MC * 2,
+        "eps": n_steps * UNI_TRAIN_MC,
+        "split_sampler": -(-len(test_idx) // UNI_TRAIN_BATCH) * UNI_TRAIN_MC})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if state.step != n_steps or len(times) != n_steps:
+        raise AssertionError(f"{state.step} steps, {len(times)} timed; want "
+                             f"{n_steps}")
+    for k in ("mu", "rho"):
+        d = float((getattr(state.post, k).detach().cpu()
+                   - getattr(before.post, k)).abs().max())
+        if not 0 < d < 1e-3:
+            raise AssertionError(f"unimodal {k} moved by {d:.3e}, want "
+                                 f"(0, 1e-3)")
+    var = lambda bs: bs["model"]["bn1"]["var"].cpu()
+    if torch.equal(var(state.batch_stats), var(before.batch_stats)):
+        raise AssertionError("unimodal running statistics did not move")
+    csv_dir = os.path.join(root, "csvs")
+    for name, head in (("unimodal_sss_train_results.csv",
+                        UNIMODAL_TRAIN_CSV_HEADER),
+                       ("unimodal_sss_eval_results.csv",
+                        UNIMODAL_EVAL_CSV_HEADER)):
+        with open(os.path.join(csv_dir, name), newline="") as f:
+            rows = list(csv.reader(f))
+        if (rows[0] != head or len(rows) != 2 or rows[1][:2] != ["2", "sss"]
+                or not np.isfinite([float(v) for v in rows[1][2:]]).all()):
+            raise AssertionError(f"{name}: {rows}")
+        log(f"{name}: {rows[1]}")
+    # the confusion matrix is a PNG drawn with matplotlib, which a machine
+    # may lack: then it is a logged warning, as in the reference
+    png = os.path.join(csv_dir, "confusion_matrices",
+                       "conf_matrix_model_sss_1.png")
+    if importlib.util.find_spec("matplotlib") is None:
+        cm_note = "confusion matrix PNG not drawn (no matplotlib here)"
+    elif not os.path.exists(png):
+        raise AssertionError(f"no confusion matrix at {png}")
+    else:
+        cm_note = "confusion matrix PNG ok"
+    with open(os.path.join(csv_dir, "run_manifest.json")) as f:
+        platform = json.load(f)["devices"]["platform"]
+    if platform != "cuda":
+        raise AssertionError(f"run manifest platform {platform!r}")
+    later = times[1:]
+    per_step = sum(later) / len(later)
+    log(f"unimodal training: run_unimodal_training sss, epoch 0 skipped, 1 "
+        f"epoch over {TRAIN_SAMPLES} folders (scan and decode included), "
+        f"{len(train_idx)} train samples in {n_steps} steps of "
+        f"{UNI_TRAIN_BATCH} x {UNI_TRAIN_MC} MC (chunk 1, remat on, f32) and "
+        f"{len(test_idx)} eval samples, in {wall:.2f} s [{smi}]; steps "
+        f"{', '.join(f'{t:.3f}' for t in times)} s; {per_step:.3f} s per step "
+        f"after the first = {UNI_TRAIN_BATCH / per_step:.3f} samples/s; peak "
+        f"memory {peak:.2f} GiB; ledgers and manifest ok, {cm_note}; "
+        f"launches {launches}")
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -792,6 +1184,17 @@ def main() -> int:
         bundle, split_entry = phase_main_path(args, smi, work)
         kernels_line = [split_entry] + phase_training(args, smi, bundle,
                                                       work)
+        P_full = bundle.meta.n_padded
+        del bundle
+        free_cuda()
+        reparam_entry = check_reparam_kernel(P_full)
+        free_cuda()
+        models, reparam_entry["launches"] = phase_models(args, smi)
+        phase_unimodal_inference(args, smi, models["image_model"], work)
+        del models
+        free_cuda()
+        phase_unimodal_training(args, smi, work)
+        kernels_line.append(reparam_entry)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from multimodal_auv_torch.config import BNNPriorSpec
+from multimodal_auv_torch.ops.sampling import chunk_seeds, gaussian_reparam
 
 Params = Dict[str, Any]
 
@@ -204,6 +205,16 @@ def prune_none(tree):
 
 def sigma_of(rho: torch.Tensor) -> torch.Tensor:
     return softplus(rho)
+
+
+def sample_weights(post: PackedPosterior,
+                   generator: torch.Generator) -> torch.Tensor:
+    """One Monte-Carlo weight draw w = mu + softplus_k(rho) * eps, (P,):
+    one seed pair from ``generator`` (as ``engine/mc.py`` draws a chunk's)
+    through ``ops.sampling.gaussian_reparam``, whose kernel takes the
+    softplus itself. Not differentiable (see ``gaussian_reparam``)."""
+    (seed,) = chunk_seeds(generator, 1)
+    return gaussian_reparam(post.mu, post.rho, seed)
 
 
 def kl_divergence(post: PackedPosterior, spec: BNNPriorSpec) -> torch.Tensor:

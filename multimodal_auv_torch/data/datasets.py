@@ -15,6 +15,10 @@
   missing or all-black images are skipped; per-image decode failures fall
   back to black images.
 
+A decode failure of any kind (``except Exception``, as in the JAX package:
+a missing PIL, PIL's decompression-bomb guard, a corrupt file) skips the
+folder or falls back to a dummy image, and the log names its cause.
+
 Samples are NHWC float32 numpy arrays. PIL is imported only inside the
 decode functions (data/transforms.py).
 """
@@ -120,7 +124,7 @@ class MultimodalFolderDataset:
             return None
         try:
             sss_image = max(sss, key=lambda p: T.image_nonzero_count(p, "L"))
-        except (OSError, ValueError) as e:
+        except Exception as e:
             logger.debug("Skipping %s (SSS): %s", folder_path, e)
             return None
         labels.sort(key=lambda x: os.path.getmtime(
@@ -158,7 +162,7 @@ class MultimodalFolderDataset:
         if path and os.path.exists(path):
             try:
                 return T.load_image(path, mode, (self.image_size,) * 2)
-            except (OSError, ValueError) as e:
+            except Exception as e:
                 logger.warning("Error loading patch %s: %s; dummy used",
                                path, e)
         return T.zeros(channels, self.image_size)
@@ -204,7 +208,7 @@ class InferenceFolderDataset:
         for p in candidates:
             try:
                 n = T.image_nonzero_count(p, "L")
-            except (OSError, ValueError) as e:
+            except Exception as e:
                 logger.warning("Error loading SSS image %s: %s", p, e)
                 continue
             if n > max_nonzero:
@@ -240,7 +244,7 @@ class InferenceFolderDataset:
                     if T.image_sum(p) == 0:
                         valid = False
                         break
-                except (OSError, ValueError) as e:
+                except Exception as e:
                     logger.warning("Error reading image %s: %s", p, e)
                     valid = False
                     break
@@ -266,7 +270,7 @@ class InferenceFolderDataset:
                 if key == "main_image":
                     return T.load_main_image(path, sz)
                 return T.load_image(path, mode, sz)
-            except (OSError, ValueError) as e:
+            except Exception as e:
                 logger.warning("Error loading %s for %s: %s; black image used",
                                path, key, e)
                 # a black image through the standard transform, so the

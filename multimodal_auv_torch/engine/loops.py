@@ -1,13 +1,14 @@
-"""Epoch loops and orchestration of multimodal training (port of the
-multimodal half of ``multimodal_auv_tpu/engine/loops.py``).
+"""Epoch loops and orchestration of multimodal and unimodal training (port
+of ``multimodal_auv_tpu/engine/loops.py``).
 
 The reference's ledgers and cadence are kept: the same CSV columns, the KL
 annealing schedule, a posterior checkpoint every 5 epochs plus a
-crash-save, and the StepLR stepped twice per epoch (its loop_utils.py:233,
-246). Randomness: each epoch's train and eval generators are derived from
-the base seed and the absolute epoch index, and the loaders' shuffle epoch
-is pinned to that index, so a run resumed at epoch e replays an
-uninterrupted run exactly.
+crash-save, the multimodal StepLR stepped twice per epoch (its
+loop_utils.py:233, 246), and the unimodal loop's start at epoch 1 (its
+off-by-one, ``skip_epoch_zero``). Randomness: each epoch's train and eval
+generators are derived from the base seed and the absolute epoch index,
+and the loaders' shuffle epoch is pinned to that index, so a run resumed
+at epoch e replays an uninterrupted run exactly.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ TRAIN_CSV_HEADER = ["Epoch", "Model type", "Loss", "Accuracy", "lr",
 EVAL_CSV_HEADER = ["Epoch", "Model Type", "Test Loss", "Test Accuracy",
                    "Predictive Uncertainty", "Model Uncertainty", "Scaled KL",
                    "Cross Entropy Loss", "bathy Patch Type", "SSS Patch Type"]
+UNIMODAL_TRAIN_CSV_HEADER = ["Epoch", "Model type", "Loss", "Accuracy", "lr"]
+UNIMODAL_EVAL_CSV_HEADER = ["Epoch", "Model Type", "Test Loss",
+                            "Test Accuracy", "predictive_uncertainty",
+                            "model_uncertainty"]
 
 
 def epoch_generator(seed: int, index: int) -> torch.Generator:
@@ -113,17 +118,31 @@ def _pad_batch(arrays, labels, nominal: int):
     return arrays, labels, mask
 
 
-def _device_batch(batch, bathy_patch_type, sss_patch_type, nominal, device):
-    """(inputs, labels, mask, n_valid) of a loader batch, padded to the
-    nominal size and placed on ``device``."""
-    inputs = [np.asarray(batch["main_image"]),
-              np.asarray(select_patch(batch, bathy_patch_type, "bathy")),
-              np.asarray(select_patch(batch, sss_patch_type, "sss"))]
+def unimodal_input(batch: Dict, model_type: str) -> np.ndarray:
+    """The reference's unimodal.py:113-122: image -> main, sss -> sss,
+    bathy -> bathy."""
+    key = {"image": "main_image", "sss": "sss_image",
+           "bathy": "bathy_image"}.get(model_type)
+    if key is None:
+        raise ValueError(f"Unknown model_type: {model_type}")
+    return batch[key]
+
+
+def _device_batch(batch, inputs, nominal, device):
+    """(inputs, labels, mask, n_valid) of a loader batch's ``inputs``,
+    padded to the nominal size and placed on ``device``."""
     labels = np.asarray(batch["label"], np.int32)
     valid = labels.shape[0]
-    inputs, labels, mask = _pad_batch(inputs, labels, nominal)
+    inputs, labels, mask = _pad_batch([np.asarray(a) for a in inputs],
+                                      labels, nominal)
     place = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return [place(a) for a in inputs], place(labels), place(mask), valid
+
+
+def _multimodal_inputs(batch, bathy_patch_type, sss_patch_type):
+    return [batch["main_image"],
+            select_patch(batch, bathy_patch_type, "bathy"),
+            select_patch(batch, sss_patch_type, "sss")]
 
 
 def train_multimodal_model(
@@ -191,7 +210,9 @@ def train_multimodal_model(
                     preempted = True
                     break
                 inputs, labels, mask, _ = _device_batch(
-                    batch, bathy_patch_type, sss_patch_type, nominal, device)
+                    batch, _multimodal_inputs(batch, bathy_patch_type,
+                                              sss_patch_type),
+                    nominal, device)
                 state, m = train_step(state, inputs, labels, mask, generator,
                                       kl_weight, float(nominal))
                 account(lag.push((i, m)))
@@ -261,7 +282,9 @@ def evaluate_multimodal_model(
 
             for batch in dataloader:
                 inputs, labels, mask, valid = _device_batch(
-                    batch, bathy_patch_type, sss_patch_type, nominal, device)
+                    batch, _multimodal_inputs(batch, bathy_patch_type,
+                                              sss_patch_type),
+                    nominal, device)
                 m = eval_step(state.post, state.batch_stats, inputs, labels,
                               mask, generator, kl_scale)
                 account(lag.push(((np.asarray(batch["label"]), valid), m)))
@@ -287,6 +310,32 @@ def evaluate_multimodal_model(
         if strict_errors:
             raise
         return 0.0
+
+
+def _resume(checkpoint_resume_path, state, model_type: str,
+            scheduler: StepLR, start_epoch: int):
+    """(state, first epoch) after restoring ``checkpoint_resume_path`` if it
+    exists. A checkpoint without scheduler metadata, or saved for another
+    ``model_type``, is refused: the unimodal trunks share parameter shapes,
+    so another modality's checkpoint would load, skip every epoch and hand
+    back its weights as this one's."""
+    if not (checkpoint_resume_path and os.path.exists(checkpoint_resume_path)):
+        return state, start_epoch
+    state, resumed_epoch, sched = ckpt.restore_train_state(
+        checkpoint_resume_path, state)
+    if sched is None:
+        raise ValueError(
+            f"checkpoint {checkpoint_resume_path!r} has no scheduler "
+            f"metadata — refusing a blind resume")
+    if model_type not in sched:
+        raise ValueError(
+            f"checkpoint {checkpoint_resume_path!r} was saved for "
+            f"model_type(s) {sorted(sched)} — refusing to resume "
+            f"{model_type!r} from it (use one resume path per model)")
+    scheduler.load_state_dict({"epoch_count": sched[model_type]})
+    logger.info("Resumed from %s at epoch %d", checkpoint_resume_path,
+                resumed_epoch)
+    return state, max(start_epoch, resumed_epoch)
 
 
 def train_and_evaluate_multimodal_model(
@@ -315,24 +364,8 @@ def train_and_evaluate_multimodal_model(
     os.makedirs(csv_dir, exist_ok=True)
     train_csv = os.path.join(csv_dir, "multimodal_train_results.csv")
     eval_csv = os.path.join(csv_dir, "multimodal_eval_results.csv")
-
-    start_epoch = 0
-    if checkpoint_resume_path and os.path.exists(checkpoint_resume_path):
-        state, start_epoch, sched = ckpt.restore_train_state(
-            checkpoint_resume_path, state)
-        if sched is None:
-            raise ValueError(
-                f"checkpoint {checkpoint_resume_path!r} has no scheduler "
-                f"metadata — refusing a blind resume")
-        if model_type not in sched:
-            raise ValueError(
-                f"checkpoint {checkpoint_resume_path!r} was saved for "
-                f"model_type(s) {sorted(sched)} — refusing to resume "
-                f"{model_type!r} from it (use one resume path per model)")
-        scheduler.load_state_dict({"epoch_count": sched[model_type]})
-        logger.info("Resumed from %s at epoch %d", checkpoint_resume_path,
-                    start_epoch)
-
+    state, start_epoch = _resume(checkpoint_resume_path, state, model_type,
+                                 scheduler, 0)
     stop_check = (preemption_guard.check if preemption_guard is not None
                   else None)
     for epoch in range(start_epoch, num_epochs):
@@ -361,6 +394,198 @@ def train_and_evaluate_multimodal_model(
             scheduler.step()  # the reference's loop_utils.py:246
         sum_writer.add_scalar("Loss/train_epoch", train_loss, epoch)
         sum_writer.add_scalar("Accuracy/val_epoch", test_acc, epoch)
+        if checkpoint_resume_path:
+            ckpt.save_train_state(checkpoint_resume_path, state, epoch + 1,
+                                  {model_type: scheduler.epoch_count})
+        if preemption_guard is not None and preemption_guard.triggered:
+            logger.warning("Preempted after completed epoch %d — stopping "
+                           "cleanly", epoch)
+            break
+    return state
+
+
+def train_unimodal_model(
+    train_step, state: BayesTrainState, dataloader, epoch: int,
+    total_num_epochs: int, csv_path: str, model_type: str, sum_writer,
+    generator: torch.Generator, lr: float, strict_errors: bool = False,
+    stop_check: Optional[Callable[[], bool]] = None,
+) -> Tuple[BayesTrainState, float, float]:
+    """One unimodal training epoch (the reference's unimodal.py:21-175);
+    ledger columns ``UNIMODAL_TRAIN_CSV_HEADER``, the row logs epoch + 1.
+    A non-finite loss is left out of the loss sum only; its batch still
+    counts towards the accuracy, as in the reference.
+
+    Returns (state, ACCURACY, LOSS): the reverse of
+    ``train_multimodal_model``'s order, which is the reference's own
+    asymmetry (its unimodal.py:175 against multimodal.py:202). Bind the
+    outputs by name. ``strict_errors`` and ``stop_check``: as in
+    ``train_multimodal_model``."""
+    csv_path = str(Path(csv_path))
+    device = state.post.mu.device
+    try:
+        csvfile, writer, write_header = _ledger_open(csv_path)
+        with csvfile:
+            if write_header:
+                writer.writerow(UNIMODAL_TRAIN_CSV_HEADER)
+            total_loss, correct, total = 0.0, 0.0, 0.0
+            kl_weight = kl_annealing_weight(epoch, total_num_epochs)
+            nominal = dataloader.batch_size
+            lag = _LaggedFetch()
+
+            def account(done):
+                nonlocal total_loss, correct, total
+                if done is None:
+                    return
+                j, m = done
+                loss = float(m["loss"])
+                if np.isfinite(loss):
+                    total_loss += loss
+                correct += m["correct"]
+                total += m["total"]
+                sum_writer.add_scalar("Loss/train", loss, j)
+
+            preempted = False
+            for i, batch in enumerate(dataloader):
+                if stop_check is not None and stop_check():
+                    logger.warning(
+                        "Preemption requested — stopping train epoch %d at "
+                        "batch %d (partial-epoch updates are discarded by a "
+                        "checkpoint resume)", epoch, i)
+                    preempted = True
+                    break
+                inputs, labels, mask, _ = _device_batch(
+                    batch, [unimodal_input(batch, model_type)], nominal,
+                    device)
+                state, m = train_step(state, inputs, labels, mask, generator,
+                                      kl_weight, float(nominal))
+                account(lag.push((i, m)))
+            account(lag.flush())
+
+            train_accuracy = correct / max(total, 1.0)
+            train_loss = total_loss / max(total, 1.0)
+            if not preempted:
+                writer.writerow([epoch + 1, model_type, train_loss,
+                                 train_accuracy, lr])
+        if epoch % 5 == 0 and not preempted:
+            ckpt.save_model(state.post, csv_path, model_type)
+        return state, train_accuracy, train_loss
+    except Exception:
+        ckpt.save_model(state.post, csv_path, model_type)
+        logger.error("Error at epoch %d", epoch, exc_info=True)
+        if strict_errors:
+            raise
+        return state, 0.0, 0.0
+
+
+def evaluate_unimodal_model(
+    eval_step, state: BayesTrainState, dataloader, epoch: int,
+    total_num_epochs: int, csv_path: str, model_type: str,
+    generator: torch.Generator, class_names=None,
+    strict_errors: bool = False,
+) -> float:
+    """Unimodal MC eval (the reference's unimodal.py:178-365): the
+    variance-estimator epistemic and mean-entropy aleatoric (eps 1e-7)
+    columns, the KL divided by the batch size (its unimodal.py:272, 278),
+    ledger columns ``UNIMODAL_EVAL_CSV_HEADER``. An exception crash-saves
+    the posterior. Returns the accuracy."""
+    csv_path = str(Path(csv_path))
+    device = state.post.mu.device
+    try:
+        csvfile, writer, write_header = _ledger_open(csv_path)
+        with csvfile:
+            if write_header:
+                writer.writerow(UNIMODAL_EVAL_CSV_HEADER)
+            kl_weight = kl_annealing_weight(epoch, total_num_epochs)
+            nominal = dataloader.batch_size
+            kl_scale = kl_weight / nominal
+            total_loss, correct, total = 0.0, 0.0, 0.0
+            all_pred, all_lab, all_epi, all_alea = [], [], [], []
+            lag = _LaggedFetch()
+
+            def account(done):
+                nonlocal total_loss, correct, total
+                if done is None:
+                    return
+                (labels, valid), m = done
+                total_loss += m["loss"]
+                correct += m["correct"]
+                total += m["total"]
+                all_pred.extend(m["predicted"][:valid])
+                all_lab.extend(labels[:valid])
+                all_epi.extend(m["epistemic_variance"][:valid])
+                all_alea.extend(m["aleatoric_mc_entropy"][:valid])
+
+            for batch in dataloader:
+                inputs, labels, mask, valid = _device_batch(
+                    batch, [unimodal_input(batch, model_type)], nominal,
+                    device)
+                m = eval_step(state.post, state.batch_stats, inputs, labels,
+                              mask, generator, kl_scale)
+                account(lag.push(((np.asarray(batch["label"]), valid), m)))
+            account(lag.flush())
+
+            accuracy = correct / max(total, 1.0)
+            avg_loss = total_loss / max(total, 1.0)
+            save_confusion_matrix(all_lab, all_pred, csv_path, model_type,
+                                  epoch, class_names)
+            writer.writerow([
+                epoch + 1, model_type, avg_loss, accuracy,
+                float(np.mean(all_epi)) if all_epi else 0.0,
+                float(np.mean(all_alea)) if all_alea else 0.0,
+            ])
+        return accuracy
+    except Exception:
+        ckpt.save_model(state.post, csv_path, model_type)
+        logger.error("Error at epoch %d", epoch, exc_info=True)
+        if strict_errors:
+            raise
+        return 0.0
+
+
+def train_and_evaluate_unimodal_model(
+    train_loader, test_loader, num_epochs: int, train_step, eval_step,
+    state: BayesTrainState, scheduler: StepLR, csv_dir: str, sum_writer,
+    seed: int, model_type: str, class_names=None,
+    skip_epoch_zero: bool = True, strict_errors: bool = False,
+    checkpoint_resume_path: Optional[str] = None,
+    preemption_guard=None,
+) -> BayesTrainState:
+    """The reference's loop_utils.py:65-159: per epoch train -> eval ->
+    scheduler.step(). Its epoch loop is ``range(1, num_epochs)``, which
+    skips epoch 0; kept by default, ``skip_epoch_zero=False`` runs it.
+    ``checkpoint_resume_path`` and ``preemption_guard``: as in
+    ``train_and_evaluate_multimodal_model``; a checkpoint of another
+    modality is refused."""
+    os.makedirs(csv_dir, exist_ok=True)
+    train_csv = os.path.join(csv_dir,
+                             f"unimodal_{model_type}_train_results.csv")
+    eval_csv = os.path.join(csv_dir, f"unimodal_{model_type}_eval_results.csv")
+    state, start = _resume(checkpoint_resume_path, state, model_type,
+                           scheduler, 1 if skip_epoch_zero else 0)
+    stop_check = (preemption_guard.check if preemption_guard is not None
+                  else None)
+    for epoch in range(start, num_epochs):
+        set_learning_rate(state.opt_state, scheduler.lr)
+        if hasattr(train_loader, "set_epoch"):
+            train_loader.set_epoch(epoch)
+        state, _, train_loss = train_unimodal_model(
+            train_step, state, train_loader, epoch, num_epochs, train_csv,
+            model_type, sum_writer, epoch_generator(seed, 2 * epoch),
+            scheduler.lr, strict_errors=strict_errors, stop_check=stop_check)
+        if preemption_guard is not None and preemption_guard.triggered:
+            logger.warning(
+                "Preempted during epoch %d — stopping without its boundary "
+                "save; resume%s replays it from the last completed epoch",
+                epoch, f" ({checkpoint_resume_path})"
+                if checkpoint_resume_path else "")
+            break
+        test_acc = evaluate_unimodal_model(
+            eval_step, state, test_loader, epoch, num_epochs, eval_csv,
+            model_type, epoch_generator(seed, 2 * epoch + 1), class_names,
+            strict_errors=strict_errors)
+        scheduler.step()
+        sum_writer.add_scalar(f"Loss/train_{model_type}", train_loss, epoch)
+        sum_writer.add_scalar(f"Accuracy/val_{model_type}", test_acc, epoch)
         if checkpoint_resume_path:
             ckpt.save_train_state(checkpoint_resume_path, state, epoch + 1,
                                   {model_type: scheduler.epoch_count})

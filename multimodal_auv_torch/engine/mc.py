@@ -25,13 +25,14 @@ reference's training does; otherwise the running statistics are untouched.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from multimodal_auv_torch.bayes.packing import PackedPosterior, PackMeta, softplus
 from multimodal_auv_torch.ops.sampling import (
+    chunk_seeds,
     gaussian_shift_scale,
     gaussian_shift_scale_split,
 )
@@ -43,14 +44,6 @@ def not_ported(flag: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{flag} is not ported yet: ROADMAP.md, Open items, 1 'Modules to "
         f"port' item {item}")
-
-
-def chunk_seeds(generator: torch.Generator, nchunks: int
-                ) -> Sequence[Tuple[int, int]]:
-    """One (seed0, seed1) pair of 32-bit words per chunk."""
-    words = torch.randint(0, 1 << 32, (nchunks, 2), generator=generator,
-                          dtype=torch.int64)
-    return [(int(a), int(b)) for a, b in words.tolist()]
 
 
 def _resolve_fast(fast_sampling: Optional[bool],

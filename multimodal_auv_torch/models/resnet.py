@@ -1,4 +1,5 @@
-"""ResNet-50 trunks (port of ``multimodal_auv_tpu/models/resnet.py``).
+"""ResNet-50 trunks and the unimodal classifier ``ResNet50Custom`` (port of
+``multimodal_auv_tpu/models/resnet.py``).
 
 The modules are functional, as flax's are: they hold the architecture, and
 ``forward`` takes the parameter subtree and the BatchNorm statistics as
@@ -204,3 +205,45 @@ class ResNet(nn.Module):
         if self.num_classes is not None:
             x = dense(x, p["fc"], dt)
         return (x, new_s) if mutable else x
+
+
+def forward_layout(params: Tree) -> Tree:
+    """A parameter tree in the JAX layout (what ``init`` returns) in the
+    layout ``forward`` takes: 4-D HWIO conv kernels permuted to OIHW."""
+    if isinstance(params, dict):
+        return {k: forward_layout(v) for k, v in params.items()}
+    return params.permute(3, 2, 0, 1).contiguous() if params.dim() == 4 \
+        else params
+
+
+class ResNet50Custom(nn.Module):
+    """Unimodal classifier: a ResNet trunk with its fc head, taking 1 or 3
+    input channels (set by the data). The trunk is the submodule
+    ``model``, so parameter and statistics paths start with ``model`` as
+    flax's do (the reference's torch prefix ``model.``)."""
+
+    def __init__(self, num_classes: int,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes, self.dtype = num_classes, dtype
+        self.model = ResNet(stage_sizes, width, num_classes, dtype)
+
+    def init(self, gen: torch.Generator, cin: int) -> Tuple[Tree, Tree]:
+        """(params, batch_stats) in the JAX layout, under ``model``."""
+        p, s = self.model.init(gen, cin)
+        return {"model": p}, {"model": s}
+
+    def forward(self, p: Tree, s: Tree, x: torch.Tensor, train: bool = True,
+                batch_mask: Optional[torch.Tensor] = None,
+                mutable: bool = False):
+        """(B, num_classes) logits, and with ``mutable`` the new running
+        statistics."""
+        out = self.model(p["model"], s.get("model", {}), x, train, batch_mask,
+                         mutable)
+        if mutable:
+            return out[0], {"model": out[1]}
+        return out
+
+    def get_feature_size(self) -> int:
+        return self.model.feature_size

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"split_sampler": 0, "stacked_sampler": 0,
-                            "eps": 0}
+                            "eps": 0, "reparam_sampler": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -7,7 +7,11 @@ Port of ``multimodal_auv_tpu/ops/sampling.py``:
 * ``gaussian_shift_scale`` (Pallas ``_reparam_sigma_kernel``): the training
   sampler, a stacked (num_draws, P) tensor, differentiable. Its backward
   regenerates eps from the seed (Pallas ``_eps_kernel``, here
-  ``gaussian_noise``) instead of saving it, as ``_gss_bwd`` does.
+  ``gaussian_noise``) instead of saving it, as ``_gss_bwd`` does;
+* ``gaussian_reparam`` (Pallas ``_reparam_kernel``): w = mu +
+  softplus_k(rho) * eps with the softplus taken inside the kernel, the
+  sampler of ``bayes.sample_weights`` and ``ModelBundle.sample_and_apply``;
+  not differentiable.
 
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/sampling.cu``; on a CPU tensor it runs the plain PyTorch version
@@ -15,7 +19,7 @@ below, which does the same arithmetic op for op, so the two agree bit for
 bit on the card. Every plain version draws its noise from the one function
 ``eps_plain``.
 
-The noise contract (the same for the three kernels, so the backward
+The noise contract (the same for the four kernels, so the backward
 regenerates exactly the forward's eps):
 
 * P elements form blocks of 512 x 128 = 65536 (``BLOCK_ROWS`` x ``LANES``);
@@ -30,12 +34,13 @@ regenerates exactly the forward's eps):
   (r cos 2 pi u2, r sin 2 pi u2).
 
 A seed is a pair of 32-bit words, the counterpart of the JAX package's
-``_seed_from_key``; callers draw it from a ``torch.Generator``.
+``_seed_from_key``; callers draw it from a ``torch.Generator``
+(``chunk_seeds``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +61,15 @@ _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _LN2 = 0.6931471805599453
 _TWO_PI = 6.283185307179586
 _PI = 3.141592653589793
+
+
+def chunk_seeds(generator: torch.Generator, nchunks: int
+                ) -> List[Tuple[int, int]]:
+    """One (seed0, seed1) pair of 32-bit words per chunk, from
+    ``generator``: every sampling path draws its seeds here."""
+    words = torch.randint(0, 1 << 32, (nchunks, 2), generator=generator,
+                          dtype=torch.int64)
+    return [(int(a), int(b)) for a, b in words.tolist()]
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -177,6 +191,24 @@ def stacked_plain(mu: torch.Tensor, sigma: torch.Tensor,
     return (mu.to(torch.float32) + sigma.to(torch.float32) * eps).to(out_dtype)
 
 
+def softplus_k(x: torch.Tensor) -> torch.Tensor:
+    """The reparam kernel's softplus, ``_softplus``'s form in f32:
+    where(x > 20, x, log1p(exp(min(x, 20)))). It differs from
+    ``bayes.packing.softplus`` (``jax.nn.softplus``'s form, which the MC
+    loops use) in the last ulp."""
+    x = x.to(torch.float32)
+    return torch.where(x > 20.0, x,
+                       torch.log1p(torch.exp(torch.clamp_max(x, 20.0))))
+
+
+def reparam_plain(mu: torch.Tensor, rho: torch.Tensor, seed: Tuple[int, int],
+                  num_draws: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """The plain version of the reparam kernel: (num_draws, P) mu +
+    softplus_k(rho) * eps, in f32, then cast; by construction the stacked
+    sampler's plain version at sigma = softplus_k(rho)."""
+    return stacked_plain(mu, softplus_k(rho), seed, num_draws, out_dtype)
+
+
 def split_plain(mu: torch.Tensor, sigma: torch.Tensor, seed: Tuple[int, int],
                 num_draws: int, out_dtype: torch.dtype,
                 fast_math: bool = False) -> List[torch.Tensor]:
@@ -195,27 +227,41 @@ def _fn(name: str, argtypes):
     return fn
 
 
-def _launch_sampler(mu, sigma, seed, num_draws, out_dtype, fast_math,
-                    stacked: bool) -> torch.Tensor:
-    """One launch of the sampler into a (num_draws, P) buffer: the split
-    kernel (``stacked=False``) or the stacked one."""
+def _launch(name: str, mu, scale, seed, num_draws, out_dtype,
+            extra=()) -> torch.Tensor:
+    """One launch of sampler ``name`` into a (num_draws, P) buffer;
+    ``scale`` is sigma, or rho for the reparam sampler; ``extra``: trailing
+    int arguments."""
     P = mu.shape[0]
     out = torch.empty((num_draws, P), dtype=out_dtype, device=mu.device)
-    args = [mu.data_ptr(), sigma.data_ptr(), out.data_ptr(), P, num_draws,
+    args = [mu.data_ptr(), scale.data_ptr(), out.data_ptr(), P, num_draws,
             int(seed[0]) & _M32, int(seed[1]) & _M32,
-            int(mu.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)]
+            int(mu.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            *extra]
     types = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-             ctypes.c_int, ctypes.c_int]
-    name = "stacked_sampler" if stacked else "split_sampler"
-    if not stacked:
-        args.append(int(fast_math))
-        types.append(ctypes.c_int)
+             ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * len(extra)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
     fn = _fn(f"{name}_launch", types + [ctypes.c_void_p])
     kernels.check(fn(*args, stream), name)
     kernels.LAUNCHES[name] += 1
     return out
+
+
+def _launch_sampler(mu, sigma, seed, num_draws, out_dtype, fast_math,
+                    stacked: bool) -> torch.Tensor:
+    """One launch of the split kernel (``stacked=False``) or the stacked
+    one."""
+    if stacked:
+        return _launch("stacked_sampler", mu, sigma, seed, num_draws,
+                       out_dtype)
+    return _launch("split_sampler", mu, sigma, seed, num_draws, out_dtype,
+                   (int(fast_math),))
+
+
+def _launch_reparam(mu, rho, seed, num_draws, out_dtype) -> torch.Tensor:
+    """One launch of the reparam sampler (kernel #4)."""
+    return _launch("reparam_sampler", mu, rho, seed, num_draws, out_dtype)
 
 
 def _launch_eps(P, seed, num_draws, device) -> torch.Tensor:
@@ -332,3 +378,33 @@ def gaussian_shift_scale(mu: torch.Tensor, sigma: torch.Tensor,
     return _GaussianShiftScale.apply(mu, sigma, int(seed[0]) & _M32,
                                      int(seed[1]) & _M32, num_draws,
                                      out_dtype)
+
+
+def gaussian_reparam(mu: torch.Tensor, rho: torch.Tensor,
+                     seed: Tuple[int, int], num_draws: Optional[int] = None,
+                     *, out_dtype: torch.dtype = None) -> torch.Tensor:
+    """w = mu + softplus_k(rho) * eps: (P,) when ``num_draws`` is None, else
+    (num_draws, P). mu and rho are f32 or bf16, alike; ``out_dtype``
+    defaults to mu's. The noise is the other samplers' at the same seed,
+    so ``gaussian_reparam(mu, rho, s, n)`` equals
+    ``gaussian_shift_scale(mu, softplus_k(rho), s, n)``.
+
+    Not differentiable, as the JAX package's ``_pallas_reparam`` with
+    ``_reparam_kernel`` has no VJP: with grad mode on and mu or rho
+    requiring grad it raises ValueError (call it under ``torch.no_grad()``,
+    or train through ``gaussian_shift_scale``). On a CUDA tensor this
+    launches the kernel or raises; on a CPU tensor it runs
+    ``reparam_plain``."""
+    n = 1 if num_draws is None else num_draws
+    out_dtype = out_dtype or mu.dtype
+    if torch.is_grad_enabled() and (mu.requires_grad or rho.requires_grad):
+        raise ValueError(
+            "gaussian_reparam has no backward (the JAX package's "
+            "_reparam_kernel has no VJP): call it under torch.no_grad(), or "
+            "differentiate through gaussian_shift_scale")
+    _check_args(mu, rho, n, out_dtype)
+    if mu.is_cuda:
+        out = _launch_reparam(mu, rho, seed, n, out_dtype)
+    else:
+        out = reparam_plain(mu, rho, seed, n, out_dtype)
+    return out[0] if num_draws is None else out

@@ -76,6 +76,43 @@ def test_stacked_and_eps_kernels_bit_equal_plain(out_dtype, num_draws):
     assert all(torch.equal(s, e) for s, e in zip(split, eps))
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["out_f32", "out_bf16"])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16],
+                         ids=["in_f32", "in_bf16"])
+@pytest.mark.parametrize("num_draws", [1, 2, 3])
+def test_reparam_kernel_bit_equal_plain(in_dtype, out_dtype, num_draws):
+    """Kernel #4 (the softplus inside) equals ``reparam_plain`` bit for bit
+    with rho over [-30, 25], so both branches of softplus_k run; one
+    launch."""
+    _cuda_or_skip()
+    g = torch.Generator().manual_seed(3)
+    mu = torch.randn(RAGGED_P, generator=g).to(in_dtype).cuda()
+    rho = (torch.rand(RAGGED_P, generator=g) * 55 - 30).to(in_dtype).cuda()
+    before = kernels.LAUNCHES["reparam_sampler"]
+    got = S.gaussian_reparam(mu, rho, (3, 5), num_draws, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["reparam_sampler"] == before + 1
+    assert got.shape == (num_draws, RAGGED_P) and got.dtype == out_dtype
+    want = S.reparam_plain(mu, rho, (3, 5), num_draws, out_dtype)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("num_draws", [1, 2, 3])
+def test_reparam_kernel_noise_is_the_eps_kernels(num_draws):
+    """At mu = 0 and rho = 32 softplus_k takes its x > 20 branch, so sigma is
+    exactly 32 and w / 32 is the eps kernel's output bit for bit; the
+    wrapper refuses inputs that require grad."""
+    _cuda_or_skip()
+    mu = torch.zeros(RAGGED_P, device="cuda")
+    rho = torch.full((RAGGED_P,), 32.0, device="cuda")
+    w = S.gaussian_reparam(mu, rho, (7, 1), num_draws)
+    eps = S.gaussian_noise(RAGGED_P, (7, 1), num_draws, "cuda")
+    assert torch.equal(w / 32.0, eps)
+    with pytest.raises(ValueError, match="no backward"):
+        S.gaussian_reparam(mu.requires_grad_(), rho, (7, 1))
+
+
 def test_backward_on_card_matches_plain_autograd():
     """dmu and dsigma of the kernels' autograd Function on the card equal
     autograd through mu + sigma * eps_plain, to 1e-6 relative (both sum

@@ -41,7 +41,9 @@ def test_port_imports_no_jax():
     for name in ("engine.predict", "ops.sampling", "engine.steps",
                  "engine.optim", "engine.loops", "engine.checkpointing",
                  "engine.preemption", "pipelines.training", "utils.tb",
-                 "utils.plotting", "utils.manifest", "utils.logging_utils"):
+                 "utils.plotting", "utils.manifest", "utils.logging_utils",
+                 "pipelines.unimodal", "models.model_utils",
+                 "interop.from_jax"):
         assert f"multimodal_auv_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 
@@ -73,12 +75,15 @@ def test_entry_points_need_the_card_by_default():
     from multimodal_auv_torch.config import BNNPriorSpec
     from multimodal_auv_torch.models.model_utils import (
         ArchConfig,
+        define_models,
         make_multimodal_bundle,
+        make_unimodal_bundle,
     )
     from multimodal_auv_torch.pipelines.inference import run_auv_inference
     from multimodal_auv_torch.pipelines.training import (
         run_AUV_training_from_scratch,
     )
+    from multimodal_auv_torch.pipelines.unimodal import run_unimodal_training
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_multimodal_bundle(7, BNNPriorSpec(), None, ArchConfig.micro())
@@ -88,3 +93,9 @@ def test_entry_points_need_the_card_by_default():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_AUV_training_from_scratch({}, 1e-3, 1, 2, 10, 10, 2, REPO,
                                       arch=ArchConfig.micro())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        define_models(7, BNNPriorSpec(), None, ArchConfig.micro())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_unimodal_bundle(1, 7, BNNPriorSpec(), None, ArchConfig.micro())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_unimodal_training(REPO, "sss", arch=ArchConfig.micro())
