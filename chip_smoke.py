@@ -12,7 +12,8 @@ result line):
 2. build: every ``multimodal_auv_torch/csrc/*.cu``, one nvcc each, started
    together.
 3. kernels: each kernel against its plain version on the card, bit for bit,
-   at a small P with a ragged last block and at the full model's P, chunks
+   at small P's whose last block ends in each of its four quarters and at
+   the full model's P, chunks
    1, 2 and 3; sampler moments at full P; times of the kernel, the plain
    version, one ``torch.normal`` call over the same work (a yardstick the
    port never calls), and the kernel's bound.
@@ -23,7 +24,7 @@ result line):
    on the card agrees with the port on the CPU at micro() size, and the
    kernel launch counts of the timed run: 30 split_sampler, no other.
 5. training kernels: the stacked sampler and the eps kernel against their
-   plain versions bit for bit (small ragged P and full P, chunks 1, 2, 3,
+   plain versions bit for bit (the small P's and full P, chunks 1, 2, 3,
    f32 and bf16 outputs); eps kernel == stacked at (0, 1) == split (f32
    noise) at (0, 1); eps moments at full P; times beside the bound, the
    plain version and one library call (``torch.normal`` over the expanded
@@ -46,7 +47,7 @@ result line):
    second and peak memory.
 
 8. kernel #4 (the reparam sampler, softplus inside) against its plain
-   version bit for bit: a small ragged P and the full multimodal P, 1, 2
+   version bit for bit: the small P's and the full multimodal P, 1, 2
    and 3 draws, f32 and bf16 in and out, rho over [-30, 25] so both
    branches of softplus_k run; its eps == the eps kernel's (mu = 0,
    rho = 32: w / 32 bit for bit); moments at full P; the wrapper refuses
@@ -72,6 +73,21 @@ result line):
     is installed), that mu, rho and the running statistics moved; exactly 40 stacked_sampler (forward and
     re-forward), 20 eps and 5 split_sampler launches; seconds per step,
     samples per second, peak memory.
+
+12. the RNG-split probe (``python -m multimodal_auv_torch.ops.probe_rng_split``,
+    the port of scripts/probe_rng_split.py): its three kernels (rng_bits,
+    rng_bmlite, eps_fast) against their plain versions bit for bit at the
+    small and quarter-ending P's and the full P; then its run at the TPU
+    probe's geometry (72,941,568 elements, 20 draws, bf16): the marginal
+    ms per draw of bits, bm (the eps kernel), bmlite and bmfast, the split
+    into "PRNG + write" and "Box-Muller math", lite against the f32
+    polynomials on the same bits (max and mean |d|, moments), with exact
+    launch counts; each probe kernel's time at one draw beside its plain
+    version, ``torch.randn`` and its bound.
+
+Beside each sampler's bound the script prints the noise contract's Philox
+calls for that launch and their estimated INT32 time, labelled as an
+estimate; it is not part of ``bound_ms``.
 
 ``--profile`` also writes profiler summaries of one inference batch and of
 one train step to chiprun_out/chip_smoke/. Launch counts are reset at the
@@ -106,6 +122,10 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 NUM_CLASSES, NUM_MC, BATCH, N_SAMPLES, IMAGE = 7, 20, 4, 10, 256
 TRAIN_BATCH, TRAIN_SAMPLES = 12, 32  # the reference's b12 x 20 MC
 SMALL_P = 512 * 128 + 1024  # one full block and a partial one
+# P's whose last block ends inside its first, second, third, fourth quarter
+QUARTER_PS = (65536 + 128, 65536 + 16384 + 256, 65536 + 32768 + 384,
+              65536 + 49152 + 512)
+SMALL_PS = (SMALL_P,) + QUARTER_PS
 # f32 operations per element pair per draw of the split sampler
 # (Box-Muller with the JAX package's polynomials, plus two mu + sigma*eps)
 SAMPLER_F32_OPS = {False: 53, True: 41}
@@ -113,6 +133,17 @@ EPS_F32_OPS = SAMPLER_F32_OPS[False] - 4  # the noise alone
 # the reparam sampler adds softplus_k per element: a compare, libdevice's
 # expf and log1pf, counted as 30 f32 operations (an estimate)
 REPARAM_F32_OPS = SAMPLER_F32_OPS[False] + 2 * 30
+# the RNG-split probe's kernels, per pair per draw: the 2-term ln drops one
+# multiply-add of the bf16-budget noise; rng_bits only converts two words
+PROBE_F32_OPS = {"rng_bits": 2, "rng_bmlite": SAMPLER_F32_OPS[True] - 6,
+                 "eps_fast": SAMPLER_F32_OPS[True] - 4}
+# An estimate, not a bound: Philox-4x32-10 costs ~60 INT32 operations per
+# call (10 rounds of two 32x32->64 multiplies, counted as four, and two
+# three-input xors), and an H100 SXM issues 64 INT32 operations per SM per
+# clock (CUDA C++ Programming Guide, arithmetic throughput, compute
+# capability 9.0): 132 SMs x 64 x 1.98 GHz boost.
+PHILOX_INT32_OPS = 60
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 UNI_MC, UNI_BATCH, UNI_CLASSES = 10, 4, 7      # BASELINE.json configs[0]
 UNI_TRAIN_MC, UNI_TRAIN_BATCH = 5, 8           # BASELINE.json configs[1]
 
@@ -162,6 +193,18 @@ def bound_ms(nbytes: float, ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def philox_note(P: int, num_draws: int) -> str:
+    """The contract's Philox calls for one launch and their INT32 time,
+    labelled as the estimate it is (never folded into bound_ms)."""
+    from multimodal_auv_torch.ops import sampling as S
+
+    calls = S.philox_calls(P, num_draws)
+    ms = calls * PHILOX_INT32_OPS / INT32_OPS_PER_S * 1e3
+    return (f"Philox estimate (not a bound): {calls} calls x "
+            f"{PHILOX_INT32_OPS} INT32 ops at {INT32_OPS_PER_S / 1e12:.2f} "
+            f"TOP/s = {ms:.4f} ms")
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on the card",
@@ -201,13 +244,14 @@ def check_sampler(post, n_padded: int):
     from multimodal_auv_torch.ops import sampling as S
 
     g = torch.Generator().manual_seed(0)
-    small = (torch.randn(SMALL_P, generator=g),
-             torch.rand(SMALL_P, generator=g) + 0.01)
+    cases = [("small", (torch.randn(P, generator=g),
+                               torch.rand(P, generator=g) + 0.01))
+             for P in SMALL_PS]
     sigma_full = softplus(post.rho.float())
+    cases.append(("full", (post.mu, sigma_full)))
     max_err = 0.0
     for fast, dt in ((False, torch.float32), (True, torch.bfloat16)):
-        for label, (mu, sg) in (("small", small), ("full", (post.mu,
-                                                             sigma_full))):
+        for label, (mu, sg) in cases:
             mu, sg = mu.to("cuda", dt).contiguous(), sg.to("cuda", dt).contiguous()
             for n in (1, 2, 3):
                 seed = (1234 + n, 5678)
@@ -262,7 +306,8 @@ def check_sampler(post, n_padded: int):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
     log(f"split_sampler chunk 2 at P={P}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, torch.normal {library_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e9:.3f} GB)")
+        f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e9:.3f} GB); "
+        f"{philox_note(P, 2)}")
     return {"name": "split_sampler", "route": "cuda",
             "source": "multimodal_auv_torch/csrc/sampling.cu",
             "replaces": "multimodal_auv_tpu/ops/sampling.py:281",
@@ -456,12 +501,15 @@ def check_train_kernels(post, n_padded: int):
     from multimodal_auv_torch.ops import sampling as S
 
     g = torch.Generator().manual_seed(1)
-    small = (torch.randn(SMALL_P, generator=g).cuda(),
-             (torch.rand(SMALL_P, generator=g) + 0.01).cuda())
+    cases = [("small", (torch.randn(P, generator=g).cuda(),
+                        (torch.rand(P, generator=g) + 0.01).cuda()))
+             for P in SMALL_PS]
+    small = cases[0][1]
     with torch.no_grad():
         full = (post.mu.detach(), softplus(post.rho.detach().float()))
+    cases.append(("full", full))
     err = {"stacked_sampler": 0.0, "eps": 0.0}
-    for label, (mu, sg) in (("small", small), ("full", full)):
+    for label, (mu, sg) in cases:
         P = mu.numel()
         for n in (1, 2, 3):
             seed = (4321 + n, 8765)
@@ -539,7 +587,7 @@ def check_train_kernels(post, n_padded: int):
                           (P // 2) * n * SAMPLER_F32_OPS[False])
     log(f"stacked_sampler chunk 1 f32 at P={P}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"{b_ms:.4f} ms ({b_by}); {philox_note(P, n)}")
     entries = [{"name": "stacked_sampler", "route": "cuda",
                 "source": "multimodal_auv_torch/csrc/sampling.cu",
                 "replaces": "multimodal_auv_tpu/ops/sampling.py:198",
@@ -552,7 +600,8 @@ def check_train_kernels(post, n_padded: int):
                      50)
     b_ms, b_by = bound_ms(n * P * 4, (P // 2) * n * EPS_F32_OPS)
     log(f"eps chunk 1 at P={P}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.randn {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"torch.randn {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{philox_note(P, n)}")
     entries.append({"name": "eps", "route": "cuda",
                     "source": "multimodal_auv_torch/csrc/sampling.cu",
                     "replaces": "multimodal_auv_tpu/ops/sampling.py:213",
@@ -816,7 +865,7 @@ def check_reparam_kernel(P_full: int):
     g = torch.Generator(device="cuda").manual_seed(11)
     f32, bf16 = torch.float32, torch.bfloat16
     max_err = 0.0
-    for label, P in (("small", SMALL_P), ("full", P_full)):
+    for label, P in [("small", p) for p in SMALL_PS] + [("full", P_full)]:
         mu32 = torch.randn(P, device="cuda", generator=g)
         rho32 = torch.rand(P, device="cuda", generator=g) * 55 - 30
         for in_dt in (f32, bf16):
@@ -886,7 +935,8 @@ def check_reparam_kernel(P_full: int):
     b_ms, b_by = bound_ms(3 * P * 4, (P // 2) * REPARAM_F32_OPS)
     log(f"reparam_sampler 1 draw f32 at P={P}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, torch.normal(mu, std) {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}, {3 * P * 4 / 1e9:.3f} GB)")
+        f"{b_ms:.4f} ms ({b_by}, {3 * P * 4 / 1e9:.3f} GB); "
+        f"{philox_note(P, 1)}")
     return {"name": "reparam_sampler", "route": "cuda",
             "source": "multimodal_auv_torch/csrc/sampling.cu",
             "replaces": "multimodal_auv_tpu/ops/sampling.py:186",
@@ -990,7 +1040,7 @@ def phase_models(args, smi: str):
     ms = cuda_ms(lambda: S.gaussian_reparam(post.mu, post.rho, (1, 2)), 50)
     b_ms, _ = bound_ms(3 * P * 4, (P // 2) * REPARAM_F32_OPS)
     log(f"reparam_sampler 1 draw f32 at the unimodal P={P}: kernel {ms:.4f} "
-        f"ms, bound {b_ms:.4f} ms (bytes)")
+        f"ms, bound {b_ms:.4f} ms (bytes); {philox_note(P, 1)}")
     check_sample_and_apply_card_vs_cpu()
     return models, launches["reparam_sampler"]
 
@@ -1159,6 +1209,81 @@ def phase_unimodal_training(args, smi: str, work: str) -> None:
         f"launches {launches}")
 
 
+def check_probe_kernels(P_full: int) -> dict:
+    """The RNG-split probe's three kernels against their plain versions, bit
+    for bit: the small and quarter-ending P's and the full model's P, 1-3
+    draws, f32 and bf16 out (eps_fast: bf16 only). Returns the max abs
+    error of each."""
+    from multimodal_auv_torch.ops import probe_rng_split as PR
+
+    kernels = {"rng_bits": (PR.rng_bits, PR.rng_bits_plain),
+               "rng_bmlite": (PR.rng_bmlite, PR.rng_bmlite_plain),
+               "eps_fast": (PR.eps_fast, PR.eps_fast_plain)}
+    err = {k: 0.0 for k in kernels}
+    for P in SMALL_PS + (P_full,):
+        for name, (fn, plain) in kernels.items():
+            for dt in ((torch.bfloat16,) if name == "eps_fast"
+                       else (torch.float32, torch.bfloat16)):
+                for n in ((1, 2, 3) if P < P_full else (2,)):
+                    seed = (1111 * n + P % 1000, 2222)
+                    got = fn(P, seed, n, "cuda", dt)
+                    want = plain(P, seed, n, "cuda", dt)
+                    torch.cuda.synchronize()
+                    e = float((got.float() - want.float()).abs().max())
+                    err[name] = max(err[name], e)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{name} != plain ({dt}, P={P}, "
+                                             f"{n} draws): max abs err {e}")
+                    del got, want
+    log(f"rng_bits, rng_bmlite, eps_fast == plain bit for bit at P "
+        f"{', '.join(str(p) for p in SMALL_PS + (P_full,))}, f32 and bf16")
+    return err
+
+
+def phase_probe(smi: str, P_full: int) -> list:
+    """The RNG-split probe (``multimodal_auv_torch.ops.probe_rng_split``)
+    as a phase: its kernels against their plain versions, then its run at
+    the TPU probe's geometry with exact launch counts; times of each probe
+    kernel at one draw beside its plain version, ``torch.randn`` and its
+    bound. Returns their kernels-line entries."""
+    from multimodal_auv_torch.ops import probe_rng_split as PR
+
+    err = check_probe_kernels(P_full)
+    iters = 10
+    reset_launches()
+    res = PR.run(iters=iters)
+    launches = check_launches("RNG-split probe", PR.launches_of_run(iters))
+    log(f"RNG-split probe [{smi}]:\n{PR.report(res)}")
+    log(f"probe launches {launches}")
+    P, bf16 = res["P"], torch.bfloat16
+    plain = {"rng_bits": PR.rng_bits_plain, "rng_bmlite": PR.rng_bmlite_plain,
+             "eps_fast": PR.eps_fast_plain}
+    row = {"rng_bits": "bits", "rng_bmlite": "bmlite", "eps_fast": "bmfast"}
+    source = {"rng_bits": 78, "rng_bmlite": 93, "eps_fast": 101}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    entries = []
+    for name in ("rng_bits", "rng_bmlite", "eps_fast"):
+        ms = res["rows"][row[name]]["t_1_ms"]
+        plain_ms = cuda_ms(lambda: plain[name](P, PR.PROBE_SEED, 1, "cuda",
+                                               bf16), 3, 1)
+        lib_ms = None if name == "rng_bits" else cuda_ms(
+            lambda: torch.randn(1, P, device="cuda", dtype=bf16,
+                                generator=gen), 50)
+        b_ms, b_by = bound_ms(P * 2, (P // 2) * PROBE_F32_OPS[name])
+        log(f"{name} 1 draw bf16 at P={P}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, torch.randn "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms ({b_by}); {philox_note(P, 1)}")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "multimodal_auv_torch/csrc/sampling.cu",
+                        "replaces": f"scripts/probe_rng_split.py:"
+                                    f"{source[name]}",
+                        "launches": launches[name], "max_abs_err": err[name],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms})
+    return entries
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1195,6 +1320,8 @@ def main() -> int:
         free_cuda()
         phase_unimodal_training(args, smi, work)
         kernels_line.append(reparam_entry)
+        free_cuda()
+        kernels_line += phase_probe(smi, P_full)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"split_sampler": 0, "stacked_sampler": 0,
-                            "eps": 0, "reparam_sampler": 0}
+                            "eps": 0, "reparam_sampler": 0, "rng_bits": 0,
+                            "rng_bmlite": 0, "eps_fast": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

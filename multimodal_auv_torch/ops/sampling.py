@@ -40,7 +40,7 @@ A seed is a pair of 32-bit words, the counterpart of the JAX package's
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,15 +96,20 @@ def philox4x32_10(ctr: Sequence[torch.Tensor], k0, k1
     return c0, c1, c2, c3
 
 
-def fast_ln(f: torch.Tensor, trimmed: bool = False) -> torch.Tensor:
-    """``_fast_ln`` (``trimmed=False``) / ``_fast_ln_bf16``: ln(f) for f32 f
-    in [1, 2^24] via exponent bits and the atanh series of the mantissa."""
+def fast_ln(f: torch.Tensor, trimmed: bool = False, lite: bool = False
+            ) -> torch.Tensor:
+    """``_fast_ln`` (5 terms) / ``_fast_ln_bf16`` (``trimmed``, 3 terms) /
+    the RNG-split probe's ``_fast_ln_lite`` (``lite``, 2 terms): ln(f) for
+    f32 f in [1, 2^24] via exponent bits and the atanh series of the
+    mantissa."""
     i = f.view(torch.int32)
     e = (i >> 23) - 127
     m = ((i & 0x7FFFFF) | 0x3F800000).view(torch.float32)
     z = (m - 1.0) / (m + 1.0)
     z2 = z * z
-    if trimmed:
+    if lite:
+        p = 1.0 + z2 * (1.0 / 3.0)
+    elif trimmed:
         p = 1.0 + z2 * (1.0 / 3.0 + z2 * (1.0 / 5.0))
     else:
         p = 1.0 + z2 * (1.0 / 3.0 + z2 * (1.0 / 5.0 + z2 * (
@@ -137,24 +142,30 @@ def fast_sincos_2pi(u: torch.Tensor, trimmed: bool = False
     return -sin_x, -cos_x
 
 
-def box_muller(b1: torch.Tensor, b2: torch.Tensor, fast_math: bool = False
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def box_muller(b1: torch.Tensor, b2: torch.Tensor, fast_math: bool = False,
+               lite: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(r cos t, r sin t) f32 normals from two words of random bits (int
-    tensors; the low 24 bits of each are used)."""
+    tensors; the low 24 bits of each are used). ``lite``: the RNG-split
+    probe's polynomials (2-term ln, the trimmed sin/cos)."""
     f1 = ((b1 & _M24) + 1).to(torch.float32)
-    ln_u1 = fast_ln(f1, fast_math) - 24.0 * _LN2
+    ln_u1 = fast_ln(f1, fast_math, lite) - 24.0 * _LN2
     u2 = (b2 & _M24).to(torch.float32) * (1.0 / 16777216.0)
     r = torch.sqrt(-2.0 * ln_u1)
-    sin_t, cos_t = fast_sincos_2pi(u2, fast_math)
+    sin_t, cos_t = fast_sincos_2pi(u2, fast_math or lite)
     return r * cos_t, r * sin_t
+
+
+def block_layout(v_cos: torch.Tensor, v_sin: torch.Tensor, P: int
+                 ) -> torch.Tensor:
+    """Lay out per-pair values (nblk, 32768) as the (P,) output of one draw:
+    pair i of block k fills elements k*65536 + i and k*65536 + 32768 + i."""
+    return torch.stack([v_cos, v_sin], dim=1).reshape(-1)[:P]
 
 
 def block_noise(b1: torch.Tensor, b2: torch.Tensor, P: int,
                 fast_math: bool = False) -> torch.Tensor:
-    """Lay out per-pair bits (nblk, 32768) as the (P,) eps of one draw: pair
-    i of block k fills elements k*65536 + i and k*65536 + 32768 + i."""
-    z_cos, z_sin = box_muller(b1, b2, fast_math)
-    return torch.stack([z_cos, z_sin], dim=1).reshape(-1)[:P]
+    """The (P,) eps of one draw from per-pair bits (nblk, 32768)."""
+    return block_layout(*box_muller(b1, b2, fast_math), P)
 
 
 def noise_bits(P: int, seed: Tuple[int, int], draw: int, device=None
@@ -170,15 +181,35 @@ def noise_bits(P: int, seed: Tuple[int, int], draw: int, device=None
     return x0, x1
 
 
-def eps_plain(P: int, seed: Tuple[int, int], num_draws: int, device=None,
-              fast_math: bool = False) -> torch.Tensor:
-    """The (num_draws, P) f32 eps of a seed: the noise of every plain
-    version (one draw at a time, to bound the int64 temporaries)."""
-    out = torch.empty((num_draws, P), dtype=torch.float32, device=device)
+def philox_calls(P: int, num_draws: int) -> int:
+    """The Philox calls a kernel makes for one launch over P elements and
+    ``num_draws`` draws: one per pair whose first element lies inside P."""
+    full, rem = divmod(P, BLOCK_ELEMS)
+    return num_draws * (full * PAIRS_PER_BLOCK + min(rem, PAIRS_PER_BLOCK))
+
+
+def noise_plain(P: int, seed: Tuple[int, int], num_draws: int,
+                pair_values: Callable, device=None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(num_draws, P) of ``pair_values(b1, b2) -> (v_cos, v_sin)`` (f32)
+    over each draw's bits, in the block layout, cast to ``out_dtype``: the
+    plain version of every noise kernel (one draw at a time, to bound the
+    int64 temporaries)."""
+    out = torch.empty((num_draws, P), dtype=out_dtype, device=device)
     for d in range(num_draws):
         b1, b2 = noise_bits(P, seed, d, device)
-        out[d] = block_noise(b1, b2, P, fast_math)
+        out[d] = block_layout(*pair_values(b1, b2), P)
     return out
+
+
+def eps_plain(P: int, seed: Tuple[int, int], num_draws: int, device=None,
+              fast_math: bool = False,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (num_draws, P) eps of a seed, computed in f32: the noise of every
+    plain version."""
+    return noise_plain(P, seed, num_draws,
+                       lambda b1, b2: box_muller(b1, b2, fast_math), device,
+                       out_dtype)
 
 
 def stacked_plain(mu: torch.Tensor, sigma: torch.Tensor,
@@ -264,14 +295,19 @@ def _launch_reparam(mu, rho, seed, num_draws, out_dtype) -> torch.Tensor:
     return _launch("reparam_sampler", mu, rho, seed, num_draws, out_dtype)
 
 
-def _launch_eps(P, seed, num_draws, device) -> torch.Tensor:
-    out = torch.empty((num_draws, P), dtype=torch.float32, device=device)
-    fn = _fn("eps_launch", [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
+def launch_noise(name: str, P: int, seed, num_draws: int, device,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One launch of noise kernel ``name`` (eps, or one of the RNG-split
+    probe's) into a (num_draws, P) buffer on a CUDA device."""
+    out = torch.empty((num_draws, P), dtype=out_dtype, device=device)
+    fn = _fn(f"{name}_launch", [ctypes.c_void_p, ctypes.c_longlong,
+                                ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                                ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
     kernels.check(fn(out.data_ptr(), P, num_draws, int(seed[0]) & _M32,
-                     int(seed[1]) & _M32, stream), "eps")
-    kernels.LAUNCHES["eps"] += 1
+                     int(seed[1]) & _M32, int(out_dtype == torch.bfloat16),
+                     stream), name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
@@ -316,20 +352,31 @@ def gaussian_shift_scale_split(mu: torch.Tensor, sigma: torch.Tensor,
     return split_plain(mu, sigma, seed, num_draws, out_dtype, fast_math)
 
 
-def gaussian_noise(P: int, seed: Tuple[int, int], num_draws: int,
-                   device) -> torch.Tensor:
-    """The (num_draws, P) f32 eps that ``gaussian_shift_scale`` draws for
-    ``seed`` (the port of ``_pallas_eps``). On a CUDA device this launches
-    the eps kernel; on the CPU it runs ``eps_plain``."""
+def check_noise_args(P: int, num_draws: int, device, out_dtype
+                     ) -> torch.device:
+    """The device of a noise kernel's call, or ValueError for arguments no
+    noise kernel takes."""
     device = torch.device(device)
     if P <= 0 or P % LANES != 0 or num_draws < 1:
         raise ValueError(f"P={P} (a positive multiple of {LANES}) and "
                          f"num_draws={num_draws} (>= 1)")
+    if out_dtype not in _DTYPE_OK:
+        raise ValueError(f"out_dtype {out_dtype}: f32 or bf16")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no sampler for device {device}")
+    return device
+
+
+def gaussian_noise(P: int, seed: Tuple[int, int], num_draws: int, device,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (num_draws, P) eps that ``gaussian_shift_scale`` draws for
+    ``seed``, computed in f32 and cast to ``out_dtype`` (the port of
+    ``_pallas_eps``). On a CUDA device this launches the eps kernel; on the
+    CPU it runs ``eps_plain``."""
+    device = check_noise_args(P, num_draws, device, out_dtype)
     if device.type == "cuda":
-        return _launch_eps(P, seed, num_draws, device)
-    if device.type == "cpu":
-        return eps_plain(P, seed, num_draws, device)
-    raise ValueError(f"no sampler for device {device}")
+        return launch_noise("eps", P, seed, num_draws, device, out_dtype)
+    return eps_plain(P, seed, num_draws, device, out_dtype=out_dtype)
 
 
 class _GaussianShiftScale(torch.autograd.Function):

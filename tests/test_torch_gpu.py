@@ -16,11 +16,15 @@ from multimodal_auv_torch.models.model_utils import (
     make_multimodal_bundle,
 )
 from multimodal_auv_torch.ops import kernels
+from multimodal_auv_torch.ops import probe_rng_split as PR
 from multimodal_auv_torch.ops import sampling as S
 
 pytestmark = pytest.mark.gpu
 
 RAGGED_P = 512 * 128 + 1024  # one full block and a partial one
+# P's whose last block ends inside its first, second, third, fourth quarter
+QUARTER_PS = [65536 + 128, 65536 + 16384 + 256, 65536 + 32768 + 384,
+              65536 + 49152 + 512]
 
 
 def _cuda_or_skip():
@@ -157,3 +161,53 @@ def test_card_step_matches_cpu_step():
         outs.append(out["csv_cols"].cpu().numpy())
     np.testing.assert_array_equal(outs[0][0, :2], outs[1][0, :2])
     np.testing.assert_allclose(outs[0][1:, :2], outs[1][1:, :2], atol=1e-4)
+
+
+@pytest.mark.parametrize("P", QUARTER_PS, ids=["q0", "q1", "q2", "q3"])
+def test_samplers_bit_equal_plain_at_quarter_ends(P):
+    """All four samplers equal their plain versions bit for bit where the
+    last block ends inside each of its quarters, and share their eps."""
+    _cuda_or_skip()
+    g = torch.Generator().manual_seed(P)
+    mu = torch.randn(P, generator=g).cuda()
+    sg = (torch.rand(P, generator=g) + 0.01).cuda()
+    rho = (torch.rand(P, generator=g) * 55 - 30).cuda()
+    seed = (P, 77)
+    for fast, dt in ((False, torch.float32), (True, torch.bfloat16)):
+        got = S.gaussian_shift_scale_split(mu.to(dt), sg.to(dt), seed, 3,
+                                           out_dtype=dt, fast_math=fast)
+        want = S.split_plain(mu.to(dt), sg.to(dt), seed, 3, dt, fast)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(S.gaussian_shift_scale(mu, sg, seed, 3, out_dtype=dt),
+                           S.stacked_plain(mu, sg, seed, 3, dt))
+        assert torch.equal(S.gaussian_reparam(mu.to(dt), rho.to(dt), seed, 3),
+                           S.reparam_plain(mu.to(dt), rho.to(dt), seed, 3, dt))
+    eps = S.gaussian_noise(P, seed, 3, "cuda")
+    assert torch.equal(eps, S.eps_plain(P, seed, 3, "cuda"))
+    ones = torch.ones(P, device="cuda")
+    assert torch.equal(S.gaussian_shift_scale(ones * 0, ones, seed, 3), eps)
+    assert torch.equal(S.gaussian_reparam(ones * 0, ones * 32, seed, 3) / 32,
+                       eps)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["rng_bits", "rng_bmlite", "eps_fast"])
+@pytest.mark.parametrize("P", [RAGGED_P] + QUARTER_PS,
+                         ids=["ragged", "q0", "q1", "q2", "q3"])
+def test_probe_kernels_bit_equal_plain(P, name, out_dtype):
+    """The RNG-split probe's kernels equal their plain versions bit for bit
+    (eps_fast is bf16-out only), one launch each."""
+    _cuda_or_skip()
+    if name == "eps_fast" and out_dtype != torch.bfloat16:
+        pytest.skip("eps_fast writes bf16 only")
+    fn, plain = {"rng_bits": (PR.rng_bits, PR.rng_bits_plain),
+                 "rng_bmlite": (PR.rng_bmlite, PR.rng_bmlite_plain),
+                 "eps_fast": (PR.eps_fast, PR.eps_fast_plain)}[name]
+    before = kernels.LAUNCHES[name]
+    got = fn(P, (5, P), 3, "cuda", out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.shape == (3, P) and got.dtype == out_dtype
+    assert torch.equal(got, plain(P, (5, P), 3, "cuda", out_dtype))
