@@ -43,8 +43,6 @@ PROBE_P = (73_000_000 // S.LANES // S.BLOCK_ROWS) * S.BLOCK_ROWS * S.LANES
 PROBE_DRAWS = 20
 PROBE_SEED = (12345, 0)
 ROWS = ("bits", "bm", "bmlite", "bmfast")
-KERNEL_OF_ROW = {"bits": "rng_bits", "bm": "eps", "bmlite": "rng_bmlite",
-                 "bmfast": "eps_fast"}
 
 
 def bits_pair(b1: torch.Tensor, b2: torch.Tensor
@@ -68,8 +66,7 @@ def rng_bmlite_plain(P, seed, num_draws, device=None,
 
 def eps_fast_plain(P, seed, num_draws, device=None,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
-    return S.eps_plain(P, seed, num_draws, device, fast_math=True,
-                       out_dtype=out_dtype)
+    return S.eps_plain(P, seed, num_draws, device, True).to(out_dtype)
 
 
 def _noise(name, plain, P, seed, num_draws, device, out_dtype):

@@ -19,17 +19,19 @@ below, which does the same arithmetic op for op, so the two agree bit for
 bit on the card. Every plain version draws its noise from the one function
 ``eps_plain``.
 
-The noise contract (the same for the four kernels, so the backward
+The noise contract (the same for every kernel, so the backward
 regenerates exactly the forward's eps):
 
-* P elements form blocks of 512 x 128 = 65536 (``BLOCK_ROWS`` x ``LANES``);
-  the last block may be partial.
+* P elements form blocks of 512 x 128 = 65536; the last block may be
+  partial, and nothing is written past P.
 * Stream (draw, blk) is Philox-4x32-10 keyed
   (seed0, seed1 + draw * nblk + blk) mod 2^32.
-* Pair i in [0, 32768) of a block is the element pair (i, i + 32768) and
-  uses counter (i, 0, 0, 0); words x0, x1 are the bits b1, b2.
-* Box-Muller on two 24-bit uniforms, with the JAX package's fast-math ln and
-  sin/cos polynomials in f32: u1 = (b1 & 0xFFFFFF + 1) / 2^24,
+* Call j in [0, 16384) of a stream uses counter (j, 0, 0, 0) and gives
+  words (x0, x1, x2, x3): pair j takes (x0, x1) and pair j + 16384 takes
+  (x2, x3) as its bits (b1, b2).
+* Pair i in [0, 32768) of a block is the element pair (i, i + 32768).
+* Box-Muller on two 24-bit uniforms, with the JAX package's fast-math ln
+  and sin/cos polynomials in f32: u1 = ((b1 & 0xFFFFFF) + 1) / 2^24,
   u2 = (b2 & 0xFFFFFF) / 2^24, r = sqrt(-2 ln u1); the pair takes
   (r cos 2 pi u2, r sin 2 pi u2).
 
@@ -50,6 +52,7 @@ LANES = 128
 BLOCK_ROWS = 512
 BLOCK_ELEMS = BLOCK_ROWS * LANES
 PAIRS_PER_BLOCK = BLOCK_ELEMS // 2
+CALLS_PER_BLOCK = BLOCK_ELEMS // 4  # Philox calls: four words each
 
 _M32 = 0xFFFFFFFF
 _M24 = 0xFFFFFF
@@ -170,22 +173,24 @@ def block_noise(b1: torch.Tensor, b2: torch.Tensor, P: int,
 
 def noise_bits(P: int, seed: Tuple[int, int], draw: int, device=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(b1, b2), each (nblk, 32768) int64, of one draw's streams."""
+    """(b1, b2), each (nblk, 32768) int64, of one draw's streams: the noise
+    contract in one place. Call j gives pairs j (words x0, x1) and
+    j + 16384 (words x2, x3)."""
     nblk = -(-P // BLOCK_ELEMS)
-    i = torch.arange(PAIRS_PER_BLOCK, dtype=torch.int64, device=device)
+    j = torch.arange(CALLS_PER_BLOCK, dtype=torch.int64, device=device)
     blk = torch.arange(nblk, dtype=torch.int64, device=device)[:, None]
     zero = torch.zeros((), dtype=torch.int64, device=device)
     k1 = (int(seed[1]) + draw * nblk + blk) & _M32
-    x0, x1, _, _ = philox4x32_10((i.expand(nblk, -1), zero, zero, zero),
-                                 int(seed[0]) & _M32, k1)
-    return x0, x1
+    x0, x1, x2, x3 = philox4x32_10((j.expand(nblk, -1), zero, zero, zero),
+                                   int(seed[0]) & _M32, k1)
+    return torch.cat([x0, x2], dim=1), torch.cat([x1, x3], dim=1)
 
 
 def philox_calls(P: int, num_draws: int) -> int:
-    """The Philox calls a kernel makes for one launch over P elements and
-    ``num_draws`` draws: one per pair whose first element lies inside P."""
+    """The contract's Philox calls for one launch over P elements and
+    ``num_draws`` draws: one per call j whose element j lies inside P."""
     full, rem = divmod(P, BLOCK_ELEMS)
-    return num_draws * (full * PAIRS_PER_BLOCK + min(rem, PAIRS_PER_BLOCK))
+    return num_draws * (full * CALLS_PER_BLOCK + min(rem, CALLS_PER_BLOCK))
 
 
 def noise_plain(P: int, seed: Tuple[int, int], num_draws: int,
@@ -203,13 +208,11 @@ def noise_plain(P: int, seed: Tuple[int, int], num_draws: int,
 
 
 def eps_plain(P: int, seed: Tuple[int, int], num_draws: int, device=None,
-              fast_math: bool = False,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The (num_draws, P) eps of a seed, computed in f32: the noise of every
-    plain version."""
+              fast_math: bool = False) -> torch.Tensor:
+    """The (num_draws, P) f32 eps of a seed: the noise of every plain
+    version."""
     return noise_plain(P, seed, num_draws,
-                       lambda b1, b2: box_muller(b1, b2, fast_math), device,
-                       out_dtype)
+                       lambda b1, b2: box_muller(b1, b2, fast_math), device)
 
 
 def stacked_plain(mu: torch.Tensor, sigma: torch.Tensor,
@@ -376,7 +379,7 @@ def gaussian_noise(P: int, seed: Tuple[int, int], num_draws: int, device,
     device = check_noise_args(P, num_draws, device, out_dtype)
     if device.type == "cuda":
         return launch_noise("eps", P, seed, num_draws, device, out_dtype)
-    return eps_plain(P, seed, num_draws, device, out_dtype=out_dtype)
+    return eps_plain(P, seed, num_draws, device).to(out_dtype)
 
 
 class _GaussianShiftScale(torch.autograd.Function):

@@ -69,6 +69,30 @@ def test_philox_known_answers():
         assert tuple(int(o) for o in out) == want
 
 
+def test_noise_bits_follow_the_contract():
+    """``noise_bits`` word for word: in stream (draw, blk), keyed (seed0,
+    seed1 + draw * nblk + blk) mod 2^32, pair j's bits are words (x0, x1)
+    of ``philox4x32_10`` at counter (j, 0, 0, 0), and pair j + 16384's are
+    words (x2, x3) of the same call."""
+    P = 2 * S.BLOCK_ELEMS + 128
+    nblk, calls = 3, S.CALLS_PER_BLOCK
+    seed = (0x9E3779B9, 0xFFFFFFFE)  # the key wraps mod 2^32
+    for draw in (0, 2):
+        b1, b2 = S.noise_bits(P, seed, draw)
+        assert b1.shape == b2.shape == (nblk, 2 * calls)
+        for blk in range(nblk):
+            j = torch.arange(calls)
+            zero = torch.zeros((), dtype=torch.int64)
+            key1 = (seed[1] + draw * nblk + blk) % (1 << 32)
+            x = S.philox4x32_10((j, zero, zero, zero), seed[0], key1)
+            assert torch.equal(b1[blk, :calls], x[0])
+            assert torch.equal(b2[blk, :calls], x[1])
+            assert torch.equal(b1[blk, calls:], x[2])
+            assert torch.equal(b2[blk, calls:], x[3])
+    assert S.philox_calls(P, 3) == 3 * (2 * calls + 128)
+    assert S.philox_calls(S.BLOCK_ELEMS + 16384 + 256, 1) == 2 * calls
+
+
 @pytest.mark.parametrize("fast_math", [False, True], ids=["f32", "bf16fast"])
 def test_zero_bits_match_jax_interpret(fast_math):
     """Zero random bits in the port's Box-Muller and block layout equal
@@ -136,8 +160,9 @@ def test_seeding_contract_and_determinism():
 
 @pytest.mark.parametrize("fast_math", [False, True], ids=["f32", "bf16fast"])
 def test_moments_cpu(fast_math):
-    """At P = 2^20: mean and std per draw, draws and blocks uncorrelated.
-    Bounds are ~5 standard errors at this P."""
+    """At P = 2^20: mean and std per draw, draws and blocks uncorrelated,
+    and the quarters of a block too (pair j against pair j + 16384: two
+    words of one Philox call). Bounds are ~5 standard errors at this P."""
     P = 1 << 20
     dt = torch.bfloat16 if fast_math else torch.float32
     mu = torch.full((P,), 0.5).to(dt)
@@ -158,3 +183,10 @@ def test_moments_cpu(fast_math):
     # neighbouring blocks, and the cos and sin halves of one block
     assert abs(corr(eps[0][:blk], eps[0][blk:2 * blk])) < 5 / blk ** 0.5
     assert abs(corr(eps[0][:half], eps[0][half:blk])) < 5 / half ** 0.5
+    # quarter q of every block: element j + q * 16384 for j < 16384; pairs
+    # j and j + 16384 hold quarters (0, 2) and (1, 3)
+    quarters = eps[0].reshape(-1, 4, S.CALLS_PER_BLOCK)
+    n_q = quarters[:, 0].numel()
+    for a, b in ((0, 1), (2, 3), (0, 3), (1, 2)):
+        assert abs(corr(quarters[:, a].reshape(-1),
+                        quarters[:, b].reshape(-1))) < 5 / n_q ** 0.5
