@@ -330,6 +330,9 @@ def _check_args(mu, sigma, num_draws, out_dtype):
         raise ValueError(f"mu on {mu.device}, sigma on {sigma.device}")
     if mu.is_cuda and not (mu.is_contiguous() and sigma.is_contiguous()):
         raise ValueError("mu and sigma must be contiguous")
+    if mu.is_cuda and (mu.data_ptr() % 16 or sigma.data_ptr() % 16):
+        raise ValueError("mu and sigma must start on a 16-byte boundary "
+                         "(the kernels load them as vectors)")
     if not mu.is_cuda and mu.device.type != "cpu":
         raise ValueError(f"no sampler for device {mu.device}")
 
