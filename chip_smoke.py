@@ -1216,12 +1216,9 @@ def check_probe_kernels(P_full: int) -> dict:
     error of each."""
     from multimodal_auv_torch.ops import probe_rng_split as PR
 
-    kernels = {"rng_bits": (PR.rng_bits, PR.rng_bits_plain),
-               "rng_bmlite": (PR.rng_bmlite, PR.rng_bmlite_plain),
-               "eps_fast": (PR.eps_fast, PR.eps_fast_plain)}
-    err = {k: 0.0 for k in kernels}
+    err = {k: 0.0 for k in PR.KERNELS}
     for P in SMALL_PS + (P_full,):
-        for name, (fn, plain) in kernels.items():
+        for name, (fn, plain) in PR.KERNELS.items():
             for dt in ((torch.bfloat16,) if name == "eps_fast"
                        else (torch.float32, torch.bfloat16)):
                 for n in ((1, 2, 3) if P < P_full else (2,)):
@@ -1256,16 +1253,14 @@ def phase_probe(smi: str, P_full: int) -> list:
     log(f"RNG-split probe [{smi}]:\n{PR.report(res)}")
     log(f"probe launches {launches}")
     P, bf16 = res["P"], torch.bfloat16
-    plain = {"rng_bits": PR.rng_bits_plain, "rng_bmlite": PR.rng_bmlite_plain,
-             "eps_fast": PR.eps_fast_plain}
     row = {"rng_bits": "bits", "rng_bmlite": "bmlite", "eps_fast": "bmfast"}
     source = {"rng_bits": 78, "rng_bmlite": 93, "eps_fast": 101}
     gen = torch.Generator(device="cuda").manual_seed(0)
     entries = []
-    for name in ("rng_bits", "rng_bmlite", "eps_fast"):
+    for name, (_, plain) in PR.KERNELS.items():
         ms = res["rows"][row[name]]["t_1_ms"]
-        plain_ms = cuda_ms(lambda: plain[name](P, PR.PROBE_SEED, 1, "cuda",
-                                               bf16), 3, 1)
+        plain_ms = cuda_ms(lambda: plain(P, PR.PROBE_SEED, 1, "cuda", bf16),
+                           3, 1)
         lib_ms = None if name == "rng_bits" else cuda_ms(
             lambda: torch.randn(1, P, device="cuda", dtype=bf16,
                                 generator=gen), 50)

@@ -107,6 +107,10 @@ def bm(P: int, seed: Tuple[int, int], num_draws: int, device,
 
 
 NOISE = {"bits": rng_bits, "bm": bm, "bmlite": rng_bmlite, "bmfast": eps_fast}
+# the probe's own kernels: launch name -> (wrapper, plain version)
+KERNELS = {"rng_bits": (rng_bits, rng_bits_plain),
+           "rng_bmlite": (rng_bmlite, rng_bmlite_plain),
+           "eps_fast": (eps_fast, eps_fast_plain)}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:

@@ -16,8 +16,8 @@ Port of ``multimodal_auv_tpu/ops/sampling.py``:
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/sampling.cu``; on a CPU tensor it runs the plain PyTorch version
 below, which does the same arithmetic op for op, so the two agree bit for
-bit on the card. Every plain version draws its noise from the one function
-``eps_plain``.
+bit on the card. Every plain version draws its bits from the one function
+``noise_bits``, the samplers' eps through ``eps_plain``.
 
 The noise contract (the same for every kernel, so the backward
 regenerates exactly the forward's eps):

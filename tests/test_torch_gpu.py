@@ -202,12 +202,21 @@ def test_probe_kernels_bit_equal_plain(P, name, out_dtype):
     _cuda_or_skip()
     if name == "eps_fast" and out_dtype != torch.bfloat16:
         pytest.skip("eps_fast writes bf16 only")
-    fn, plain = {"rng_bits": (PR.rng_bits, PR.rng_bits_plain),
-                 "rng_bmlite": (PR.rng_bmlite, PR.rng_bmlite_plain),
-                 "eps_fast": (PR.eps_fast, PR.eps_fast_plain)}[name]
+    fn, plain = PR.KERNELS[name]
     before = kernels.LAUNCHES[name]
     got = fn(P, (5, P), 3, "cuda", out_dtype)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
     assert got.shape == (3, P) and got.dtype == out_dtype
     assert torch.equal(got, plain(P, (5, P), 3, "cuda", out_dtype))
+
+
+def test_samplers_refuse_unaligned_inputs():
+    """The kernels load mu and sigma as 16-byte vectors: the wrappers refuse
+    inputs that do not start on a 16-byte boundary instead of faulting."""
+    _cuda_or_skip()
+    mu = torch.zeros(256 + 2, device="cuda")[2:]
+    with pytest.raises(ValueError, match="16-byte"):
+        S.gaussian_shift_scale_split(mu, mu, (1, 2), 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        S.gaussian_reparam(mu, mu, (1, 2))

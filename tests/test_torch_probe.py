@@ -29,18 +29,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RAGGED_P = 512 * 128 + 1024  # one full block and a partial one
 
 
-def _script():
+@pytest.fixture(scope="module")
+def script():
+    """scripts/probe_rng_split.py, loaded by path."""
     spec = importlib.util.spec_from_file_location(
         "probe_rng_split_script",
         os.path.join(REPO, "scripts", "probe_rng_split.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-@pytest.fixture(scope="module")
-def script():
-    return _script()
 
 
 def _uniform_words(n=100_000, seed=0):
