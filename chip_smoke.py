@@ -75,15 +75,17 @@ result line):
     samples per second, peak memory.
 
 12. the RNG-split probe (``python -m multimodal_auv_torch.ops.probe_rng_split``,
-    the port of scripts/probe_rng_split.py): its three kernels (rng_bits,
-    rng_bmlite, eps_fast) against their plain versions bit for bit at the
-    small and quarter-ending P's and the full P; then its run at the TPU
-    probe's geometry (72,941,568 elements, 20 draws, bf16): the marginal
-    ms per draw of bits, bm (the eps kernel), bmlite and bmfast, the split
-    into "PRNG + write" and "Box-Muller math", lite against the f32
-    polynomials on the same bits (max and mean |d|, moments), with exact
-    launch counts; each probe kernel's time at one draw beside its plain
-    version, ``torch.randn`` and its bound.
+    the port of scripts/probe_rng_split.py): every kernel it launches
+    (rng_bits, rng_bmlite, eps_fast, and the eps kernel in f32 and bf16)
+    against its plain version bit for bit at the small and quarter-ending
+    P's, the full P, and the probe's own shapes (72,941,568 elements x 20
+    draws bf16, and x 2 draws f32 for the fidelity check); then its run
+    at that geometry (the TPU probe's): the marginal ms per draw of bits,
+    bm (the eps kernel), bmlite and bmfast, the split into "PRNG +
+    write" and "Box-Muller math", lite against the f32 polynomials on the
+    same bits (max and mean |d|, moments), with exact launch counts; each
+    probe kernel's time at one draw beside its plain version,
+    ``torch.randn`` and its bound.
 
 Beside each sampler's bound the script prints the noise contract's Philox
 calls for that launch and their estimated INT32 time, labelled as an
@@ -152,21 +154,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
 def reset_launches() -> None:
     from multimodal_auv_torch.ops import kernels
 
@@ -193,12 +180,20 @@ def bound_ms(nbytes: float, ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def philox_calls(P: int, num_draws: int) -> int:
+    """The noise contract's Philox calls for one launch over P elements and
+    ``num_draws`` draws: one per call j whose element j lies inside P."""
+    from multimodal_auv_torch.ops import sampling as S
+
+    full, rem = divmod(P, S.BLOCK_ELEMS)
+    return num_draws * (full * S.CALLS_PER_BLOCK
+                        + min(rem, S.CALLS_PER_BLOCK))
+
+
 def philox_note(P: int, num_draws: int) -> str:
     """The contract's Philox calls for one launch and their INT32 time,
     labelled as the estimate it is (never folded into bound_ms)."""
-    from multimodal_auv_torch.ops import sampling as S
-
-    calls = S.philox_calls(P, num_draws)
+    calls = philox_calls(P, num_draws)
     ms = calls * PHILOX_INT32_OPS / INT32_OPS_PER_S * 1e3
     return (f"Philox estimate (not a bound): {calls} calls x "
             f"{PHILOX_INT32_OPS} INT32 ops at {INT32_OPS_PER_S / 1e12:.2f} "
@@ -241,6 +236,7 @@ def check_sampler(post, n_padded: int):
     """Kernel vs plain version, bit for bit; moments; times. Returns the
     kernels-line entry of the split sampler (launches filled in later)."""
     from multimodal_auv_torch.bayes.packing import softplus
+    from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
     from multimodal_auv_torch.ops import sampling as S
 
     g = torch.Generator().manual_seed(0)
@@ -297,7 +293,7 @@ def check_sampler(post, n_padded: int):
     ms = cuda_ms(lambda: S.gaussian_shift_scale_split(
         mu, sg, (1, 2), 2, out_dtype=torch.bfloat16, fast_math=True), 50)
     plain_ms = cuda_ms(lambda: S.split_plain(mu, sg, (1, 2), 2,
-                                             torch.bfloat16, True), 3, 1)
+                                             torch.bfloat16, True), 3)
     gen = torch.Generator(device="cuda").manual_seed(0)
     mu2, sg2 = mu.expand(2, P), sg.expand(2, P)
     library_ms = cuda_ms(lambda: torch.normal(mu2, sg2, generator=gen), 50)
@@ -498,6 +494,7 @@ def check_train_kernels(post, n_padded: int):
     versions and each other's noise; eps moments; the backward; times.
     Returns their kernels-line entries (launches filled in later)."""
     from multimodal_auv_torch.bayes.packing import softplus
+    from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
     from multimodal_auv_torch.ops import sampling as S
 
     g = torch.Generator().manual_seed(1)
@@ -579,7 +576,7 @@ def check_train_kernels(post, n_padded: int):
     n = 1
     ms = cuda_ms(lambda: S.gaussian_shift_scale(mu, sg, (1, 2), n), 50)
     plain_ms = cuda_ms(lambda: S.stacked_plain(mu, sg, (1, 2), n,
-                                               torch.float32), 3, 1)
+                                               torch.float32), 3)
     gen = torch.Generator(device="cuda").manual_seed(0)
     mun, sgn = mu.expand(n, P), sg.expand(n, P)
     lib_ms = cuda_ms(lambda: torch.normal(mun, sgn, generator=gen), 50)
@@ -595,7 +592,7 @@ def check_train_kernels(post, n_padded: int):
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_ms}]
     ms = cuda_ms(lambda: S.gaussian_noise(P, (1, 2), n, "cuda"), 50)
-    plain_ms = cuda_ms(lambda: S.eps_plain(P, (1, 2), n, "cuda"), 3, 1)
+    plain_ms = cuda_ms(lambda: S.eps_plain(P, (1, 2), n, "cuda"), 3)
     lib_ms = cuda_ms(lambda: torch.randn(n, P, device="cuda", generator=gen),
                      50)
     b_ms, b_by = bound_ms(n * P * 4, (P // 2) * n * EPS_F32_OPS)
@@ -860,6 +857,7 @@ def check_reparam_kernel(P_full: int):
     """Phase 8: kernel #4 against its plain version and the eps kernel;
     moments; grad refusal; times. Returns its kernels-line entry
     (launches filled in by phase 9)."""
+    from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
     from multimodal_auv_torch.ops import sampling as S
 
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -929,7 +927,7 @@ def check_reparam_kernel(P_full: int):
     mu = torch.randn(P, device="cuda", generator=g)
     rho = torch.rand(P, device="cuda", generator=g) * 55 - 30
     ms = cuda_ms(lambda: S.gaussian_reparam(mu, rho, (1, 2)), 50)
-    plain_ms = cuda_ms(lambda: S.reparam_plain(mu, rho, (1, 2), 1, f32), 3, 1)
+    plain_ms = cuda_ms(lambda: S.reparam_plain(mu, rho, (1, 2), 1, f32), 3)
     std = S.softplus_k(rho)
     lib_ms = cuda_ms(lambda: torch.normal(mu, std, generator=g), 50)
     b_ms, b_by = bound_ms(3 * P * 4, (P // 2) * REPARAM_F32_OPS)
@@ -981,6 +979,7 @@ def phase_models(args, smi: str):
         ArchConfig,
         define_models,
     )
+    from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
     from multimodal_auv_torch.ops import sampling as S
 
     t0 = time.perf_counter()
@@ -1209,32 +1208,35 @@ def phase_unimodal_training(args, smi: str, work: str) -> None:
         f"launches {launches}")
 
 
-def check_probe_kernels(P_full: int) -> dict:
-    """The RNG-split probe's three kernels against their plain versions, bit
-    for bit: the small and quarter-ending P's and the full model's P, 1-3
-    draws, f32 and bf16 out (eps_fast: bf16 only). Returns the max abs
-    error of each."""
+def check_probe_kernels(P_full: int) -> None:
+    """Every kernel the RNG-split probe launches (its three and the eps
+    kernel, its ``bm``) against its plain version, bit for bit: at the
+    small and quarter-ending P's (1-3 draws) and the full model's P (2
+    draws), f32 and bf16 out (eps_fast: bf16 only), and at the shapes the
+    probe runs: its P at its 20 draws in bf16, and at the fidelity check's
+    2 draws in f32. Raises on the first difference."""
     from multimodal_auv_torch.ops import probe_rng_split as PR
 
-    err = {k: 0.0 for k in PR.KERNELS}
-    for P in SMALL_PS + (P_full,):
-        for name, (fn, plain) in PR.KERNELS.items():
-            for dt in ((torch.bfloat16,) if name == "eps_fast"
-                       else (torch.float32, torch.bfloat16)):
-                for n in ((1, 2, 3) if P < P_full else (2,)):
-                    seed = (1111 * n + P % 1000, 2222)
-                    got = fn(P, seed, n, "cuda", dt)
-                    want = plain(P, seed, n, "cuda", dt)
-                    torch.cuda.synchronize()
-                    e = float((got.float() - want.float()).abs().max())
-                    err[name] = max(err[name], e)
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"{name} != plain ({dt}, P={P}, "
-                                             f"{n} draws): max abs err {e}")
-                    del got, want
-    log(f"rng_bits, rng_bmlite, eps_fast == plain bit for bit at P "
-        f"{', '.join(str(p) for p in SMALL_PS + (P_full,))}, f32 and bf16")
-    return err
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(P, n, dt) for P in SMALL_PS for n in (1, 2, 3)
+             for dt in (f32, bf16)]
+    cases += [(P_full, 2, f32), (P_full, 2, bf16),
+              (PR.PROBE_P, PR.PROBE_DRAWS, bf16), (PR.PROBE_P, 2, f32)]
+    for P, n, dt in cases:
+        for name, (fn, plain) in PR.LAUNCHED.items():
+            if name == "eps_fast" and dt != bf16:
+                continue
+            seed = (1111 * n + P % 1000, 2222)
+            got = fn(P, seed, n, "cuda", dt)
+            want = plain(P, seed, n, "cuda", dt)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                e = float((got.float() - want.float()).abs().max())
+                raise AssertionError(f"{name} != plain ({dt}, P={P}, "
+                                     f"{n} draws): max abs err {e}")
+            del got, want
+    log(f"rng_bits, rng_bmlite, eps_fast, eps == plain bit for bit at "
+        f"{', '.join(f'P={P} x {n} {str(dt)[6:]}' for P, n, dt in cases)}")
 
 
 def phase_probe(smi: str, P_full: int) -> list:
@@ -1242,10 +1244,12 @@ def phase_probe(smi: str, P_full: int) -> list:
     as a phase: its kernels against their plain versions, then its run at
     the TPU probe's geometry with exact launch counts; times of each probe
     kernel at one draw beside its plain version, ``torch.randn`` and its
-    bound. Returns their kernels-line entries."""
+    bound. Returns their kernels-line entries; their max abs error is 0,
+    since any difference from the plain versions raises."""
+    from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
     from multimodal_auv_torch.ops import probe_rng_split as PR
 
-    err = check_probe_kernels(P_full)
+    check_probe_kernels(P_full)
     iters = 10
     reset_launches()
     res = PR.run(iters=iters)
@@ -1260,7 +1264,7 @@ def phase_probe(smi: str, P_full: int) -> list:
     for name, (_, plain) in PR.KERNELS.items():
         ms = res["rows"][row[name]]["t_1_ms"]
         plain_ms = cuda_ms(lambda: plain(P, PR.PROBE_SEED, 1, "cuda", bf16),
-                           3, 1)
+                           3)
         lib_ms = None if name == "rng_bits" else cuda_ms(
             lambda: torch.randn(1, P, device="cuda", dtype=bf16,
                                 generator=gen), 50)
@@ -1273,7 +1277,7 @@ def phase_probe(smi: str, P_full: int) -> list:
                         "source": "multimodal_auv_torch/csrc/sampling.cu",
                         "replaces": f"scripts/probe_rng_split.py:"
                                     f"{source[name]}",
-                        "launches": launches[name], "max_abs_err": err[name],
+                        "launches": launches[name], "max_abs_err": 0.0,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms})
     return entries

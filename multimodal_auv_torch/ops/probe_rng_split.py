@@ -60,13 +60,19 @@ def rng_bits_plain(P, seed, num_draws, device=None,
 def rng_bmlite_plain(P, seed, num_draws, device=None,
                      out_dtype=torch.bfloat16) -> torch.Tensor:
     return S.noise_plain(P, seed, num_draws,
-                         lambda b1, b2: S.box_muller(b1, b2, lite=True),
+                         lambda b1, b2: S.box_muller(b1, b2, "lite"),
                          device, out_dtype)
 
 
 def eps_fast_plain(P, seed, num_draws, device=None,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
-    return S.eps_plain(P, seed, num_draws, device, True).to(out_dtype)
+    return S.eps_plain(P, seed, num_draws, device, "fast").to(out_dtype)
+
+
+def bm_plain(P, seed, num_draws, device=None,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The plain version of the probe's ``bm``: the f32 eps, cast."""
+    return S.eps_plain(P, seed, num_draws, device).to(out_dtype)
 
 
 def _noise(name, plain, P, seed, num_draws, device, out_dtype):
@@ -111,6 +117,8 @@ NOISE = {"bits": rng_bits, "bm": bm, "bmlite": rng_bmlite, "bmfast": eps_fast}
 KERNELS = {"rng_bits": (rng_bits, rng_bits_plain),
            "rng_bmlite": (rng_bmlite, rng_bmlite_plain),
            "eps_fast": (eps_fast, eps_fast_plain)}
+# every kernel the probe launches, the eps kernel (its ``bm``) included
+LAUNCHED = dict(KERNELS, eps=(bm, bm_plain))
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:

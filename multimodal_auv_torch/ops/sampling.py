@@ -65,6 +65,11 @@ _LN2 = 0.6931471805599453
 _TWO_PI = 6.283185307179586
 _PI = 3.141592653589793
 
+# The polynomial sets of Box-Muller, as the CUDA source's `Noise` modes
+# kF32, kFast and kLite name them: the JAX package's f32 ones, its
+# bf16-budget ones, and the RNG-split probe's shorter ones.
+NOISE_MODES = ("f32", "fast", "lite")
+
 
 def chunk_seeds(generator: torch.Generator, nchunks: int
                 ) -> List[Tuple[int, int]]:
@@ -99,20 +104,25 @@ def philox4x32_10(ctr: Sequence[torch.Tensor], k0, k1
     return c0, c1, c2, c3
 
 
-def fast_ln(f: torch.Tensor, trimmed: bool = False, lite: bool = False
-            ) -> torch.Tensor:
-    """``_fast_ln`` (5 terms) / ``_fast_ln_bf16`` (``trimmed``, 3 terms) /
-    the RNG-split probe's ``_fast_ln_lite`` (``lite``, 2 terms): ln(f) for
-    f32 f in [1, 2^24] via exponent bits and the atanh series of the
-    mantissa."""
+def _check_noise(noise: str) -> None:
+    if noise not in NOISE_MODES:
+        raise ValueError(f"noise {noise!r}: one of {NOISE_MODES}")
+
+
+def fast_ln(f: torch.Tensor, noise: str = "f32") -> torch.Tensor:
+    """ln(f) for f32 f in [1, 2^24] via exponent bits and the atanh series
+    of the mantissa: ``_fast_ln`` ("f32", 5 terms), ``_fast_ln_bf16``
+    ("fast", 3 terms) or the RNG-split probe's ``_fast_ln_lite`` ("lite",
+    2 terms)."""
+    _check_noise(noise)
     i = f.view(torch.int32)
     e = (i >> 23) - 127
     m = ((i & 0x7FFFFF) | 0x3F800000).view(torch.float32)
     z = (m - 1.0) / (m + 1.0)
     z2 = z * z
-    if lite:
+    if noise == "lite":
         p = 1.0 + z2 * (1.0 / 3.0)
-    elif trimmed:
+    elif noise == "fast":
         p = 1.0 + z2 * (1.0 / 3.0 + z2 * (1.0 / 5.0))
     else:
         p = 1.0 + z2 * (1.0 / 3.0 + z2 * (1.0 / 5.0 + z2 * (
@@ -120,16 +130,18 @@ def fast_ln(f: torch.Tensor, trimmed: bool = False, lite: bool = False
     return e.to(torch.float32) * _LN2 + 2.0 * z * p
 
 
-def fast_sincos_2pi(u: torch.Tensor, trimmed: bool = False
+def fast_sincos_2pi(u: torch.Tensor, noise: str = "f32"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_fast_sincos_2pi`` / ``_fast_sincos_2pi_bf16``: (sin 2 pi u,
-    cos 2 pi u) for f32 u in [0, 1), by quadrant reduction and Taylor
-    polynomials."""
+    """(sin 2 pi u, cos 2 pi u) for f32 u in [0, 1), by quadrant reduction
+    and Taylor polynomials: ``_fast_sincos_2pi`` ("f32") or
+    ``_fast_sincos_2pi_bf16`` ("fast", and "lite": the probe's
+    ``_fast_sincos_2pi_lite`` is the same)."""
+    _check_noise(noise)
     x = (u - 0.5) * _TWO_PI
     q = torch.floor(x * (2.0 / _PI) + 0.5)
     y = x - q * (_PI / 2.0)
     y2 = y * y
-    if trimmed:
+    if noise != "f32":
         s = y * (1.0 + y2 * (-1.0 / 6.0 + y2 * (1.0 / 120.0)))
         c = 1.0 + y2 * (-0.5 + y2 * (1.0 / 24.0))
     else:
@@ -145,16 +157,16 @@ def fast_sincos_2pi(u: torch.Tensor, trimmed: bool = False
     return -sin_x, -cos_x
 
 
-def box_muller(b1: torch.Tensor, b2: torch.Tensor, fast_math: bool = False,
-               lite: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+def box_muller(b1: torch.Tensor, b2: torch.Tensor, noise: str = "f32"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(r cos t, r sin t) f32 normals from two words of random bits (int
-    tensors; the low 24 bits of each are used). ``lite``: the RNG-split
-    probe's polynomials (2-term ln, the trimmed sin/cos)."""
+    tensors; the low 24 bits of each are used), with the polynomials of
+    ``noise`` (``NOISE_MODES``)."""
     f1 = ((b1 & _M24) + 1).to(torch.float32)
-    ln_u1 = fast_ln(f1, fast_math, lite) - 24.0 * _LN2
+    ln_u1 = fast_ln(f1, noise) - 24.0 * _LN2
     u2 = (b2 & _M24).to(torch.float32) * (1.0 / 16777216.0)
     r = torch.sqrt(-2.0 * ln_u1)
-    sin_t, cos_t = fast_sincos_2pi(u2, fast_math or lite)
+    sin_t, cos_t = fast_sincos_2pi(u2, noise)
     return r * cos_t, r * sin_t
 
 
@@ -166,9 +178,9 @@ def block_layout(v_cos: torch.Tensor, v_sin: torch.Tensor, P: int
 
 
 def block_noise(b1: torch.Tensor, b2: torch.Tensor, P: int,
-                fast_math: bool = False) -> torch.Tensor:
+                noise: str = "f32") -> torch.Tensor:
     """The (P,) eps of one draw from per-pair bits (nblk, 32768)."""
-    return block_layout(*box_muller(b1, b2, fast_math), P)
+    return block_layout(*box_muller(b1, b2, noise), P)
 
 
 def noise_bits(P: int, seed: Tuple[int, int], draw: int, device=None
@@ -186,13 +198,6 @@ def noise_bits(P: int, seed: Tuple[int, int], draw: int, device=None
     return torch.cat([x0, x2], dim=1), torch.cat([x1, x3], dim=1)
 
 
-def philox_calls(P: int, num_draws: int) -> int:
-    """The contract's Philox calls for one launch over P elements and
-    ``num_draws`` draws: one per call j whose element j lies inside P."""
-    full, rem = divmod(P, BLOCK_ELEMS)
-    return num_draws * (full * CALLS_PER_BLOCK + min(rem, CALLS_PER_BLOCK))
-
-
 def noise_plain(P: int, seed: Tuple[int, int], num_draws: int,
                 pair_values: Callable, device=None,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -208,11 +213,11 @@ def noise_plain(P: int, seed: Tuple[int, int], num_draws: int,
 
 
 def eps_plain(P: int, seed: Tuple[int, int], num_draws: int, device=None,
-              fast_math: bool = False) -> torch.Tensor:
+              noise: str = "f32") -> torch.Tensor:
     """The (num_draws, P) f32 eps of a seed: the noise of every plain
     version."""
     return noise_plain(P, seed, num_draws,
-                       lambda b1, b2: box_muller(b1, b2, fast_math), device)
+                       lambda b1, b2: box_muller(b1, b2, noise), device)
 
 
 def stacked_plain(mu: torch.Tensor, sigma: torch.Tensor,
@@ -221,7 +226,8 @@ def stacked_plain(mu: torch.Tensor, sigma: torch.Tensor,
                   ) -> torch.Tensor:
     """The plain version of the samplers: (num_draws, P) mu + sigma * eps,
     in f32, then cast."""
-    eps = eps_plain(mu.shape[0], seed, num_draws, mu.device, fast_math)
+    eps = eps_plain(mu.shape[0], seed, num_draws, mu.device,
+                    "fast" if fast_math else "f32")
     return (mu.to(torch.float32) + sigma.to(torch.float32) * eps).to(out_dtype)
 
 

@@ -193,16 +193,17 @@ def test_samplers_bit_equal_plain_at_quarter_ends(P):
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["rng_bits", "rng_bmlite", "eps_fast"])
+@pytest.mark.parametrize("name", ["rng_bits", "rng_bmlite", "eps_fast", "eps"])
 @pytest.mark.parametrize("P", [RAGGED_P] + QUARTER_PS,
                          ids=["ragged", "q0", "q1", "q2", "q3"])
 def test_probe_kernels_bit_equal_plain(P, name, out_dtype):
-    """The RNG-split probe's kernels equal their plain versions bit for bit
-    (eps_fast is bf16-out only), one launch each."""
+    """Every kernel the RNG-split probe launches equals its plain version
+    bit for bit (eps_fast is bf16-out only; the eps kernel, the probe's
+    ``bm``, in bf16 is the f32 eps cast), one launch each."""
     _cuda_or_skip()
     if name == "eps_fast" and out_dtype != torch.bfloat16:
         pytest.skip("eps_fast writes bf16 only")
-    fn, plain = PR.KERNELS[name]
+    fn, plain = PR.LAUNCHED[name]
     before = kernels.LAUNCHES[name]
     got = fn(P, (5, P), 3, "cuda", out_dtype)
     torch.cuda.synchronize()

@@ -52,7 +52,7 @@ def test_lite_ln_matches_script(script):
     (XLA:CPU may contract the multiply-adds into FMAs)."""
     f = (_uniform_words() + 1).astype(np.float32)
     want = np.asarray(script._fast_ln_lite(jnp.asarray(f)))
-    got = S.fast_ln(torch.from_numpy(f), lite=True).numpy()
+    got = S.fast_ln(torch.from_numpy(f), "lite").numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
 
 
@@ -63,7 +63,7 @@ def test_lite_sincos_matches_script(script):
     u = (_uniform_words() * (1.0 / 16777216.0)).astype(np.float32)
     u = np.concatenate([u, np.float32([0.0, 0.125, 0.25, 0.5, 0.75])])
     js, jc = script._fast_sincos_2pi_lite(jnp.asarray(u))
-    s, c = S.fast_sincos_2pi(torch.from_numpy(u), trimmed=True)
+    s, c = S.fast_sincos_2pi(torch.from_numpy(u), "lite")
     np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6,
                                atol=1.2e-7)
     np.testing.assert_allclose(c.numpy(), np.asarray(jc), rtol=1e-6,
@@ -120,7 +120,7 @@ def test_zero_bits_bmlite_kernel_matches_script(script):
     want = np.asarray(_interpret(script, script._bmlite_kernel, P // S.LANES,
                                  2, jnp.float32))
     z = _zero_bits(P)
-    got = S.block_layout(*S.box_muller(z, z, lite=True), P).numpy()
+    got = S.block_layout(*S.box_muller(z, z, "lite"), P).numpy()
     np.testing.assert_allclose(got[:S.PAIRS_PER_BLOCK], 5.7681074, rtol=1e-7)
     for d in range(2):
         np.testing.assert_allclose(got, want[d].reshape(-1), rtol=3e-5,

@@ -68,7 +68,7 @@ def test_zero_bits_reparam_matches_jax_interpret(monkeypatch, out_dtype):
     zero = torch.zeros((nblk, S.PAIRS_PER_BLOCK), dtype=torch.int64)
     zero_eps = S.block_noise(zero, zero, RAGGED_P)
     monkeypatch.setattr(S, "eps_plain", lambda P, seed, n, device=None,
-                        fast_math=False: zero_eps.expand(n, P).to(device))
+                        noise="f32": zero_eps.expand(n, P).to(device))
     got = S.gaussian_reparam(torch.from_numpy(mu), torch.from_numpy(rho),
                              (0, 0), 2, out_dtype=tdt)
     got = got.to(torch.float32).numpy()
@@ -169,8 +169,8 @@ def _inject_jax_eps(monkeypatch, generator_seed, key):
     (seed,) = chunk_seeds(torch.Generator().manual_seed(generator_seed), 1)
     calls = []
 
-    def jax_eps(P, s, n, device=None, fast_math=False):
-        assert tuple(s) == seed and not fast_math
+    def jax_eps(P, s, n, device=None, noise="f32"):
+        assert tuple(s) == seed and noise == "f32"
         calls.append(n)
         eps = jax.random.normal(key, (n, P), jnp.float32)
         return torch.from_numpy(np.array(eps)).to(device)

@@ -7,6 +7,9 @@ stubs its random bits to zero), the port's own seeding contract, and
 moments. The CUDA kernel itself is held bit for bit against the plain
 version on the card, in tests/test_torch_gpu.py.
 """
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +20,7 @@ from multimodal_auv_torch.ops import kernels
 from multimodal_auv_torch.ops import sampling as S
 from multimodal_auv_tpu.ops import sampling as J
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RAGGED_P = 512 * 128 + 1024  # one full block and a partial one
 
 
@@ -27,24 +31,24 @@ def _edges_and_random(n=100_000, seed=0):
     return np.concatenate([edges, rng.integers(0, 1 << 24, n)])
 
 
-@pytest.mark.parametrize("trimmed", [False, True], ids=["f32", "bf16"])
-def test_fast_ln_matches_jax(trimmed):
+@pytest.mark.parametrize("noise", ["f32", "fast"], ids=["f32", "bf16"])
+def test_fast_ln_matches_jax(noise):
     # f = 24-bit uniform + 1, the kernel's whole input domain [1, 2^24]
     f = (_edges_and_random() + 1).astype(np.float32)
-    jfn = J._fast_ln_bf16 if trimmed else J._fast_ln
+    jfn = J._fast_ln_bf16 if noise == "fast" else J._fast_ln
     want = np.asarray(jfn(jnp.asarray(f)))
-    got = S.fast_ln(torch.from_numpy(f), trimmed).numpy()
+    got = S.fast_ln(torch.from_numpy(f), noise).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("trimmed", [False, True], ids=["f32", "bf16"])
-def test_fast_sincos_matches_jax(trimmed):
+@pytest.mark.parametrize("noise", ["f32", "fast"], ids=["f32", "bf16"])
+def test_fast_sincos_matches_jax(noise):
     # u = 24-bit uniform / 2^24 in [0, 1), quadrant edges included
     u = (_edges_and_random() * (1.0 / 16777216.0)).astype(np.float32)
     u = np.concatenate([u, np.float32([0.0, 0.125, 0.25, 0.5, 0.75])])
-    jfn = J._fast_sincos_2pi_bf16 if trimmed else J._fast_sincos_2pi
+    jfn = J._fast_sincos_2pi_bf16 if noise == "fast" else J._fast_sincos_2pi
     js, jc = jfn(jnp.asarray(u))
-    s, c = S.fast_sincos_2pi(torch.from_numpy(u), trimmed)
+    s, c = S.fast_sincos_2pi(torch.from_numpy(u), noise)
     # rtol 1e-6 in f32, with an atol of one f32 ulp at 1 for values at 0
     np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6,
                                atol=1.2e-7)
@@ -89,8 +93,37 @@ def test_noise_bits_follow_the_contract():
             assert torch.equal(b2[blk, :calls], x[1])
             assert torch.equal(b1[blk, calls:], x[2])
             assert torch.equal(b2[blk, calls:], x[3])
-    assert S.philox_calls(P, 3) == 3 * (2 * calls + 128)
-    assert S.philox_calls(S.BLOCK_ELEMS + 16384 + 256, 1) == 2 * calls
+
+
+def test_smoke_counts_the_contracts_philox_calls():
+    """chip_smoke.py's Philox estimate counts one call per call index j
+    whose element j lies inside P: a block's 16384 calls, fewer in a last
+    block that ends inside its first quarter, all of them once it reaches
+    the second."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    calls = S.CALLS_PER_BLOCK
+    assert smoke.philox_calls(2 * S.BLOCK_ELEMS + 128, 3) == 3 * (2 * calls
+                                                                + 128)
+    assert smoke.philox_calls(S.BLOCK_ELEMS + 16384 + 256, 1) == 2 * calls
+    assert smoke.philox_calls(S.BLOCK_ELEMS, 2) == 2 * calls
+
+
+def test_noise_modes():
+    """One mode names each set of polynomials, as the CUDA source's
+    ``Noise`` does; an unknown mode raises instead of falling back."""
+    f = torch.tensor([1.5, 1000.0, 16777216.0])
+    ln = {m: S.fast_ln(f, m) for m in S.NOISE_MODES}
+    assert not torch.equal(ln["f32"], ln["fast"])
+    assert not torch.equal(ln["fast"], ln["lite"])
+    u = torch.tensor([0.1, 0.3, 0.7])
+    assert torch.equal(torch.stack(S.fast_sincos_2pi(u, "fast")),
+                       torch.stack(S.fast_sincos_2pi(u, "lite")))
+    for fn, x in ((S.fast_ln, f), (S.fast_sincos_2pi, u)):
+        with pytest.raises(ValueError, match="noise 'bf16'"):
+            fn(x, "bf16")
 
 
 @pytest.mark.parametrize("fast_math", [False, True], ids=["f32", "bf16fast"])
@@ -113,7 +146,7 @@ def test_zero_bits_match_jax_interpret(fast_math):
         out_dtype=dt_j, fast_math=fast_math)
     nblk = -(-RAGGED_P // S.BLOCK_ELEMS)
     zero = torch.zeros((nblk, S.PAIRS_PER_BLOCK), dtype=torch.int64)
-    eps = S.block_noise(zero, zero, RAGGED_P, fast_math)
+    eps = S.block_noise(zero, zero, RAGGED_P, "fast" if fast_math else "f32")
     mu_t = torch.from_numpy(np.array(mu_j.astype(jnp.float32)))
     sg_t = torch.from_numpy(np.array(sg_j.astype(jnp.float32)))
     got = (mu_t + sg_t * eps).to(dt_t).to(torch.float32).numpy()

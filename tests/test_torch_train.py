@@ -111,8 +111,8 @@ def test_one_train_step_equals_jax(monkeypatch, jax_side, kl_weight):
     chunk_keys = dict(zip(seeds, jax.random.split(key, NUM_MC)))
     calls = []
 
-    def jax_eps(P_, seed, num_draws, device=None, fast_math=False):
-        assert not fast_math and P_ == P
+    def jax_eps(P_, seed, num_draws, device=None, noise="f32"):
+        assert noise == "f32" and P_ == P
         calls.append(tuple(seed))
         eps = jax.random.normal(chunk_keys[tuple(seed)], (num_draws, P_),
                                 jnp.float32)

@@ -258,7 +258,7 @@ def test_one_unimodal_train_step_equals_jax(monkeypatch):
     chunk_keys = dict(zip(seeds, jax.random.split(key, num_mc)))
     calls = []
 
-    def jax_eps(P, seed, n, device=None, fast_math=False):
+    def jax_eps(P, seed, n, device=None, noise="f32"):
         calls.append(tuple(seed))
         eps = jax.random.normal(chunk_keys[tuple(seed)], (n, P), jnp.float32)
         return torch.from_numpy(np.array(eps)).to(device)
