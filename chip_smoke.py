@@ -33,16 +33,16 @@ result line):
 6. training, card vs CPU: one micro() train step from the same seeds on
    both; loss and CE to 1e-4 relative, mu and rho gradients to 2e-2 with
    a leaf-scaled floor, new running statistics to 1e-5.
-7. training path: a survey tree of 32 sample folders of random 256 px
+7. training path: a survey tree of 20 sample folders of random 256 px
    images over 7 classes (PIL, --seed); one epoch of
    ``run_AUV_training_from_scratch`` on the card (folder scan, decode into
-   the packed cache, split 25 / 7) at batch 12 x 20 MC, chunks of 1, remat
-   on, f32 posterior, full width: 3 train steps (a ragged tail of 1) and
+   the packed cache, split 16 / 4) at batch 12 x 20 MC, chunks of 1, remat
+   on, f32 posterior, full width: 2 train steps (a ragged tail of 4) and
    one padded eval batch. Checks that it returns True, the saved train
    state's epoch and step count, that mu, rho and the running statistics
    moved, both ledgers, the run manifest, the posterior checkpoint, and
-   the launch counts of the epoch: 120 stacked_sampler (forward and
-   re-forward), 60 eps, 20 split_sampler. Prints the time of each train
+   the launch counts of the epoch: 80 stacked_sampler (forward and
+   re-forward), 40 eps, 20 split_sampler. Prints the time of each train
    step (the smoke wraps the step the pipeline builds), samples per
    second and peak memory.
 
@@ -87,7 +87,33 @@ result line):
     probe kernel's time at one draw beside its plain version,
     ``torch.randn`` and its bound.
 
-Beside each sampler's bound the script prints the noise contract's Philox
+13. pretrained inference: a full-width source bundle (perturbed mu and
+    rho) written by ``save_torch_checkpoint`` in the published form
+    (``module.``, ``*_model_feat.model.``, zero-filled bayesian-torch
+    buffers: the 1,740 keys of ``expected_hf_keys.json``), imported by
+    ``load_and_prepare_multimodal_model`` into a bundle of another seed:
+    mu, rho, det and batch_stats bit-equal, stats loaded / ignored equal
+    to the inventory's, nothing dropped, missing or unexpected; times of
+    the write, the ``torch.load`` and the import. Then the inference CLI
+    in-process (``--model_weights``, ``--packed_loader``, phase 10's tree,
+    b4 x 20 MC, chunk 2): exit 0, exactly 30 split_sampler launches, a CSV
+    byte-equal to the source bundle's through
+    ``multimodal_predict_and_save_packed``; then ``define_models`` with a
+    full-width torchvision-named ResNet-50 file for all three trunks:
+    conv1 mu == the file's, sigma == 0.1 |w|, the sss conv1 keeps its
+    random init, no launches.
+14. frozen-backbone retraining (BASELINE.json configs[3]): the retrain CLI
+    in-process from phase 13's 7-class file, ``--num_classes 4`` (the fc2
+    head swapped: 4 keys dropped), ``--freeze_backbone``, one epoch at b12
+    x 20 MC (chunk 1, remat on, f32) over a 32-folder tree of 4 classes,
+    with a resume checkpoint: exit 0, ledgers and manifest, the trunks'
+    mu and rho and every BN affine leaf bit-equal to the imported ones
+    with zero Adam moments, the head and the running statistics moved;
+    exactly 120 stacked_sampler, 60 eps and 20 split_sampler launches;
+    seconds per step, samples per second, peak memory.
+
+The kernels line's launches of #1-#3 add phases 13 and 14 to their paths'
+counts. Beside each sampler's bound the script prints the noise contract's Philox
 calls for that launch and their estimated INT32 time, labelled as an
 estimate; it is not part of ``bound_ms``.
 
@@ -101,6 +127,7 @@ last is the kernels' JSON; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import gc
 import importlib.util
@@ -123,6 +150,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 NUM_CLASSES, NUM_MC, BATCH, N_SAMPLES, IMAGE = 7, 20, 4, 10, 256
 TRAIN_BATCH, TRAIN_SAMPLES = 12, 32  # the reference's b12 x 20 MC
+# phase 7's tree: two train steps (phase 14 runs the three-step epoch of
+# TRAIN_SAMPLES folders through the same loops)
+SCRATCH_SAMPLES = 20
 SMALL_P = 512 * 128 + 1024  # one full block and a partial one
 # P's whose last block ends inside its first, second, third, fourth quarter
 QUARTER_PS = (65536 + 128, 65536 + 16384 + 256, 65536 + 32768 + 384,
@@ -647,16 +677,7 @@ def check_train_card_vs_cpu() -> None:
                         torch.from_numpy(labels).to(dev),
                         torch.from_numpy(mask).to(dev),
                         torch.Generator().manual_seed(3), 1e-6, 3.0)
-        stats = {}
-
-        def flat(t, path=()):
-            if isinstance(t, dict):
-                for k in sorted(t):
-                    flat(t[k], path + (k,))
-            else:
-                stats[path] = t.cpu()
-
-        flat(state.batch_stats)
+        stats = {p: t.cpu() for p, t in _walk(state.batch_stats)}
         out.append({"loss": float(m["loss"]),
                     "ce": float(m["cross_entropy"]),
                     "gmu": b.post.mu.grad.cpu(), "grho": b.post.rho.grad.cpu(),
@@ -679,17 +700,19 @@ def check_train_card_vs_cpu() -> None:
         f"{err:.2e}")
 
 
-def write_training_tree(root: str, seed: int) -> str:
+def write_training_tree(root: str, seed: int,
+                        num_classes: int = NUM_CLASSES,
+                        n_samples: int = TRAIN_SAMPLES) -> str:
     """A labelled survey tree that ``MultimodalFolderDataset`` accepts:
-    TRAIN_SAMPLES sample folders of random 256 px images (main frame, SSS,
-    combined bathymetry, 10 m and 30 m patches of both) over NUM_CLASSES
-    classes, made from ``seed``."""
+    ``n_samples`` sample folders of random 256 px images (main frame, SSS,
+    combined bathymetry, 10 m and 30 m patches of both) over the first
+    ``num_classes`` habitat classes, made from ``seed``."""
     from PIL import Image
 
     from multimodal_auv_torch.config import HABITAT_CLASSES
 
     rng = np.random.default_rng(seed + 100)
-    labels = rng.permutation(np.arange(TRAIN_SAMPLES) % NUM_CLASSES)
+    labels = rng.permutation(np.arange(n_samples) % num_classes)
     img = lambda c: Image.fromarray(np.squeeze(rng.integers(
         0, 256, (IMAGE, IMAGE, c), dtype=np.uint8)))
     for i, lab in enumerate(labels):
@@ -708,32 +731,53 @@ def write_training_tree(root: str, seed: int) -> str:
     return root
 
 
-def phase_training(args, smi: str, bundle, work: str):
-    """The training path at full width: kernels, card vs CPU, then one
-    epoch through ``run_AUV_training_from_scratch`` on a folder tree in
-    ``work``. ``bundle`` is the inference phase's model, built from the
-    same seed as the pipeline's: the posterior before training."""
-    from multimodal_auv_torch.data.loaders import split_indices
+def check_training_outputs(root: str, model_type: str, st: dict) -> None:
+    """One multimodal training epoch's outputs under ``root``: both CSV
+    ledgers (one finite row each), a run manifest that names the card, and
+    the posterior checkpoint ``model_type``, equal to the saved train
+    state ``st``."""
     from multimodal_auv_torch.engine import checkpointing as ckpt
     from multimodal_auv_torch.engine.loops import (
         EVAL_CSV_HEADER,
         TRAIN_CSV_HEADER,
     )
-    from multimodal_auv_torch.models.model_utils import ArchConfig
-    from multimodal_auv_torch.pipelines import training as pipeline
 
-    entries = check_train_kernels(bundle.post, bundle.meta.n_padded)
-    check_train_card_vs_cpu()
+    csv_dir = os.path.join(root, "csvs")
+    for name, head in (("multimodal_train_results.csv", TRAIN_CSV_HEADER),
+                       ("multimodal_eval_results.csv", EVAL_CSV_HEADER)):
+        with open(os.path.join(csv_dir, name), newline="") as f:
+            rows = list(csv.reader(f))
+        if rows[0] != head or len(rows) != 2:
+            raise AssertionError(f"{name}: {rows}")
+        vals = [float(v) for v in rows[1][2:-2]]  # up to the patch types
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{name}: non-finite values {rows[1]}")
+        log(f"{name}: {rows[1]}")
+    with open(os.path.join(csv_dir, "run_manifest.json")) as f:
+        platform = json.load(f)["devices"]["platform"]
+    if platform != "cuda":
+        raise AssertionError(f"run manifest platform {platform!r}")
+    path = ckpt.model_checkpoint_path(
+        os.path.join(csv_dir, "multimodal_train_results.csv"), model_type)
+    post = ckpt.load_posterior(path)
+    if not (torch.equal(post.mu, st["post"]["mu"])
+            and torch.equal(post.rho, st["post"]["rho"])):
+        raise AssertionError("the posterior checkpoint differs from the "
+                             "train state")
+    log(f"posterior checkpoint {os.path.relpath(path, root)} and run "
+        f"manifest ok")
 
-    root = write_training_tree(os.path.join(work, "tree"), args.seed)
-    state_path = os.path.join(work, "train_state.pt")
-    # the smoke times each train step the pipeline builds (host clock,
-    # ending in a synchronize); the step itself is the pipeline's own
+
+@contextlib.contextmanager
+def timed_train_steps(pipeline):
+    """While open, every train step that ``pipeline`` (a pipelines module)
+    builds is timed on the host clock, ending in a synchronize; yields
+    (times, steps): the seconds of each call and the steps as built."""
     times, steps = [], []
-    build_step = pipeline.make_train_step
+    build = pipeline.make_train_step
 
     def timed_build(*a, **kw):
-        step = build_step(*a, **kw)
+        step = build(*a, **kw)
         steps.append(step)
 
         def timed_step(*sa):
@@ -745,26 +789,44 @@ def phase_training(args, smi: str, bundle, work: str):
 
         return timed_step
 
-    cwd = os.getcwd()
     pipeline.make_train_step = timed_build
-    os.chdir(work)  # the pipeline logs under ./logs and ./tensorboard_logs
+    try:
+        yield times, steps
+    finally:
+        pipeline.make_train_step = build
+
+
+def phase_training(args, smi: str, bundle, work: str):
+    """The training path at full width: kernels, card vs CPU, then one
+    epoch through ``run_AUV_training_from_scratch`` on a folder tree in
+    ``work``. ``bundle`` is the inference phase's model, built from the
+    same seed as the pipeline's: the posterior before training."""
+    from multimodal_auv_torch.data.loaders import split_indices
+    from multimodal_auv_torch.models.model_utils import ArchConfig
+    from multimodal_auv_torch.pipelines import training as pipeline
+
+    entries = check_train_kernels(bundle.post, bundle.meta.n_padded)
+    check_train_card_vs_cpu()
+
+    root = write_training_tree(os.path.join(work, "tree"), args.seed,
+                               n_samples=SCRATCH_SAMPLES)
+    state_path = os.path.join(work, "train_state.pt")
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
+    # the pipeline logs under ./logs and ./tensorboard_logs
+    with timed_train_steps(pipeline) as (times, steps), \
+            contextlib.chdir(work):
         ok = pipeline.run_AUV_training_from_scratch(
             {}, 1e-5, 1, NUM_MC, "10m", "30m", TRAIN_BATCH, root,
             arch=ArchConfig(), mc_chunk=1, seed=args.seed,
             use_packed_loader=True, strict_errors=True,
             resume_checkpoint=state_path, remat="on")
         torch.cuda.synchronize()
-    finally:
-        pipeline.make_train_step = build_step
-        os.chdir(cwd)
     wall = time.perf_counter() - t0
     if ok is not True:
         raise AssertionError(f"run_AUV_training_from_scratch returned {ok}")
-    train_idx, test_idx = split_indices(TRAIN_SAMPLES)
+    train_idx, test_idx = split_indices(SCRATCH_SAMPLES)
     n_steps = -(-len(train_idx) // TRAIN_BATCH)
     launches = check_launches("training path", {
         "stacked_sampler": n_steps * NUM_MC * 2, "eps": n_steps * NUM_MC,
@@ -773,7 +835,7 @@ def phase_training(args, smi: str, bundle, work: str):
     later = times[1:]
     per_step = sum(later) / len(later)
     log(f"training path: run_AUV_training_from_scratch, 1 epoch over "
-        f"{TRAIN_SAMPLES} folders (scan, decode and pack included), "
+        f"{SCRATCH_SAMPLES} folders (scan, decode and pack included), "
         f"{len(train_idx)} train samples in {n_steps} steps of {TRAIN_BATCH} "
         f"x {NUM_MC} MC (chunk 1, remat on, f32 posterior) and "
         f"{len(test_idx)} eval samples, in {wall:.2f} s [{smi}]; steps "
@@ -797,32 +859,10 @@ def phase_training(args, smi: str, bundle, work: str):
     var = lambda bs: bs["image_model_feat"]["bn1"]["var"].cpu()
     if torch.equal(var(st["batch_stats"]), var(bundle.batch_stats)):
         raise AssertionError("the running statistics did not move")
-    csv_dir = os.path.join(root, "csvs")
-    for name, head in (("multimodal_train_results.csv", TRAIN_CSV_HEADER),
-                       ("multimodal_eval_results.csv", EVAL_CSV_HEADER)):
-        with open(os.path.join(csv_dir, name), newline="") as f:
-            rows = list(csv.reader(f))
-        if rows[0] != head or len(rows) != 2:
-            raise AssertionError(f"{name}: {rows}")
-        vals = [float(v) for v in rows[1][2:-2]]  # up to the patch types
-        if not np.isfinite(vals).all():
-            raise AssertionError(f"{name}: non-finite values {rows[1]}")
-        log(f"{name}: {rows[1]}")
-    with open(os.path.join(csv_dir, "run_manifest.json")) as f:
-        platform = json.load(f)["devices"]["platform"]
-    if platform != "cuda":
-        raise AssertionError(f"run manifest platform {platform!r}")
-    path = ckpt.model_checkpoint_path(
-        os.path.join(csv_dir, "multimodal_train_results.csv"),
-        "multimodal_bathy_patch10m_sss_patch30m")
-    post = ckpt.load_posterior(path)
-    if not (torch.equal(post.mu, st["post"]["mu"])
-            and torch.equal(post.rho, st["post"]["rho"])):
-        raise AssertionError("the posterior checkpoint differs from the "
-                             "train state")
-    log(f"train state (epoch 1, step {n_steps}), posterior checkpoint "
-        f"{os.path.relpath(path, work)} and run manifest ok")
-    del saved, st, post
+    check_training_outputs(root, "multimodal_bathy_patch10m_sss_patch30m",
+                           st)
+    log(f"train state (epoch 1, step {n_steps}) ok")
+    del saved, st
     for e in entries:
         e["launches"] = launches[e["name"]]
 
@@ -1124,32 +1164,14 @@ def phase_unimodal_training(args, smi: str, work: str) -> None:
     before = make_unimodal_bundle(1, NUM_CLASSES, BNNPriorSpec(),
                                   torch.Generator().manual_seed(args.seed),
                                   ArchConfig(), device="cpu")
-    times = []
-    build_step = pipeline.make_train_step
-
-    def timed_build(*a, **kw):
-        step = build_step(*a, **kw)
-
-        def timed_step(*sa):
-            t0 = time.perf_counter()
-            out = step(*sa)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            return out
-
-        return timed_step
-
-    pipeline.make_train_step = timed_build
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
+    with timed_train_steps(pipeline) as (times, _):
         state = pipeline.run_unimodal_training(
             root, model_type="sss", num_epochs=2, num_mc=UNI_TRAIN_MC,
             batch_size=UNI_TRAIN_BATCH, seed=args.seed, strict_errors=True)
         torch.cuda.synchronize()
-    finally:
-        pipeline.make_train_step = build_step
     wall = time.perf_counter() - t0
     train_idx, test_idx = split_indices(TRAIN_SAMPLES)
     n_steps = -(-len(train_idx) // UNI_TRAIN_BATCH)
@@ -1206,6 +1228,325 @@ def phase_unimodal_training(args, smi: str, work: str) -> None:
         f"after the first = {UNI_TRAIN_BATCH / per_step:.3f} samples/s; peak "
         f"memory {peak:.2f} GiB; ledgers and manifest ok, {cm_note}; "
         f"launches {launches}")
+
+
+def _walk(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _stem(bundle, prefix: str):
+    """(slice, HWIO shape) of ``prefix``'s conv1 kernel in the packed
+    vectors."""
+    e = next(e for e in bundle.meta.entries
+             if e.path == (prefix, "conv1", "kernel"))
+    return slice(e.offset, e.offset + e.size), e.shape
+
+
+def _leaves_equal(a, b) -> bool:
+    la, lb = dict(_walk(a)), dict(_walk(b))
+    return la.keys() == lb.keys() and all(
+        torch.equal(v.cpu(), lb[k].cpu()) for k, v in la.items())
+
+
+def write_torchvision_trunk(path: str, seed: int) -> dict:
+    """A full-width torchvision-named ResNet-50 state dict at ``path``: the
+    port's own trunk at its random init from ``seed`` (``conv1.weight``,
+    ``layer1.0.bn1.running_mean``, ...) plus a 1000-class ``fc``, the
+    ImageNet file's layout. Returns it as CPU tensors."""
+    from multimodal_auv_torch.interop.hf_manifest import flax_to_torch_mods
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        trunk_module,
+    )
+
+    params, stats = trunk_module(ArchConfig()).init(
+        torch.Generator().manual_seed(seed), 3)
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias",
+             "mean": "running_mean", "var": "running_var"}
+    sd = {}
+    for tree in (params, stats):
+        for p, leaf in _walk(tree):
+            key = ".".join(flax_to_torch_mods(p[:-1]) + (names[p[-1]],))
+            sd[key] = (leaf.permute(3, 2, 0, 1) if leaf.dim() == 4
+                       else leaf).contiguous()
+    g = torch.Generator().manual_seed(seed + 1)
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=g) * 0.02
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def check_pretrained_define_models(args, smi: str, work: str) -> None:
+    """``define_models(pretrained_paths=...)`` at full width on the card
+    with a torchvision-named ResNet-50 file for all three trunks: conv1's
+    mu is the file's, sigma = 0.1 |w|, the 1-channel sss conv1 keeps its
+    random init (not the file's), the feature trunks hold the file's
+    weights; no kernel launches."""
+    from multimodal_auv_torch.bayes.packing import softplus
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        define_models,
+    )
+
+    tv_path = os.path.join(work, "resnet50_torchvision.pth")
+    sd = write_torchvision_trunk(tv_path, args.seed + 60)
+    reset_launches()
+    t0 = time.perf_counter()
+    models = define_models(NUM_CLASSES, BNNPriorSpec(),
+                           torch.Generator().manual_seed(args.seed + 61),
+                           ArchConfig(),
+                           pretrained_paths={"image": tv_path,
+                                             "channels": tv_path,
+                                             "sss": tv_path})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("define_models(pretrained_paths)", {})
+    conv1 = sd["conv1.weight"].permute(2, 3, 1, 0).cuda()  # HWIO
+    worst = 0.0
+    for name, pre in (("image_model", "model"), ("bathy_model", "model"),
+                      ("multimodal_model", "image_model_feat"),
+                      ("multimodal_model", "bathy_model_feat")):
+        b = models[name]
+        sl, shape = _stem(b, pre)
+        mu = b.post.mu[sl].view(shape)
+        if not torch.equal(mu, conv1):
+            raise AssertionError(f"{name} {pre} conv1 mu != the file's")
+        want = torch.clamp_min(0.1 * mu.abs(), 1e-12)
+        rel = float(((softplus(b.post.rho[sl].view(shape)) - want).abs()
+                     / want).max())
+        worst = max(worst, rel)
+        if rel > 1e-5:
+            raise AssertionError(f"{name} {pre} conv1 sigma off 0.1 |w|: "
+                                 f"{rel:.2e} relative")
+    first = conv1[:, :, :1, :]  # the file's conv1 over one channel
+    for name, pre in (("sss_model", "model"),
+                      ("multimodal_model", "sss_model_feat")):
+        sl, shape = _stem(models[name], pre)
+        if shape != first.shape or torch.equal(
+                models[name].post.mu[sl].view(shape), first):
+            raise AssertionError(f"{name} {pre} conv1 took the file's "
+                                 f"weights")
+    for name in ("image_model_feat", "bathy_model_feat"):
+        got = models[name]["variables"]["params"]["conv1"]["kernel"]
+        if not torch.equal(got.cpu(), sd["conv1.weight"]):
+            raise AssertionError(f"{name} conv1 != the file's")
+    log(f"define_models(pretrained_paths) at full width on the card in "
+        f"{wall:.1f} s: conv1 mu == the file's, sigma == 0.1 |w| (max "
+        f"{worst:.1e} relative), sss conv1 kept its random init, feature "
+        f"trunks hold the file's weights; no launches [{smi}]")
+
+
+def phase_pretrained_inference(args, smi: str, work: str):
+    """Phase 13: a full-width checkpoint in the published form, imported
+    bit for bit, then the inference CLI with ``--model_weights`` on phase
+    10's tree. Returns (the checkpoint's path, the CLI run's split_sampler
+    launches)."""
+    from multimodal_auv_torch import cli
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.engine.predict import (
+        multimodal_predict_and_save_packed,
+    )
+    from multimodal_auv_torch.interop import torch_import as TI
+    from multimodal_auv_torch.interop.hf_manifest import load_manifest
+    from multimodal_auv_torch.interop.torch_export import save_torch_checkpoint
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+
+    src = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                 torch.Generator().manual_seed(args.seed + 50),
+                                 ArchConfig(), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 51)
+    n = src.meta.n_real  # a file holds no pad
+    with torch.no_grad():  # perturbed, so that equality means something
+        src.post.mu[:n] += 1e-3 * torch.randn(n, device="cuda", generator=g)
+        src.post.rho[:n] += 0.1 * torch.randn(n, device="cuda", generator=g)
+    path = os.path.join(work, "pytorch_model.bin")
+    t0 = time.perf_counter()
+    save_torch_checkpoint(src, path, published=True)
+    t_write = time.perf_counter() - t0
+
+    # time the two halves of load_and_prepare_multimodal_model
+    times = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            return out
+
+        return run
+
+    load, imp = TI.load_torch_state_dict, TI.import_posterior
+    TI.load_torch_state_dict = timed("load", load)
+    TI.import_posterior = timed("import", imp)
+    try:
+        dst = make_multimodal_bundle(
+            NUM_CLASSES, BNNPriorSpec(),
+            torch.Generator().manual_seed(args.seed + 52), ArchConfig(),
+            device="cuda")
+        dst, stats = TI.load_and_prepare_multimodal_model(dst, path,
+                                                          NUM_CLASSES)
+    finally:
+        TI.load_torch_state_dict, TI.import_posterior = load, imp
+    if not (torch.equal(dst.post.mu, src.post.mu)
+            and torch.equal(dst.post.rho, src.post.rho)
+            and _leaves_equal(dst.post.det, src.post.det)
+            and _leaves_equal(dst.batch_stats, src.batch_stats)):
+        raise AssertionError("the imported posterior differs from the "
+                             "exported one")
+    inventory = load_manifest()
+    n_ignored = sum(v["role"] == "ignored" for v in inventory.values())
+    want = {"loaded": len(inventory) - n_ignored, "dropped": 0,
+            "ignored": n_ignored, "missing": [], "unexpected": []}
+    if stats != want:
+        raise AssertionError(f"import stats {stats}, want {want}")
+    del dst
+    free_cuda()
+    log(f"published checkpoint ({len(inventory)} keys, "
+        f"{os.path.getsize(path) / 1e9:.3f} GB): write {t_write:.2f} s, "
+        f"torch.load {times['load']:.2f} s, import {times['import']:.2f} s "
+        f"[{smi}]; mu, rho, det, batch_stats bit-equal; stats {stats}")
+
+    dives = os.path.join(work, "dives")  # phase 10's tree
+    csv_cli = os.path.join(OUT_DIR, "pretrained_predictions.csv")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["inference", "--data_dir", dives, "--output_csv", csv_cli,
+                   "--batch_size", str(BATCH), "--num_mc_samples",
+                   str(NUM_MC), "--model_weights", path, "--packed_loader",
+                   "--mc_chunk", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the inference CLI exited {rc}")
+    n_batches = -(-N_SAMPLES // BATCH)
+    launches = check_launches("inference CLI",
+                              {"split_sampler": n_batches * NUM_MC // 2})
+    csv_ref = os.path.join(OUT_DIR, "pretrained_predictions_direct.csv")
+    multimodal_predict_and_save_packed(
+        src, os.path.join(dives, f".packed_cache_{IMAGE}"), csv_ref,
+        num_mc_samples=NUM_MC, batch_size=BATCH,
+        generator=torch.Generator().manual_seed(1), mc_chunk=2,
+        device="cuda")
+    with open(csv_cli, "rb") as f, open(csv_ref, "rb") as f2:
+        got, ref = f.read(), f2.read()
+    if got != ref:
+        raise AssertionError(f"the CLI's CSV differs from the source "
+                             f"bundle's:\n{got.decode()}\n{ref.decode()}")
+    log(f"inference CLI (--model_weights, --packed_loader): {N_SAMPLES} "
+        f"folders (pack included), {n_batches} batches of {BATCH} x {NUM_MC} "
+        f"MC, chunk 2, in {wall:.3f} s = {N_SAMPLES / wall:.3f} patches/s "
+        f"[{smi}]; CSV byte-equal to the source bundle's; launches "
+        f"{launches}")
+    del src
+    free_cuda()
+    check_pretrained_define_models(args, smi, work)
+    return path, launches["split_sampler"]
+
+
+def phase_retraining(args, smi: str, work: str, weights: str) -> dict:
+    """Phase 14 (BASELINE.json configs[3]): the retrain CLI from the phase
+    13 checkpoint with a 4-class head swap and a frozen backbone, one
+    epoch at b12 x 20 MC (chunk 1, remat on, f32 posterior) over a
+    32-folder tree of 4 classes. Returns the epoch's launch counts."""
+    from multimodal_auv_torch import cli
+    from multimodal_auv_torch.bayes.packing import tree_to
+    from multimodal_auv_torch.data.loaders import split_indices
+    from multimodal_auv_torch.engine.optim import make_backbone_freeze_mask
+    from multimodal_auv_torch.interop import torch_import as TI
+    from multimodal_auv_torch.pipelines import training as pipeline
+
+    classes = 4
+    root = write_training_tree(os.path.join(work, "retrain_tree"), args.seed,
+                               classes)
+    state_path = os.path.join(work, "retrain_state.pt")
+    imported = {}
+    load = TI.load_and_prepare_multimodal_model
+
+    def recorded(bundle, *a, **kw):  # the posterior as imported
+        bundle, stats = load(bundle, *a, **kw)
+        imported.update(
+            stats=stats,
+            frozen=make_backbone_freeze_mask(bundle.meta,
+                                             bundle.post).mu.cpu() == 0,
+            mu=bundle.post.mu.detach().to("cpu", copy=True),
+            rho=bundle.post.rho.detach().to("cpu", copy=True),
+            det=tree_to(bundle.post.det, "cpu"),
+            bs={k: v.cpu() for k, v in _walk(bundle.batch_stats)})
+        return bundle, stats
+
+    TI.load_and_prepare_multimodal_model = recorded
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with timed_train_steps(pipeline) as (times, _), contextlib.chdir(work):
+            rc = cli.main([
+                "retrain", "--data_dir", root, "--model_weights", weights,
+                "--num_classes", str(classes), "--freeze_backbone",
+                "--packed_loader", "--batch_size_multimodal",
+                str(TRAIN_BATCH), "--num_mc_samples", str(NUM_MC),
+                "--mc_chunk", "1", "--remat", "on",
+                "--num_epochs_multimodal", "1", "--resume_checkpoint",
+                state_path, "--strict_errors", "--device", "cuda"])
+            torch.cuda.synchronize()
+    finally:
+        TI.load_and_prepare_multimodal_model = load
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the retrain CLI exited {rc}")
+    train_idx, test_idx = split_indices(TRAIN_SAMPLES)
+    n_steps = -(-len(train_idx) // TRAIN_BATCH)
+    launches = check_launches("retraining", {
+        "stacked_sampler": n_steps * NUM_MC * 2, "eps": n_steps * NUM_MC,
+        "split_sampler": -(-len(test_idx) // TRAIN_BATCH) * NUM_MC})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if imported["stats"]["dropped"] != 4:
+        raise AssertionError(f"import stats {imported['stats']}: want fc2's "
+                             f"4 mu / rho keys dropped")
+    st = torch.load(state_path, map_location="cpu", weights_only=True)["state"]
+    check_training_outputs(root, "multimodal_bathy_patch30_sss_patch30", st)
+    frozen = imported["frozen"]
+    for k in ("mu", "rho"):
+        if not torch.equal(st["post"][k][frozen], imported[k][frozen]):
+            raise AssertionError(f"frozen {k} changed")
+        if torch.equal(st["post"][k][~frozen], imported[k][~frozen]):
+            raise AssertionError(f"the head's {k} did not move")
+    if not _leaves_equal(st["post"]["det"], imported["det"]):
+        raise AssertionError("a frozen BatchNorm affine leaf changed")
+    # the optimizer's leaves: mu, rho, then the det leaves (all frozen)
+    for i, moments in st["opt_state"]["state"].items():
+        m = frozen if i < 2 else slice(None)
+        for name in ("exp_avg", "exp_avg_sq"):
+            if bool(moments[name][m].any()):
+                raise AssertionError(f"Adam {name} of leaf {i} is nonzero on "
+                                     f"frozen elements")
+    var = ("image_model_feat", "bn1", "var")
+    if torch.equal(dict(_walk(st["batch_stats"]))[var], imported["bs"][var]):
+        raise AssertionError("the running statistics did not move")
+    per_step = sum(times[1:]) / len(times[1:])
+    log(f"retraining (BASELINE.json configs[3]): retrain CLI, 7 -> {classes} "
+        f"classes, frozen backbone, 1 epoch over {TRAIN_SAMPLES} folders "
+        f"(import, scan, decode and pack included), {len(train_idx)} train "
+        f"samples in {n_steps} steps of {TRAIN_BATCH} x {NUM_MC} MC (chunk 1, "
+        f"remat on, f32 posterior) and {len(test_idx)} eval samples, in "
+        f"{wall:.2f} s [{smi}]; steps {', '.join(f'{t:.3f}' for t in times)} "
+        f"s; {per_step:.3f} s per step after the first = "
+        f"{TRAIN_BATCH / per_step:.3f} samples/s; peak memory {peak:.2f} "
+        f"GiB; import stats dropped {imported['stats']['dropped']}, ignored "
+        f"{imported['stats']['ignored']}; trunks and BN affine bit-unchanged "
+        f"with zero Adam moments, head moved, running statistics moved; "
+        f"launches {launches}")
+    return launches
 
 
 def check_probe_kernels(P_full: int) -> None:
@@ -1294,6 +1635,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
+    # every phase passes its weights as a local file: never try the Hub
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
     t_start = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, HERE)
@@ -1320,6 +1663,14 @@ def main() -> int:
         phase_unimodal_training(args, smi, work)
         kernels_line.append(reparam_entry)
         free_cuda()
+        weights, split_launches = phase_pretrained_inference(args, smi, work)
+        free_cuda()
+        retrain = phase_retraining(args, smi, work, weights)
+        free_cuda()
+        # each kernel's launches on the paths: add phases 13 and 14
+        retrain["split_sampler"] += split_launches
+        for e in kernels_line:
+            e["launches"] += retrain[e["name"]]
         kernels_line += phase_probe(smi, P_full)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)

@@ -164,13 +164,11 @@ def bayesianize(params: Params, spec: BNNPriorSpec, *,
     meta = build_meta(params, pad_multiple)
     mu_parts: List[torch.Tensor] = []
     rho_parts: List[torch.Tensor] = []
-    det = _clone_structure(params)
     for e in meta.entries:
         flat = _get_path(params, e.path).to(torch.float32).reshape(-1)
         mu_parts.append(flat)
         sigma = torch.clamp_min(spec.moped_delta * flat.abs(), 1e-12)
         rho_parts.append(torch.log(torch.expm1(sigma)))
-        _set_path(det, e.path, None)
     pad = meta.n_padded - meta.n_real
     if pad:
         dev = mu_parts[0].device if mu_parts else None
@@ -178,8 +176,17 @@ def bayesianize(params: Params, spec: BNNPriorSpec, *,
         rho_parts.append(torch.full((pad,), softplus_inv(spec.prior_sigma),
                                     device=dev))
     post = PackedPosterior(mu=torch.cat(mu_parts), rho=torch.cat(rho_parts),
-                           det=prune_none(det))
+                           det=deterministic_part(params, meta))
     return post, meta
+
+
+def deterministic_part(params: Params, meta: PackMeta) -> Params:
+    """The param tree without its variational leaves: the BatchNorm
+    affine leaves that ``PackedPosterior.det`` holds."""
+    det = _clone_structure(params)
+    for e in meta.entries:
+        _set_path(det, e.path, None)
+    return prune_none(det)
 
 
 def _get_path(tree: Dict, path: Tuple[str, ...]):

@@ -13,15 +13,22 @@ applies to all of them.
 The port updates the posterior in place: the optimizer owns references
 to the posterior's leaf tensors, and a train step changes them where they
 are (the JAX state is immutable and replaced every step).
+
+Frozen-backbone fine-tuning (``make_optimizer_with_freeze``) puts an
+elementwise gate between the decay and Adam, in the JAX chain's order
+(``add_decayed_weights -> freeze_transform -> scale_by_adam -> scale``):
+frozen elements neither decay nor build up moments, so they stay bit for
+bit unchanged.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 
-from multimodal_auv_torch.bayes.packing import PackedPosterior
+from multimodal_auv_torch.bayes.packing import PackedPosterior, PackMeta
 
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -56,6 +63,73 @@ class AdamDef:
 
 def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.0) -> AdamDef:
     return AdamDef(float(lr), float(weight_decay))
+
+
+def make_backbone_freeze_mask(meta: PackMeta, post: PackedPosterior,
+                              trainable_prefixes: Sequence[str] = (
+                                  "attention_", "fc")) -> PackedPosterior:
+    """Elementwise update mask for fine-tuning with a frozen backbone
+    (BASELINE configs[3]), on the posterior's device: 1.0 on the packed
+    regions whose top-level module starts with a trainable prefix (the
+    fusion head: attention_*, fc / fc1 / fc2), 0.0 on the ResNet trunks,
+    the pad and every deterministic (BatchNorm) leaf."""
+    mask = np.zeros(meta.n_padded, np.float32)
+    for e in meta.entries:
+        if any(e.path[0].startswith(p) for p in trainable_prefixes):
+            mask[e.offset:e.offset + e.size] = 1.0
+    flat = torch.from_numpy(mask).to(post.mu.device)
+    return PackedPosterior(mu=flat, rho=flat, det=_zeros_like(post.det))
+
+
+def _zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    return torch.zeros_like(tree, requires_grad=False)
+
+
+class GatedAdam(torch.optim.Adam):
+    """Adam behind an elementwise gate: each step replaces every gradient
+    g by (g + weight_decay * p) * mask, then runs Adam without decay. An
+    element whose mask is 0 gets a zero gradient: its moments stay exactly
+    zero and its update is zero."""
+
+    def __init__(self, params: List[torch.Tensor], masks: List[torch.Tensor],
+                 lr: float, weight_decay: float):
+        super().__init__(params, lr=lr, betas=BETAS, eps=ADAM_EPS,
+                         weight_decay=0.0)
+        self.masks = masks
+        self.decay = weight_decay
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for p, m in zip(self.param_groups[0]["params"], self.masks):
+            if p.grad is not None:
+                if self.decay:
+                    p.grad.add_(p, alpha=self.decay)
+                p.grad.mul_(m)
+        return super().step(closure)
+
+
+@dataclass(frozen=True)
+class GatedAdamDef:
+    """``AdamDef`` with the frozen-backbone gate (``GatedAdam``); ``mask``
+    is a ``make_backbone_freeze_mask`` tree of the posterior it inits."""
+
+    lr: float
+    weight_decay: float
+    mask: PackedPosterior
+
+    def init(self, post: PackedPosterior) -> GatedAdam:
+        params = [p.requires_grad_(True) for p in trainable_leaves(post)]
+        return GatedAdam(params, trainable_leaves(self.mask), self.lr,
+                         self.weight_decay)
+
+
+def make_optimizer_with_freeze(lr: float, weight_decay: float,
+                               mask_post: PackedPosterior) -> GatedAdamDef:
+    """Adam with the frozen-backbone gate in front; the un-frozen path is
+    ``make_optimizer``."""
+    return GatedAdamDef(float(lr), float(weight_decay), mask_post)
 
 
 class StepLR:

@@ -5,8 +5,10 @@
 Weights are initialised on the CPU from a ``torch.Generator`` and then moved
 to the device, so one seed gives the same bundle on the CPU and the card.
 Without pretrained weights the trunks are random; MOPED then sets
-sigma = moped_delta * |w|. Loading pretrained trunks (torchvision, orbax or
-bayesian-torch files) is not ported yet and raises, naming its ROADMAP item.
+sigma = moped_delta * |w|. ``define_models(pretrained_paths=...)`` and
+``load_models`` read torch state dicts (torchvision-named trunks, or
+bayesian-torch files) through ``interop/torch_import.py``; the JAX
+package's orbax checkpoint directories are not readable here.
 """
 from __future__ import annotations
 
@@ -27,7 +29,6 @@ from multimodal_auv_torch.bayes.packing import (
 )
 from multimodal_auv_torch.config import IMAGE_SIZE, BNNPriorSpec
 from multimodal_auv_torch.device import DeviceLike, resolve_device
-from multimodal_auv_torch.engine.mc import not_ported
 from multimodal_auv_torch.models.fusion import MultiModalModel
 from multimodal_auv_torch.models.resnet import (
     ResNet,
@@ -152,17 +153,39 @@ def make_unimodal_bundle(input_channels: int, num_classes: int,
 
 
 def make_feature_trunk(input_channels: int, generator: torch.Generator,
-                       arch: ArchConfig, dev: torch.device) -> Dict[str, Any]:
+                       arch: ArchConfig, dev: torch.device,
+                       state_dict: Optional[Dict[str, Any]] = None,
+                       spec: BNNPriorSpec = BNNPriorSpec()) -> Dict[str, Any]:
     """A deterministic feature trunk as ``{"module", "variables"}``, as the
     JAX package holds it; ``variables["params"]`` are in the layout the
     module's forward takes (OIHW conv kernels):
     ``module(variables["params"], variables["batch_stats"], x, train=...)``.
-    """
+
+    With ``state_dict`` (a trunk's torch state dict, numpy values), the
+    random init is MOPED-bayesianized, the dict imported into it, and the
+    posterior mean kept: the keys that match load, the rest keep their
+    random values."""
     module = trunk_module(arch)
     params, stats = module.init(generator, input_channels)
+    if state_dict is not None:
+        from multimodal_auv_torch.interop.torch_import import import_posterior
+
+        post, meta = bayesianize(params, spec)
+        post, stats, _ = import_posterior(
+            ModelBundle(module, post, meta, stats), state_dict, spec=spec)
+        # unpack gives the forward's layout as views into mu: own copies
+        params = _owned(meta.unpack(post.mu, post.det))
+    else:
+        params = forward_layout(params)
     return {"module": module,
-            "variables": {"params": tree_to(forward_layout(params), dev),
+            "variables": {"params": tree_to(params, dev),
                           "batch_stats": tree_to(stats, dev)}}
+
+
+def _owned(tree):
+    if isinstance(tree, dict):
+        return {k: _owned(v) for k, v in tree.items()}
+    return tree.clone(memory_format=torch.contiguous_format)
 
 
 _TRUNK_KEYS = (("image", 3), ("channels", 3), ("sss", 1))
@@ -173,22 +196,38 @@ def load_models(model_paths: Optional[Dict[str, str]], num_classes: int = 7,
                 generator: Optional[torch.Generator] = None, *,
                 device: DeviceLike = None) -> Tuple[Any, Any, Any]:
     """The reference's three feature trunks ("image", "channels", "sss"),
-    as ``{"module", "variables"}`` dicts. A missing path warns and keeps
-    the random init, as the JAX package does; a path that exists raises
-    (the orbax and bayesian-torch loaders are not ported yet).
-    ``num_classes`` is accepted for the reference's signature and unused,
-    as in the JAX package (the trunks have no head)."""
+    as ``{"module", "variables"}`` dicts. A path that is a torch file is
+    imported into the trunk (``make_feature_trunk``'s ``state_dict``); a
+    missing path warns and keeps the random init, as the JAX package does.
+    A file that fails to load is logged and keeps the random init, as in
+    the JAX package; a directory (an orbax checkpoint of the JAX package,
+    which the port cannot read) is such a failure. ``num_classes`` is accepted
+    for the reference's signature and unused, as in the JAX package (the
+    trunks have no head)."""
+    from multimodal_auv_torch.interop.torch_import import load_torch_state_dict
+
     dev = resolve_device(device)
     seeds = torch.randint(0, 2 ** 62, (3,), generator=_generator(generator))
     out = []
     for (name, channels), seed in zip(_TRUNK_KEYS, seeds.tolist()):
+        sd = None
         path = (model_paths or {}).get(name)
         if path and os.path.exists(path):
-            raise not_ported(f"loading the {name} trunk from {path!r}",
-                             "9 (interop: orbax and bayesian-torch loaders)")
-        logger.warning("Path not found for model: %s -> %s", name, path)
+            try:
+                if os.path.isdir(path):
+                    raise IsADirectoryError(
+                        f"{path} is a directory (an orbax checkpoint of the "
+                        "JAX package); the port reads torch files only")
+                sd = load_torch_state_dict(path)
+                logger.info("%s model loaded successfully from %s",
+                            name.capitalize(), path)
+            except Exception as e:
+                logger.error("Failed to load %s model from %s: %s", name,
+                             path, e, exc_info=True)
+        else:
+            logger.warning("Path not found for model: %s -> %s", name, path)
         out.append(make_feature_trunk(
-            channels, torch.Generator().manual_seed(seed), arch, dev))
+            channels, torch.Generator().manual_seed(seed), arch, dev, sd))
     return tuple(out)
 
 
@@ -219,26 +258,61 @@ def define_models(num_classes: int, const_bnn_prior_parameters,
     Bayesian multimodal model, and three deterministic feature trunks
     (``{"module", "variables"}``). Each model takes its own generator,
     seeded from ``generator`` (the counterpart of the JAX package's
-    ``jax.random.split(rng, 7)``). ``pretrained_paths`` (MOPED init from
-    torchvision trunks) is not ported yet and raises."""
-    if pretrained_paths:
-        raise not_ported("pretrained_paths",
-                         "9 (interop: init_trunks_from_torchvision)")
+    ``jax.random.split(rng, 7)``).
+
+    ``pretrained_paths``: optional {"image", "channels", "sss"} paths to
+    torchvision-named ResNet-50 state dicts (the offline stand-in for the
+    reference's IMAGENET1K_V1 download). They MOPED-initialise the trunks
+    of the three unimodal bundles, the multimodal bundle and the three
+    feature trunks (sigma = delta * |w|); the 1000-class fc head and a
+    channel-mismatched conv1 keep their random init, as in the reference's
+    fc -> Identity swap. A file that does not load is logged and skipped."""
+    from multimodal_auv_torch.interop.torch_import import (
+        import_posterior,
+        load_torch_state_dict,
+        rekey,
+    )
+
     spec = (BNNPriorSpec.from_dict(const_bnn_prior_parameters)
             if isinstance(const_bnn_prior_parameters, dict)
             else const_bnn_prior_parameters)
     dev = resolve_device(device)
     gens = [torch.Generator().manual_seed(s) for s in torch.randint(
         0, 2 ** 62, (7,), generator=_generator(generator)).tolist()]
-    uni = lambda c, g: make_unimodal_bundle(c, num_classes, spec, g, arch,
-                                            device=dev)
+    sds: Dict[str, Any] = {}
+    for name, path in (pretrained_paths or {}).items():
+        try:
+            sds[name] = load_torch_state_dict(path)
+        except Exception:
+            logger.warning("Could not load pretrained trunk %s from %s",
+                           name, path, exc_info=True)
+
+    def moped_trunks(bundle: ModelBundle, by_prefix: Dict[str, str]):
+        """The bundle with its trunks (module prefix -> pretrained_paths
+        name) imported from their dicts."""
+        merged = {}
+        for prefix, name in by_prefix.items():
+            if name in sds:
+                merged.update(rekey(sds[name], prefix))
+        if merged:
+            bundle.post, bundle.batch_stats, _ = import_posterior(
+                bundle, merged, spec=spec)
+        return bundle
+
+    uni = lambda c, g, name: moped_trunks(make_unimodal_bundle(
+        c, num_classes, spec, g, arch, device=dev), {"model": name})
+    feat = lambda c, g, name: make_feature_trunk(c, g, arch, dev,
+                                                 sds.get(name), spec)
     return {
-        "image_model": uni(3, gens[0]),
-        "bathy_model": uni(3, gens[1]),
-        "sss_model": uni(1, gens[2]),
-        "multimodal_model": make_multimodal_bundle(num_classes, spec, gens[3],
-                                                   arch, device=dev),
-        "image_model_feat": make_feature_trunk(3, gens[4], arch, dev),
-        "bathy_model_feat": make_feature_trunk(3, gens[5], arch, dev),
-        "sss_model_feat": make_feature_trunk(1, gens[6], arch, dev),
+        "image_model": uni(3, gens[0], "image"),
+        "bathy_model": uni(3, gens[1], "channels"),
+        "sss_model": uni(1, gens[2], "sss"),
+        "multimodal_model": moped_trunks(
+            make_multimodal_bundle(num_classes, spec, gens[3], arch,
+                                   device=dev),
+            {"image_model_feat": "image", "bathy_model_feat": "channels",
+             "sss_model_feat": "sss"}),
+        "image_model_feat": feat(3, gens[4], "image"),
+        "bathy_model_feat": feat(3, gens[5], "channels"),
+        "sss_model_feat": feat(1, gens[6], "sss"),
     }

@@ -1,8 +1,10 @@
 """run_auv_inference — the main path (port of
 ``multimodal_auv_tpu/pipelines/inference.py``).
 
-Build the multimodal Bayesian bundle -> an inference loader (packed uint8
-batches, or decoded folders) -> MC predict -> CSV in the reference schema.
+Resolve the pretrained weights (a local bayesian-torch checkpoint, or the
+HF Hub) into the multimodal Bayesian bundle -> an inference loader (packed
+uint8 batches, or decoded folders) -> MC predict -> CSV in the reference
+schema.
 """
 from __future__ import annotations
 
@@ -15,7 +17,12 @@ import torch
 
 from multimodal_auv_torch.config import BNNPriorSpec
 from multimodal_auv_torch.device import DeviceLike, resolve_device
-from multimodal_auv_torch.models.model_utils import ArchConfig, make_multimodal_bundle
+from multimodal_auv_torch.interop import hub
+from multimodal_auv_torch.models.model_utils import (
+    ArchConfig,
+    ModelBundle,
+    make_multimodal_bundle,
+)
 
 
 def run_auv_inference(
@@ -40,17 +47,16 @@ def run_auv_inference(
 ):
     """Multimodal BNN inference over one survey directory or a list of them.
 
-    Without pretrained weights (not ported yet) the model is random and
-    ``allow_random_init=True`` is required. ``use_packed_loader`` decodes
+    ``model_weights_path``: a local bayesian-torch checkpoint (the
+    published ``pytorch_model.bin`` or an export of either package); without
+    it the HF Hub's is fetched, and where there is none (offline, or no
+    ``huggingface_hub``) the model is random and ``allow_random_init=True``
+    is required. ``use_packed_loader`` decodes
     once into a uint8 cache (``packed_cache_dir``, default
     ``<dir>/.packed_cache_<size>``) that is repacked when stale.
     ``fast_sampling``: None = bf16-budget noise exactly when sampling to
     bf16. ``bn_mode``: "train" (batch statistics, the reference's quirk) or
     "eval" (running statistics)."""
-    if model_weights_path is not None:
-        raise NotImplementedError(
-            "model_weights_path is not ported yet: ROADMAP.md, Open items, "
-            "1 'Modules to port' item 9 (interop/torch_import.py)")
     if mesh_spec is not None:
         raise NotImplementedError(
             "mesh_spec is not ported yet: ROADMAP.md, Open items, "
@@ -64,17 +70,9 @@ def run_auv_inference(
     logger = logging.getLogger(__name__)
     dev = resolve_device(device)
     logger.info("Using device: %s", dev)
-    if not allow_random_init:
-        raise RuntimeError(
-            "No pretrained weights available (loading them is not ported "
-            "yet). Pass allow_random_init=True to proceed with a randomly "
-            "initialised model.")
-    logger.warning("Proceeding with randomly initialised model.")
-
     arch = arch or ArchConfig()
-    bundle = make_multimodal_bundle(num_classes, BNNPriorSpec(),
-                                    torch.Generator().manual_seed(seed), arch,
-                                    device=dev)
+    bundle = pretrained_bundle(num_classes, BNNPriorSpec(), arch, seed,
+                               model_weights_path, allow_random_init, dev)
     generator = torch.Generator().manual_seed(seed + 1)
     dirs = ([data_directory] if isinstance(data_directory, (str, bytes))
             else list(data_directory))
@@ -129,3 +127,34 @@ def run_auv_inference(
             fast_sampling=fast_sampling, bn_mode=bn_mode, device=dev)
     logger.info("Final inference process completed successfully.")
     return output_csv
+
+
+def pretrained_bundle(num_classes: int, spec: BNNPriorSpec, arch: ArchConfig,
+                      seed: int, model_weights_path: Optional[str],
+                      allow_random_init: bool,
+                      dev: torch.device) -> ModelBundle:
+    """The multimodal bundle with the pretrained weights (a local
+    checkpoint or the HF Hub's) imported, fc2 dropped when ``num_classes``
+    differs from the checkpoint's; the random init where there are none,
+    if ``allow_random_init`` allows it, else RuntimeError."""
+    logger = logging.getLogger(__name__)
+    bundle = make_multimodal_bundle(num_classes, spec,
+                                    torch.Generator().manual_seed(seed), arch,
+                                    device=dev)
+    weights = hub.fetch_pretrained_weights(local_path=model_weights_path)
+    if weights is not None:
+        from multimodal_auv_torch.interop.torch_import import (
+            load_and_prepare_multimodal_model,
+        )
+
+        bundle, stats = load_and_prepare_multimodal_model(
+            bundle, weights, num_classes=num_classes)
+        logger.info("Pretrained weights loaded: %s", stats)
+    elif not allow_random_init:
+        raise RuntimeError(
+            "No pretrained weights available (offline and no "
+            "model_weights_path). Pass allow_random_init=True to proceed "
+            "with a randomly initialised model.")
+    else:
+        logger.warning("Proceeding with randomly initialised model.")
+    return bundle

@@ -1,10 +1,18 @@
-"""run_AUV_training_from_scratch — multimodal training (port of
-``multimodal_auv_tpu/pipelines/training.py``, single device).
+"""run_AUV_training_from_scratch and run_auv_retraining — multimodal
+training (port of ``multimodal_auv_tpu/pipelines/training.py``, single
+device).
 
-Build the multimodal Bayesian bundle -> the labelled loaders (packed uint8
-batches, or decoded folders) -> Adam + StepLR -> the MC-ELBO train step and
-the MC eval step -> the epoch loops, with CSV ledgers, TensorBoard scalars,
-a run manifest, checkpoints and cooperative preemption.
+Build the multimodal Bayesian bundle (random, MOPED from torchvision-named
+trunks, or a bayesian-torch checkpoint with the fc2 head swapped) -> the
+labelled loaders (packed uint8 batches, or decoded folders) -> Adam (gated
+under ``freeze_backbone``) + StepLR -> the MC-ELBO train step and the MC
+eval step -> the epoch loops, with CSV ledgers, TensorBoard scalars, a run
+manifest, checkpoints and cooperative preemption.
+
+The reference's retraining builds its optimizer over a fresh model instead
+of the loaded one (its functions.py:229-235), so the loaded weights are
+never optimized; as in the JAX package, the optimizer here owns the
+trained posterior.
 """
 from __future__ import annotations
 
@@ -21,11 +29,14 @@ from multimodal_auv_torch.engine.mc import not_ported
 from multimodal_auv_torch.engine.optim import (
     BayesTrainState,
     StepLR,
+    make_backbone_freeze_mask,
     make_optimizer,
+    make_optimizer_with_freeze,
 )
 from multimodal_auv_torch.engine.preemption import maybe_guard, null_guard
 from multimodal_auv_torch.engine.steps import make_eval_step, make_train_step
 from multimodal_auv_torch.models.model_utils import ArchConfig, make_multimodal_bundle
+from multimodal_auv_torch.pipelines.inference import pretrained_bundle
 from multimodal_auv_torch.utils.logging_utils import setup_pipeline_logging
 from multimodal_auv_torch.utils.manifest import write_run_manifest
 from multimodal_auv_torch.utils.tb import SummaryWriter
@@ -67,8 +78,6 @@ def _train_multimodal_common(
     preemption_guard=None,
     remat: str = "on",
 ) -> BayesTrainState:
-    if freeze_backbone:
-        raise not_ported("freeze_backbone", "5 (training: freeze_backbone)")
     log_dir = setup_pipeline_logging()
     sum_writer = SummaryWriter(os.path.join("tensorboard_logs",
                                             os.path.basename(log_dir)))
@@ -96,10 +105,15 @@ def _train_multimodal_common(
                        "(%d); using configured.", num_classes,
                        actual_num_classes)
 
-    state = BayesTrainState(
-        post=bundle.post,
-        opt_state=make_optimizer(lr, weight_decay).init(bundle.post),
-        batch_stats=bundle.batch_stats)
+    if freeze_backbone:
+        # only the optimizer is gated: the running statistics still update
+        tx = make_optimizer_with_freeze(
+            lr, weight_decay, make_backbone_freeze_mask(bundle.meta,
+                                                        bundle.post))
+    else:
+        tx = make_optimizer(lr, weight_decay)
+    state = BayesTrainState(post=bundle.post, opt_state=tx.init(bundle.post),
+                            batch_stats=bundle.batch_stats)
     train_step = make_train_step(
         bundle.module, bundle.meta, spec, num_mc, mc_chunk=mc_chunk,
         sample_dtype=torch.bfloat16 if bf16_weights else None,
@@ -118,7 +132,8 @@ def _train_multimodal_common(
         "bathy_patch_base": bathy_patch_base,
         "sss_patch_base": sss_patch_base, "seed": seed,
         "mc_chunk": mc_chunk, "double_scheduler_step": double_scheduler_step,
-        "resume_checkpoint": resume_checkpoint, "bf16_weights": bf16_weights,
+        "resume_checkpoint": resume_checkpoint,
+        "freeze_backbone": freeze_backbone, "bf16_weights": bf16_weights,
         "use_packed_loader": use_packed_loader, "image_size": image_size,
         "strict_errors": strict_errors, "remat": remat,
         "class_names": class_names,
@@ -147,6 +162,29 @@ def _train_multimodal_common(
     bundle.post = state.post
     bundle.batch_stats = state.batch_stats
     return state
+
+
+def _refuse_unported(async_checkpoints, mesh_spec, dist_spec, remat,
+                     mc_chunk) -> None:
+    """Raise, naming the ROADMAP item, for a flag whose path is not ported
+    yet."""
+    for flag, value, item in (
+            ("async_checkpoints", async_checkpoints,
+             "5 (training: async checkpoints)"),
+            ("mesh_spec", mesh_spec, "8 (parallel)"),
+            ("dist_spec", dist_spec, "8 (parallel)")):
+        if value:
+            raise not_ported(flag, item)
+    if remat == "auto":
+        raise not_ported("remat='auto'", "5 (training: remat='auto')")
+    if remat in ("on", True) and mc_chunk > 4:
+        raise not_ported("mc_chunk > 4 in training", "5 (training)")
+
+
+def _spec(const_bnn_prior_parameters) -> BNNPriorSpec:
+    if isinstance(const_bnn_prior_parameters, dict):
+        return BNNPriorSpec.from_dict(const_bnn_prior_parameters)
+    return const_bnn_prior_parameters or BNNPriorSpec()
 
 
 def run_AUV_training_from_scratch(
@@ -184,24 +222,15 @@ def run_AUV_training_from_scratch(
     (``devices`` is accepted and unused; ``device`` picks the card, or the
     CPU with ``device="cpu"``). Returns True when training finished, False
     when it raised (logged), as the reference does. Flags of paths not
-    ported yet, and a missing card, raise before training starts."""
-    for flag, value, item in (
-            ("pretrained_trunks", pretrained_trunks, "9 (interop)"),
-            ("async_checkpoints", async_checkpoints,
-             "5 (training: async checkpoints)"),
-            ("mesh_spec", mesh_spec, "8 (parallel)"),
-            ("dist_spec", dist_spec, "8 (parallel)")):
-        if value:
-            raise not_ported(flag, item)
-    if remat == "auto":
-        raise not_ported("remat='auto'", "5 (training: remat='auto')")
-    if remat in ("on", True) and mc_chunk > 4:
-        raise not_ported("mc_chunk > 4 in training", "5 (training)")
+    ported yet, and a missing card, raise before training starts.
+
+    ``pretrained_trunks``: a torchvision-named ResNet-50 state dict that
+    MOPED-initialises all three feature trunks, the offline stand-in for
+    the reference's IMAGENET1K_V1 download."""
+    _refuse_unported(async_checkpoints, mesh_spec, dist_spec, remat, mc_chunk)
     dev = resolve_device(device)
     try:
-        spec = (BNNPriorSpec.from_dict(const_bnn_prior_parameters)
-                if isinstance(const_bnn_prior_parameters, dict)
-                else const_bnn_prior_parameters)
+        spec = _spec(const_bnn_prior_parameters)
         arch = arch or ArchConfig()
         if num_classes in (None, 0):
             from multimodal_auv_torch.data.datasets import (
@@ -212,6 +241,17 @@ def run_AUV_training_from_scratch(
         bundle = make_multimodal_bundle(num_classes, spec,
                                         torch.Generator().manual_seed(seed),
                                         arch, device=dev)
+        if pretrained_trunks:
+            from multimodal_auv_torch.interop.torch_import import (
+                init_trunks_from_torchvision,
+                load_torch_state_dict,
+            )
+
+            sd = load_torch_state_dict(pretrained_trunks)
+            post, bs, st = init_trunks_from_torchvision(bundle, sd, spec=spec)
+            bundle.post, bundle.batch_stats = post, bs
+            logger.info("Pretrained trunk init from %s: %s",
+                        pretrained_trunks, st)
         _train_multimodal_common(
             root_dir=root_dir, bundle=bundle, num_classes=num_classes,
             lr=lr_multimodal_model, weight_decay=weight_decay,
@@ -232,4 +272,74 @@ def run_AUV_training_from_scratch(
     except Exception as e:  # the reference reports failure as False
         logger.exception("An error occurred during AUV training from "
                          "scratch: %s", e)
+        return False
+
+
+def run_auv_retraining(
+    root_dir: str,
+    devices: Optional[List] = None,
+    const_bnn_prior_parameters: Optional[Dict[str, Any]] = None,
+    num_classes: int = 7,
+    lr_multimodal: float = 1e-5,
+    multimodal_weight_decay: float = 1e-5,
+    epochs_multimodal: int = 20,
+    num_mc: int = 5,
+    bathy_patch_base: int = 30,
+    sss_patch_base: int = 30,
+    batch_size_multimodal: int = 1,
+    scheduler_multimodal_step_size: int = 7,
+    scheduler_multimodal_gamma: float = 0.752,
+    *,
+    model_weights_path: Optional[str] = None,
+    allow_random_init: bool = False,
+    arch: Optional[ArchConfig] = None,
+    mc_chunk: int = 1,
+    seed: int = 0,
+    resume_checkpoint: Optional[str] = None,
+    freeze_backbone: bool = False,
+    bf16_weights: bool = False,
+    use_packed_loader: bool = False,
+    strict_errors: bool = False,
+    async_checkpoints: bool = False,
+    handle_preemption: bool = True,
+    preemption_guard=None,
+    mesh_spec=None,
+    dist_spec=None,
+    remat: str = "on",
+    device: DeviceLike = None,
+) -> bool:
+    """Foundation-model retraining (the reference's functions.py:84-258):
+    the pretrained checkpoint (``model_weights_path``, else the HF Hub),
+    fc2 swapped for a fresh head when ``num_classes`` != 7, then multimodal
+    fine-tuning. ``freeze_backbone=True`` trains only the fusion head
+    (attention_*, fc / fc1 / fc2), BASELINE configs[3]'s frozen-backbone
+    workload. Without weights it raises unless ``allow_random_init``.
+    Returns True when training finished, False when it raised (logged);
+    flags of paths not ported yet, and a missing card, raise before."""
+    _refuse_unported(async_checkpoints, mesh_spec, dist_spec, remat, mc_chunk)
+    dev = resolve_device(device)
+    try:
+        spec = _spec(const_bnn_prior_parameters)
+        arch = arch or ArchConfig()
+        bundle = pretrained_bundle(num_classes, spec, arch, seed,
+                                   model_weights_path, allow_random_init, dev)
+        _train_multimodal_common(
+            root_dir=root_dir, bundle=bundle, num_classes=num_classes,
+            lr=lr_multimodal, weight_decay=multimodal_weight_decay,
+            num_epochs=epochs_multimodal, num_mc=num_mc,
+            batch_size_multimodal=batch_size_multimodal,
+            scheduler_step_size=scheduler_multimodal_step_size,
+            scheduler_gamma=scheduler_multimodal_gamma,
+            bathy_patch_base=bathy_patch_base,
+            sss_patch_base=sss_patch_base,
+            spec=spec, mc_chunk=mc_chunk, seed=seed,
+            resume_checkpoint=resume_checkpoint,
+            freeze_backbone=freeze_backbone, bf16_weights=bf16_weights,
+            use_packed_loader=use_packed_loader, strict_errors=strict_errors,
+            handle_preemption=handle_preemption,
+            preemption_guard=preemption_guard, remat=remat,
+            image_size=arch.image_size)
+        return True
+    except Exception as e:  # the reference reports failure as False
+        logger.exception("An error occurred during retraining: %s", e)
         return False

@@ -221,3 +221,48 @@ def test_samplers_refuse_unaligned_inputs():
         S.gaussian_shift_scale_split(mu, mu, (1, 2), 1)
     with pytest.raises(ValueError, match="16-byte"):
         S.gaussian_reparam(mu, mu, (1, 2))
+
+
+def test_import_on_card_equals_cpu(tmp_path):
+    """A tiny() checkpoint in the published form imported into a bundle on
+    the card and into the same bundle on the CPU (a 7 -> 4 head swap): the
+    stats are equal and mu, rho, det and batch_stats bit-equal, on the card
+    (the import is numpy on the host, moved to the device once)."""
+    _cuda_or_skip()
+    from multimodal_auv_torch.interop.torch_export import save_torch_checkpoint
+    from multimodal_auv_torch.interop.torch_import import (
+        load_and_prepare_multimodal_model,
+    )
+
+    arch = ArchConfig.tiny()
+    src = make_multimodal_bundle(7, BNNPriorSpec(),
+                                 torch.Generator().manual_seed(3), arch,
+                                 device="cpu")
+    src.post.mu += 0.01 * (torch.arange(src.post.mu.numel()) % 7)
+    path = str(tmp_path / "pytorch_model.bin")
+    save_torch_checkpoint(src, path, published=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = make_multimodal_bundle(4, BNNPriorSpec(),
+                                   torch.Generator().manual_seed(0), arch,
+                                   device=dev)
+        out[dev] = load_and_prepare_multimodal_model(b, path, num_classes=4)
+    (card, card_stats), (cpu, cpu_stats) = out["cuda"], out["cpu"]
+    assert card_stats == cpu_stats and card_stats["dropped"] == 4
+    assert card.post.mu.device.type == "cuda"
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        else:
+            yield path, tree
+
+    for a, b in ((card.post.mu, cpu.post.mu), (card.post.rho, cpu.post.rho)):
+        assert torch.equal(a.cpu(), b)
+    for ta, tb in ((card.post.det, cpu.post.det),
+                   (card.batch_stats, cpu.batch_stats)):
+        la, lb = dict(leaves(ta)), dict(leaves(tb))
+        assert la.keys() == lb.keys()
+        assert all(v.device.type == "cuda" and torch.equal(v.cpu(), lb[k])
+                   for k, v in la.items())

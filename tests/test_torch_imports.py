@@ -43,7 +43,9 @@ def test_port_imports_no_jax():
                  "engine.preemption", "pipelines.training", "utils.tb",
                  "utils.plotting", "utils.manifest", "utils.logging_utils",
                  "pipelines.unimodal", "models.model_utils",
-                 "interop.from_jax"):
+                 "interop.from_jax", "interop.torch_import",
+                 "interop.torch_export", "interop.hf_manifest", "interop.hub",
+                 "cli", "selfcheck"):
         assert f"multimodal_auv_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 
@@ -82,6 +84,7 @@ def test_entry_points_need_the_card_by_default():
     from multimodal_auv_torch.pipelines.inference import run_auv_inference
     from multimodal_auv_torch.pipelines.training import (
         run_AUV_training_from_scratch,
+        run_auv_retraining,
     )
     from multimodal_auv_torch.pipelines.unimodal import run_unimodal_training
 
@@ -93,6 +96,8 @@ def test_entry_points_need_the_card_by_default():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_AUV_training_from_scratch({}, 1e-3, 1, 2, 10, 10, 2, REPO,
                                       arch=ArchConfig.micro())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_auv_retraining(REPO, arch=ArchConfig.micro())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         define_models(7, BNNPriorSpec(), None, ArchConfig.micro())
     with pytest.raises(RuntimeError, match="no CUDA device"):

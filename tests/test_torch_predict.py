@@ -160,11 +160,16 @@ def test_mc_logits_seeds_and_unported_flags():
 
 
 def test_run_auv_inference_refusals(tmp_path):
+    """No weights (offline, no path) without allow_random_init, and a
+    weights path that does not exist, raise; so do the flags of paths not
+    ported yet, naming their ROADMAP item."""
     with pytest.raises(RuntimeError, match="allow_random_init"):
         run_auv_inference(str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="w.pt"):
+        run_auv_inference(str(tmp_path), model_weights_path="w.pt",
+                          arch=ArchConfig.micro(), device="cpu")
     for kw, item in (({"use_dvp": True}, "DVP"),
-                     ({"mesh_spec": object()}, "parallel"),
-                     ({"model_weights_path": "w.pt"}, "torch_import")):
+                     ({"mesh_spec": object()}, "parallel")):
         with pytest.raises(NotImplementedError, match=item):
             run_auv_inference(str(tmp_path), allow_random_init=True,
                               device="cpu", **kw)

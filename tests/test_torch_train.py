@@ -282,8 +282,7 @@ def test_resume_matches_uninterrupted(tmp_path, monkeypatch):
 def test_training_refusals(tmp_path):
     """Flags of paths not ported yet raise, naming their ROADMAP item,
     before anything runs; so does an unknown remat."""
-    for kw, item in (({"pretrained_trunks": "w.pt"}, "interop"),
-                     ({"async_checkpoints": True}, "async"),
+    for kw, item in (({"async_checkpoints": True}, "async"),
                      ({"mesh_spec": object()}, "parallel"),
                      ({"dist_spec": object()}, "parallel"),
                      ({"remat": "auto"}, "remat"),

@@ -197,8 +197,8 @@ def test_define_models_layout_equals_jax(tmp_path, caplog):
     lengths, and every feature trunk's parameter paths and shapes equal
     the JAX package's; each Bayesian entry is a ``ModelBundle`` on the
     asked device. ``load_models`` warns and keeps the random init for a
-    missing path and refuses a path that exists (the loaders are not
-    ported); ``pretrained_paths`` is refused."""
+    missing path, and logs a file that does not load and keeps the random
+    init; so does ``pretrained_paths`` for a file it cannot load."""
     jm = jdefine(7, JSpec().to_dict(), jax.random.PRNGKey(0), JArch.tiny())
     tm = define_models(7, BNNPriorSpec().to_dict(),
                        torch.Generator().manual_seed(0), ArchConfig.tiny(),
@@ -229,12 +229,18 @@ def test_define_models_layout_equals_jax(tmp_path, caplog):
                              arch=ArchConfig.tiny(), device="cpu")
     assert len(trunks) == 3 and "Path not found" in caplog.text
     (tmp_path / "w.pt").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        load_models({"sss": str(tmp_path / "w.pt")}, arch=ArchConfig.tiny(),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        define_models(7, BNNPriorSpec(), None, ArchConfig.tiny(),
-                      {"image": "w.pt"}, device="cpu")
+    with caplog.at_level("ERROR"):
+        kept = load_models({"sss": str(tmp_path / "w.pt")},
+                           arch=ArchConfig.tiny(), device="cpu")
+    assert "Failed to load sss model" in caplog.text
+    assert torch.equal(kept[2]["variables"]["params"]["conv1"]["kernel"],
+                       trunks[2]["variables"]["params"]["conv1"]["kernel"])
+    with caplog.at_level("WARNING"):
+        dm = define_models(7, BNNPriorSpec(), torch.Generator().manual_seed(0),
+                           ArchConfig.tiny(), {"image": str(tmp_path / "w.pt")},
+                           device="cpu")
+    assert "Could not load pretrained trunk image" in caplog.text
+    assert torch.equal(dm["image_model"].post.mu, tm["image_model"].post.mu)
 
 
 # -- one train step ---------------------------------------------------------------
