@@ -16,7 +16,9 @@ result line):
    the full model's P, chunks
    1, 2 and 3; sampler moments at full P; times of the kernel, the plain
    version, one ``torch.normal`` call over the same work (a yardstick the
-   port never calls), and the kernel's bound.
+   port never calls), and the kernel's bound. The split sampler (#1, the
+   op ``torch.ops.auv.split_sampler``) reads its seed words from a device
+   tensor in every check and in its timed calls.
 4. inference path: a packed set of 10 random 256 px samples (numpy,
    --seed), the full-width model (three ResNet-50 trunks, bf16, 7 classes,
    MOPED random weights), ``multimodal_predict_and_save_packed`` with 20 MC
@@ -112,8 +114,23 @@ result line):
     exactly 120 stacked_sampler, 60 eps and 20 split_sampler launches;
     seconds per step, samples per second, peak memory.
 
-The kernels line's launches of #1-#3 add phases 13 and 14 to their paths'
-counts. Beside each sampler's bound the script prints the noise contract's Philox
+15. serving: the full-width artifact exported on the card from phase 13's
+    published-form file through ``export_auv_serving_artifact`` (b4 x 20
+    MC in chunks of 2, bf16, BN in train mode), loaded with
+    ``load_predict_artifact``; ``predict_batches`` over phase 4's 10
+    packed patches (padded tail, masked) against the in-process
+    ``make_packed_predict_step`` at the same seeds: the predicted class
+    equal on every row, both uncertainties to 1e-3 absolute (bit-equality
+    reported when it holds), exactly 30 split_sampler launches; then
+    ``make_server`` on 127.0.0.1:0 in a thread, one seeded and two
+    concurrent unseeded requests through ``serve_client``: every one
+    answered, the seeded one equal to ``predict`` with its seed,
+    split_sampler launches == 10 x the device calls ``Metrics`` counted,
+    and a shutdown inside a time limit. Prints export and load seconds, the
+    programs' sizes, patches/s and request latencies.
+
+The kernels line's launches of #1-#3 add phases 13, 14 and 15 to their
+paths' counts. Beside each sampler's bound the script prints the noise contract's Philox
 calls for that launch and their estimated INT32 time, labelled as an
 estimate; it is not part of ``bound_ms``.
 
@@ -137,6 +154,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -281,9 +299,9 @@ def check_sampler(post, n_padded: int):
             mu, sg = mu.to("cuda", dt).contiguous(), sg.to("cuda", dt).contiguous()
             for n in (1, 2, 3):
                 seed = (1234 + n, 5678)
-                got = S.gaussian_shift_scale_split(mu, sg, seed, n,
-                                                   out_dtype=dt,
-                                                   fast_math=fast)
+                got = S.gaussian_shift_scale_split(
+                    mu, sg, S.seed_tensor(seed, "cuda"), n, out_dtype=dt,
+                    fast_math=fast)
                 want = S.split_plain(mu, sg, seed, n, dt, fast)
                 torch.cuda.synchronize()
                 for x, y in zip(got, want):
@@ -294,8 +312,9 @@ def check_sampler(post, n_padded: int):
                             f"split_sampler != plain ({dt}, fast={fast}, "
                             f"{label} P={mu.numel()}, chunk {n}): "
                             f"max abs err {err}")
-            log(f"split_sampler == plain bit for bit: {dt}, "
-                f"fast_math={fast}, {label} P={mu.numel()}, chunks 1,2,3")
+            log(f"split_sampler (seed from device memory) == plain bit for "
+                f"bit: {dt}, fast_math={fast}, {label} P={mu.numel()}, "
+                f"chunks 1,2,3")
 
     # moments of eps at full P: mean 0, std 1, draws and blocks uncorrelated
     for fast, dt in ((False, torch.float32), (True, torch.bfloat16)):
@@ -320,8 +339,9 @@ def check_sampler(post, n_padded: int):
     mu = post.mu.to(torch.bfloat16)
     sg = sigma_full.to(torch.bfloat16)
     P = mu.numel()
+    seeds = S.seed_tensor((1, 2), "cuda")  # the seed words on the device
     ms = cuda_ms(lambda: S.gaussian_shift_scale_split(
-        mu, sg, (1, 2), 2, out_dtype=torch.bfloat16, fast_math=True), 50)
+        mu, sg, seeds, 2, out_dtype=torch.bfloat16, fast_math=True), 50)
     plain_ms = cuda_ms(lambda: S.split_plain(mu, sg, (1, 2), 2,
                                              torch.bfloat16, True), 3)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -330,7 +350,8 @@ def check_sampler(post, n_padded: int):
     nbytes = 2 * P * 2 + 2 * P * 2
     ops = (P // 2) * 2 * SAMPLER_F32_OPS[True]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
-    log(f"split_sampler chunk 2 at P={P}: kernel {ms:.4f} ms, plain "
+    log(f"split_sampler chunk 2 at P={P} (seed from device memory): kernel "
+        f"{ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, torch.normal {library_ms:.4f} ms, bound "
         f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e9:.3f} GB); "
         f"{philox_note(P, 2)}")
@@ -1549,6 +1570,178 @@ def phase_retraining(args, smi: str, work: str, weights: str) -> dict:
     return launches
 
 
+def _padded_batches(packed_dir: str):
+    """Phase 4's packed set as the artifact's stream: (main, bathy, sss,
+    mask) of BATCH rows, the ragged tail padded with its last row and
+    masked, as ``_serve_batches`` pads it; and the valid row counts."""
+    from multimodal_auv_torch.data.packing import PackedBatches, load_packed
+
+    out, valid = [], []
+    for main, bathy, sss, _ in PackedBatches(load_packed(packed_dir), BATCH):
+        arrays = [np.asarray(a) for a in (main, bathy, sss)]
+        n = arrays[0].shape[0]
+        mask = np.zeros((BATCH,), np.float32)
+        mask[:n] = 1.0
+        arrays = [np.concatenate([a, np.repeat(a[-1:], BATCH - n, 0)])
+                  for a in arrays]
+        out.append((*arrays, mask))
+        valid.append(n)
+    return out, valid
+
+
+def phase_serving(args, smi: str, work: str, weights: str) -> int:
+    """Phase 15: the full-width serving artifact exported on the card from
+    phase 13's file, loaded, streamed over phase 4's patches against the
+    in-process step, then served over HTTP. Returns the phase's
+    split_sampler launches."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.engine.predict import make_packed_predict_step
+    from multimodal_auv_torch.models.model_utils import ArchConfig
+    from multimodal_auv_torch.pipelines import export_auv_serving_artifact
+    from multimodal_auv_torch.pipelines.inference import pretrained_bundle
+    from multimodal_auv_torch.serve_client import ServeClient
+    from multimodal_auv_torch.serve_http import make_server
+    from multimodal_auv_torch.serving import fold_seed, load_predict_artifact
+
+    art_dir = os.path.join(work, "artifact")
+    reset_launches()
+    t0 = time.perf_counter()
+    export_auv_serving_artifact(art_dir, batch_size=BATCH,
+                                num_mc_samples=NUM_MC,
+                                num_classes=NUM_CLASSES,
+                                model_weights_path=weights, mc_chunk=2,
+                                seed=args.seed)
+    t_export = time.perf_counter() - t0
+    check_launches("serving export", {})
+    sizes = {f: os.path.getsize(os.path.join(art_dir, f)) / 1e6
+             for f in ("program.pt2", "reduce.pt2", "state.npz")}
+    free_cuda()
+    t0 = time.perf_counter()
+    art = load_predict_artifact(art_dir)
+    t_load = time.perf_counter() - t0
+    if (art.meta["platforms"] != ["cuda"] or art.nchunks != NUM_MC // 2
+            or art.meta["num_classes"] != NUM_CLASSES):
+        raise AssertionError(f"artifact meta {art.meta}")
+    log(f"serving artifact (full width, b{BATCH} x {NUM_MC} MC, chunk 2, "
+        f"bf16): export {t_export:.2f} s (bundle and import of the "
+        f"published file included), load {t_load:.2f} s; program.pt2 "
+        f"{sizes['program.pt2']:.1f} MB, reduce.pt2 "
+        f"{sizes['reduce.pt2']:.2f} MB, state.npz {sizes['state.npz']:.1f} "
+        f"MB [{smi}]")
+
+    batches, valid = _padded_batches(os.path.join(work, "packed"))
+    key = args.seed + 15
+    list(art.predict_batches(batches, key=key))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = list(art.predict_batches(batches, key=key))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launches("serving artifact",
+                              {"split_sampler": len(batches) * NUM_MC // 2})
+    n_launches = launches["split_sampler"]
+
+    bundle = pretrained_bundle(NUM_CLASSES, BNNPriorSpec(), ArchConfig(),
+                               args.seed, weights, False,
+                               torch.device("cuda"))
+    step = make_packed_predict_step(bundle, NUM_MC, mc_chunk=2)
+    errs, bit_equal = [], True
+    for i, ((m, b, ss, mask), n, out) in enumerate(zip(batches, valid, outs)):
+        ref = step(bundle.post, bundle.batch_stats,
+                   tuple(torch.from_numpy(a).cuda() for a in (m, b, ss)),
+                   torch.Generator().manual_seed(fold_seed(key, i)),
+                   torch.from_numpy(mask).cuda())
+        ref = {k: v.cpu().numpy() for k, v in ref.items()}
+        if not np.array_equal(out["predicted"][:n], ref["predicted"][:n]):
+            raise AssertionError(f"artifact batch {i}: predicted "
+                                 f"{out['predicted']} != in-process "
+                                 f"{ref['predicted']}")
+        errs.append(float(np.abs(out["csv_cols"][1:, :n]
+                                 - ref["csv_cols"][1:, :n]).max()))
+        bit_equal &= (np.array_equal(out["csv_cols"], ref["csv_cols"])
+                      and np.array_equal(out["mean_prob"], ref["mean_prob"]))
+    if max(errs) > 1e-3:
+        raise AssertionError(f"artifact vs in-process uncertainties: max abs "
+                             f"err {max(errs)}")
+    del bundle, step
+    free_cuda()
+    log(f"artifact predict_batches: {N_SAMPLES} patches in {len(batches)} "
+        f"batches of {BATCH} x {NUM_MC} MC in {wall:.3f} s = "
+        f"{N_SAMPLES / wall:.3f} patches/s [{smi}]; against the in-process "
+        f"step at the same seeds: predicted equal on every row, "
+        f"uncertainties max abs err {max(errs):.3e}, bit-equal "
+        f"{bit_equal}; launches {launches}")
+
+    server = make_server(art, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    client = ServeClient(url, timeout=300)
+    rng = np.random.default_rng(args.seed + 16)
+    req = lambda n: [rng.integers(0, 256, (n, IMAGE, IMAGE, c),
+                                  dtype=np.uint8) for c in (3, 3, 1)]
+    latency, answers = {}, {}
+
+    def timed(name, arrays, seed=None):
+        t0 = time.perf_counter()
+        answers[name] = client.predict(*arrays, seed=seed)
+        latency[name] = time.perf_counter() - t0
+
+    reset_launches()
+    try:
+        if client.healthz()["platforms"] != ["cuda"]:
+            raise AssertionError("healthz")
+        seeded = req(BATCH)
+        timed("seeded b4", seeded, seed=7)
+        threads = [threading.Thread(target=timed, args=(f"unseeded b{n}",
+                                                        req(n)))
+                   for n in (2, 3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        calls = server.service.metrics.device_calls_total
+        launches = check_launches("HTTP serving",
+                                  {"split_sampler": calls * NUM_MC // 2})
+        n_launches += launches["split_sampler"]
+    finally:
+        t0 = time.perf_counter()
+        stopper = threading.Thread(target=server.shutdown, daemon=True)
+        stopper.start()
+        stopper.join(timeout=60)
+        server.server_close()
+        thread.join(timeout=60)
+        t_stop = time.perf_counter() - t0
+    if thread.is_alive() or stopper.is_alive():
+        raise AssertionError("the HTTP server did not shut down in 60 s")
+    want = {"seeded b4": BATCH, "unseeded b2": 2, "unseeded b3": 3}
+    got = {k: int(v["n"]) for k, v in answers.items()}
+    if got != want or calls != 3:
+        raise AssertionError(f"HTTP answers {got}, device calls {calls}")
+    direct = art.predict(*seeded, key=7)
+    if not (np.array_equal(answers["seeded b4"]["predicted"],
+                           direct["predicted"])
+            # the host rounds mean_prob to 6 decimals
+            and np.abs(answers["seeded b4"]["mean_prob"]
+                       - direct["mean_prob"]).max() <= 1e-6):
+        raise AssertionError("the seeded request differs from predict with "
+                             "its seed")
+    for k, v in answers.items():
+        if not (np.isfinite(v["predictive_uncertainty"]).all()
+                and np.isfinite(v["aleatoric_uncertainty"]).all()):
+            raise AssertionError(f"{k}: non-finite uncertainties")
+    log(f"HTTP serving [{smi}]: {calls} device calls for 3 requests, "
+        f"latency {', '.join(f'{k} {v:.3f} s' for k, v in latency.items())}"
+        f" (two unseeded ones concurrent); seeded answer == predict(key=7); "
+        f"shut down in {t_stop:.2f} s; launches {launches} = 10 x device "
+        f"calls")
+    del art
+    free_cuda()
+    return n_launches
+
+
 def check_probe_kernels(P_full: int) -> None:
     """Every kernel the RNG-split probe launches (its three and the eps
     kernel, its ``bm``) against its plain version, bit for bit: at the
@@ -1667,7 +1860,8 @@ def main() -> int:
         free_cuda()
         retrain = phase_retraining(args, smi, work, weights)
         free_cuda()
-        # each kernel's launches on the paths: add phases 13 and 14
+        split_launches += phase_serving(args, smi, work, weights)
+        # each kernel's launches on the paths: add phases 13, 14 and 15
         retrain["split_sampler"] += split_launches
         for e in kernels_line:
             e["launches"] += retrain[e["name"]]

@@ -1,12 +1,12 @@
 """Console entry points of the port (port of ``multimodal_auv_tpu/cli.py``):
 
-    python -m multimodal_auv_torch.cli {inference,retrain,train-scratch,selfcheck} [args...]
+    python -m multimodal_auv_torch.cli {inference,retrain,train-scratch,export-serving,selfcheck} [args...]
 
 Every flag of the JAX package's CLI, with its defaults; ``--devices`` is
 accepted and informational. One flag is added: ``--device`` (default
 ``cuda``, the card; ``cpu`` runs every kernel's plain version). Flags of
-paths not ported yet, and the ``data-prep`` and ``export-serving``
-subcommands, exit non-zero with a message naming their ROADMAP item.
+paths not ported yet, and the ``data-prep`` subcommand, exit non-zero
+with a message naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -304,6 +304,89 @@ def training_from_scratch_cli(argv=None):
     return 0 if ok else 1
 
 
+def export_serving_cli(argv=None):
+    """Export a serving artifact: the ``torch.export``ed MC predict
+    programs + posterior state (serving.py)."""
+    parser = argparse.ArgumentParser(
+        description="Export a serving artifact (torch.export'ed predict "
+                    "programs + posterior state). A serving host loads it "
+                    "with torch, numpy and the port's ops alone.")
+    parser.add_argument("--output_dir", type=str, required=True,
+                        help="Artifact directory to write.")
+    parser.add_argument("--batch_size", default="4",
+                        help="Static serving batch size (pad + mask ragged "
+                             "tails), or 'poly' for a batch-polymorphic "
+                             "artifact (any size).")
+    parser.add_argument("--num_mc_samples", type=int, default=20)
+    parser.add_argument("--num_classes", type=int, default=7)
+    parser.add_argument("--model_weights", type=str, default=None,
+                        help="Local torch checkpoint (skips the HF download; "
+                             "required where there is no network).")
+    parser.add_argument("--allow_random_init", action="store_true")
+    parser.add_argument("--mc_chunk", type=int, default=None)
+    parser.add_argument("--dvp", action="store_true",
+                        help="single-pass moment-propagation program (not "
+                             "ported yet)")
+    parser.add_argument("--mc_shards", type=int, default=1,
+                        help="MC ensemble over an M-device mesh axis (not "
+                             "ported yet)")
+    parser.add_argument("--data_shards", type=int, default=1,
+                        help="batch sharded over N devices (not ported yet)")
+    parser.add_argument("--dvp_on_excess", choices=("warn", "mc"),
+                        default="mc",
+                        help="DVP guardrail action (with --dvp; not ported "
+                             "yet)")
+    parser.add_argument("--platforms", type=str, default=None,
+                        help="Comma-separated targets; the program is traced "
+                             "on --device and runs there, so only that "
+                             "device's type is accepted (default: it).")
+    parser.add_argument("--fast_sampling", choices=("auto", "on", "off"),
+                        default="auto",
+                        help="bf16-budget fast-math sampling noise, traced "
+                             "into the exported program (auto = on exactly "
+                             "when sampling to bf16; recorded in meta.json).")
+    parser.add_argument("--bn_mode", choices=("train", "eval"),
+                        default="train",
+                        help="BatchNorm statistics traced into the program: "
+                             "'train' (the reference's current-batch "
+                             "statistics) or 'eval' (frozen running "
+                             "statistics; recorded in meta.json).")
+    _add_device_flag(parser)
+    parser.add_argument("--tiny", action="store_true", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.dvp:
+        raise NotPorted("--dvp is not ported yet: ROADMAP.md, Open items, 1 "
+                        "'Modules to port' item 6 (DVP)")
+    if args.mc_shards > 1 or args.data_shards > 1:
+        raise NotPorted("--mc_shards / --data_shards are not ported yet: "
+                        "ROADMAP.md, Open items, 1 'Modules to port' item 8 "
+                        "(parallel)")
+
+    from multimodal_auv_torch.pipelines import export_auv_serving_artifact
+
+    export_auv_serving_artifact(
+        output_dir=args.output_dir,
+        batch_size=("poly" if args.batch_size == "poly"
+                    else int(args.batch_size)),
+        num_mc_samples=args.num_mc_samples,
+        num_classes=args.num_classes,
+        model_weights_path=args.model_weights,
+        allow_random_init=args.allow_random_init,
+        arch=_arch(args),
+        mc_chunk=args.mc_chunk,
+        platforms=(args.platforms.split(",") if args.platforms else None),
+        use_dvp=args.dvp,
+        dvp_on_excess=args.dvp_on_excess,
+        data_shards=args.data_shards,
+        mc_shards=args.mc_shards,
+        fast_sampling={"auto": None, "on": True, "off": False}[
+            args.fast_sampling],
+        bn_mode=args.bn_mode,
+        device=args.device,
+    )
+    return 0
+
+
 def selfcheck_cli(argv=None):
     """The self-check on synthetic data (``selfcheck.py``)."""
     from multimodal_auv_torch.selfcheck import main as selfcheck_main
@@ -326,7 +409,7 @@ _COMMANDS = {
     "inference": inference_cli,
     "retrain": retraining_cli,
     "train-scratch": training_from_scratch_cli,
-    "export-serving": _not_ported_command("export-serving", "7 (serving)"),
+    "export-serving": export_serving_cli,
     "selfcheck": selfcheck_cli,
 }
 

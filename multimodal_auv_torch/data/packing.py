@@ -47,7 +47,9 @@ def inference_fingerprint(dataset) -> str:
 
 def _decode_or_zeros(path: Optional[str], mode: str, size: int) -> np.ndarray:
     """Decode one image, or the uint8 black image the unpacked dataset's
-    fallbacks feed (missing path, unreadable file)."""
+    fallbacks feed (missing path, a file that fails to decode for any
+    reason, as in the JAX package: one bad file is a logged zeros image,
+    never the end of the pack)."""
     from multimodal_auv_torch.data.transforms import load_image_u8
 
     channels = 3 if mode == "RGB" else 1
@@ -55,7 +57,7 @@ def _decode_or_zeros(path: Optional[str], mode: str, size: int) -> np.ndarray:
         return np.zeros((size, size, channels), np.uint8)
     try:
         return load_image_u8(path, mode, (size, size))
-    except (OSError, ValueError) as e:
+    except Exception as e:
         logger.warning("Error decoding %s: %s; zeros dummy used", path, e)
         return np.zeros((size, size, channels), np.uint8)
 

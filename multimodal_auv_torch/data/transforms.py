@@ -5,7 +5,7 @@ Resize((256, 256)) bilinear -> /255 -> optional per-channel normalisation
 with the survey's optical constants. Arrays are NHWC float32. The JAX
 package's native decoder is pinned pixel-exact with PIL by its tests, so PIL
 alone feeds the same pixels. PIL is imported only inside the functions that
-decode, since the machine with the card has no PIL.
+decode, so the rest of the port imports without it.
 """
 from __future__ import annotations
 

@@ -65,7 +65,7 @@ def save_model(post: PackedPosterior, csv_path: str, model_type: str,
                             model_checkpoint_path(csv_path, model_type))
         logger.info("Model checkpoint saved to %s", path)
         return path
-    except (OSError, RuntimeError) as e:
+    except Exception as e:
         logger.error("Failed to save model checkpoint: %s", e, exc_info=True)
         return None
 

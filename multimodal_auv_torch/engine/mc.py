@@ -3,12 +3,15 @@
 ``mc_logits`` samples the packed posterior a chunk at a time, then runs one
 sequential forward per draw. Each chunk takes its own seed pair from a
 ``torch.Generator``, as the JAX package takes one key per chunk; every path
-draws the seeds the same way and in the same order (``_dispatch_chunks``).
+draws the seeds the same way and in the same order (``chunk_seed_words``).
 
 Two ways to consume a chunk:
 
-* split (inference): one launch of the split sampler gives separate
-  weight vectors (``gaussian_shift_scale_split``); not differentiable.
+* split (inference, ``split_mc_logits``): one launch of the split sampler
+  gives separate weight vectors (``gaussian_shift_scale_split``); not
+  differentiable. The seeds go to the device as one (nchunks, 2) tensor,
+  and the sampler reads chunk k's words from row k, so the path is a
+  function of tensors alone: ``torch.export`` traces it (serving.py).
 * stacked (training): the differentiable ``gaussian_shift_scale``. With
   ``remat`` and a chunk of at most 4 draws, sampling and the chunk's
   forwards run under one ``torch.utils.checkpoint``, so the backward
@@ -32,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from multimodal_auv_torch.bayes.packing import PackedPosterior, PackMeta, softplus
 from multimodal_auv_torch.ops.sampling import (
+    chunk_seed_words,
     chunk_seeds,
     gaussian_shift_scale,
     gaussian_shift_scale_split,
@@ -52,6 +56,43 @@ def _resolve_fast(fast_sampling: Optional[bool],
     if fast_sampling is None:
         return sample_dtype == torch.bfloat16
     return bool(fast_sampling)
+
+
+def _sampling_posterior(post: PackedPosterior,
+                        sample_dtype: Optional[torch.dtype],
+                        cast_posterior: bool = True):
+    """(mu, sigma) as the sampler takes them. sigma = softplus(rho) is
+    loop-invariant across draws: computed once (f32), then cast with mu
+    for the sampling kernel."""
+    mu = post.mu
+    sigma = softplus(post.rho.to(torch.float32))
+    if sample_dtype is not None and cast_posterior:
+        return mu.to(sample_dtype), sigma.to(sample_dtype)
+    return mu, sigma.to(mu.dtype)
+
+
+def split_mc_logits(module, meta: PackMeta, post: PackedPosterior,
+                    batch_stats, inputs: Sequence[torch.Tensor],
+                    seeds: torch.Tensor, *, mc_chunk: int, train: bool = True,
+                    sample_dtype: Optional[torch.dtype] = None,
+                    batch_mask=None,
+                    fast_sampling: Optional[bool] = None) -> torch.Tensor:
+    """The split path of ``mc_logits``: (nchunks * mc_chunk, batch,
+    num_classes) logits, chunk k's draws from the seed words in row k of
+    ``seeds``, an (nchunks, 2) int64 tensor on the posterior's device. A
+    function of tensors alone (no generator, no host value), so
+    ``torch.export`` traces it; not differentiable."""
+    mu, sigma = _sampling_posterior(post, sample_dtype)
+    fast = _resolve_fast(fast_sampling, sample_dtype)
+    logits = []
+    for k in range(seeds.shape[0]):
+        for w in gaussian_shift_scale_split(mu, sigma, seeds[k], mc_chunk,
+                                            out_dtype=sample_dtype,
+                                            fast_math=fast):
+            logits.append(module(meta.unpack(w, post.det), batch_stats,
+                                 *inputs, train=train,
+                                 batch_mask=batch_mask))
+    return torch.stack(logits)
 
 
 def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
@@ -88,18 +129,15 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
     if return_batch_stats and not train:
         raise ValueError("return_batch_stats requires train=True")
     nchunks = num_mc // mc_chunk
+    if split_sampling and not return_batch_stats:
+        seeds = chunk_seed_words(generator, nchunks)
+        return split_mc_logits(
+            module, meta, post, batch_stats, inputs,
+            seeds.to(post.mu.device, non_blocking=True), mc_chunk=mc_chunk,
+            train=train, sample_dtype=sample_dtype, batch_mask=batch_mask,
+            fast_sampling=fast_sampling)
 
-    # sigma = softplus(rho) is loop-invariant across draws: computed once
-    # (f32), then cast with mu for the sampling kernel.
-    mu = post.mu
-    sigma = softplus(post.rho.to(torch.float32))
-    if sample_dtype is not None and cast_posterior:
-        mu = mu.to(sample_dtype)
-        sigma = sigma.to(sample_dtype)
-    else:
-        sigma = sigma.to(mu.dtype)
-
-    split_sampling = split_sampling and not return_batch_stats
+    mu, sigma = _sampling_posterior(post, sample_dtype, cast_posterior)
     # seeds come from the generator here, outside any checkpoint: drawn
     # inside, the re-forward would sample other weights
     seeds = chunk_seeds(generator, nchunks)
@@ -111,16 +149,6 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
                           batch_mask=batch_mask, mutable=True)
         return module(params, batch_stats, *inputs, train=train,
                       batch_mask=batch_mask), bs
-
-    if split_sampling:
-        fast = _resolve_fast(fast_sampling, sample_dtype)
-        logits = []
-        for seed in seeds:
-            for w in gaussian_shift_scale_split(mu, sigma, seed, mc_chunk,
-                                                out_dtype=sample_dtype,
-                                                fast_math=fast):
-                logits.append(fwd(w, None)[0])
-        return torch.stack(logits)
 
     recording = torch.is_grad_enabled() and (mu.requires_grad
                                              or sigma.requires_grad)

@@ -16,9 +16,10 @@ import torch
 
 from multimodal_auv_torch.device import DeviceLike, resolve_device
 from multimodal_auv_torch.engine import uncertainty as U
-from multimodal_auv_torch.engine.mc import mc_logits
+from multimodal_auv_torch.engine.mc import mc_logits, split_mc_logits
 from multimodal_auv_torch.models.model_utils import ModelBundle
 from multimodal_auv_torch.ops.preprocess import normalize_multimodal
+from multimodal_auv_torch.ops.sampling import chunk_seed_words
 
 logger = logging.getLogger(__name__)
 
@@ -41,6 +42,14 @@ def _mc_outputs(logits: torch.Tensor):
         "csv_cols": torch.stack([pred.to(torch.float32), pu.to(torch.float32),
                                  au.to(torch.float32)]),
     }
+
+
+def fused_outputs(logits: torch.Tensor) -> torch.Tensor:
+    """The serving ABI's one (3 + C, batch) f32 tensor from (num_mc, batch,
+    C) logits: rows predicted, predictive and aleatoric uncertainty, then
+    mean_prob transposed (one device-to-host copy per batch)."""
+    out = _mc_outputs(logits)
+    return torch.cat([out["csv_cols"], out["mean_prob"].to(torch.float32).T])
 
 
 def _check_bn_mode(bn_mode: str) -> None:
@@ -83,21 +92,53 @@ def make_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
     return step
 
 
+def make_packed_logits_fn(bundle: ModelBundle, *, mc_chunk: int,
+                          sample_dtype: Optional[torch.dtype] = torch.bfloat16,
+                          fast_sampling: Optional[bool] = None,
+                          bn_mode: str = "train") -> Callable:
+    """(post, batch_stats, u8_inputs, seeds, mask) -> (nchunks * mc_chunk,
+    batch, C) logits over uint8 NHWC batches, chunk k's draws from row k
+    of ``seeds`` ((nchunks, 2) int64 on the device): the packed predict
+    step as a function of tensors, which ``serving.py`` exports. The
+    /255 + optical normalisation runs on the device (ops/preprocess.py)."""
+    _check_bn_mode(bn_mode)
+    module, meta = bundle.module, bundle.meta
+
+    def logits_fn(post, batch_stats, u8_inputs, seeds, mask=None):
+        return split_mc_logits(module, meta, post, batch_stats,
+                               normalize_multimodal(*u8_inputs), seeds,
+                               mc_chunk=mc_chunk, train=(bn_mode == "train"),
+                               sample_dtype=sample_dtype, batch_mask=mask,
+                               fast_sampling=fast_sampling)
+
+    return logits_fn
+
+
 def make_packed_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
                              mc_chunk: Optional[int] = None,
                              sample_dtype: Optional[torch.dtype] = torch.bfloat16,
                              fast_sampling: Optional[bool] = None,
                              bn_mode: str = "train") -> Callable:
     """Predict step over uint8 NHWC batches: the /255 + optical
-    normalisation runs on the device (ops/preprocess.py)."""
-    inner = make_predict_step(bundle, num_mc_samples, mc_chunk=mc_chunk,
-                              sample_dtype=sample_dtype,
-                              fast_sampling=fast_sampling, bn_mode=bn_mode)
+    normalisation runs on the device (ops/preprocess.py). The chunks' seeds
+    are drawn from the generator on the host and go to the device as one
+    tensor (``make_packed_logits_fn``), with no wait on the device."""
+    mc_chunk = _default_chunk(num_mc_samples, mc_chunk)
+    if num_mc_samples % mc_chunk != 0:
+        raise ValueError(f"num_mc={num_mc_samples} must be divisible by "
+                         f"mc_chunk={mc_chunk}")
+    logits_fn = make_packed_logits_fn(bundle, mc_chunk=mc_chunk,
+                                      sample_dtype=sample_dtype,
+                                      fast_sampling=fast_sampling,
+                                      bn_mode=bn_mode)
+    nchunks = num_mc_samples // mc_chunk
 
     @torch.inference_mode()
     def step(post, batch_stats, u8_inputs, generator, mask=None):
-        return inner(post, batch_stats, normalize_multimodal(*u8_inputs),
-                     generator, mask)
+        seeds = chunk_seed_words(generator, nchunks).to(post.mu.device,
+                                                        non_blocking=True)
+        return _mc_outputs(logits_fn(post, batch_stats, u8_inputs, seeds,
+                                     mask))
 
     return step
 

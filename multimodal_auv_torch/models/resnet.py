@@ -36,17 +36,25 @@ EXPANSION = 4
 MOMENTUM = 0.9
 
 
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.to(dtype)``, written only where the dtype changes: the same
+    tensor otherwise, as ``.to`` returns, but no cast node in an exported
+    graph (serving.py), where no-op casts were ~30% of the nodes."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def conv(x: torch.Tensor, kernel: torch.Tensor, stride: int,
          dtype: torch.dtype) -> torch.Tensor:
     """Bias-free conv with flax's explicit (k//2, k//2) padding."""
     k = kernel.shape[-1]
-    return F.conv2d(x.to(dtype), kernel.to(dtype), stride=stride,
+    return F.conv2d(cast(x, dtype), cast(kernel, dtype), stride=stride,
                     padding=k // 2)
 
 
 def dense(x: torch.Tensor, p: Tree, dtype: torch.dtype) -> torch.Tensor:
     """flax Dense: x @ kernel (in, out) + bias, in the activation dtype."""
-    return x.to(dtype) @ p["kernel"].to(dtype) + p["bias"].to(dtype)
+    return (cast(x, dtype) @ cast(p["kernel"], dtype)
+            + cast(p["bias"], dtype))
 
 
 def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
@@ -55,7 +63,7 @@ def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
                ) -> Tuple[torch.Tensor, Optional[Tree]]:
     """flax BatchNorm over NCHW ``x``; ``batch_mask`` is a bool (B,).
     Returns (y, new running statistics if ``mutable`` else None)."""
-    x32 = x.to(torch.float32)
+    x32 = cast(x, torch.float32)
     if train:
         if batch_mask is None:
             mean = x32.mean(dim=(0, 2, 3))
@@ -79,7 +87,7 @@ def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
     y = x32 - mean.view(1, -1, 1, 1)
     mul = torch.rsqrt(var + eps) * p["scale"]
     y = y * mul.view(1, -1, 1, 1) + p["bias"].view(1, -1, 1, 1)
-    return y.to(dtype), new
+    return cast(y, dtype), new
 
 
 def _conv_init(gen, k, cin, cout):

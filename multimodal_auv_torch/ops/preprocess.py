@@ -13,19 +13,30 @@ import torch
 from multimodal_auv_torch.config import OPTICAL_MEAN, OPTICAL_STD
 
 
+def _channel_constants(values: Sequence[float], dev) -> torch.Tensor:
+    """(C,) f32 on ``dev``, filled there: no copy from the host, so no wait
+    on the device's queue (and no host tensor traced into an exported
+    program). Each value is the f32 rounding of the Python float, as
+    ``torch.tensor`` gives."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                   device=dev) for v in values])
+
+
 def normalize_images(u8_batch: torch.Tensor,
                      mean: Optional[Sequence[float]] = None,
                      std: Optional[Sequence[float]] = None,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., C) uint8 -> normalised float. mean/std default to identity
-    (plain /255, the reference's ToTensor for bathy/SSS)."""
-    c = u8_batch.shape[-1]
-    dev = u8_batch.device
-    mean = (torch.zeros(c) if mean is None
-            else torch.tensor(mean, dtype=torch.float32)).to(dev)
-    std = (torch.ones(c) if std is None
-           else torch.tensor(std, dtype=torch.float32)).to(dev)
+    (plain /255, the reference's ToTensor for bathy/SSS; (x - 0) / 1 is x
+    exactly, so the identity is not computed)."""
     x = u8_batch.to(torch.float32) * (1.0 / 255.0)
+    if mean is None and std is None:
+        return x.to(dtype)
+    c, dev = u8_batch.shape[-1], u8_batch.device
+    mean = (torch.zeros(c, device=dev) if mean is None
+            else _channel_constants(mean, dev))
+    std = (torch.ones(c, device=dev) if std is None
+           else _channel_constants(std, dev))
     return ((x - mean) / std).to(dtype)
 
 

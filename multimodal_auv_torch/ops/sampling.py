@@ -37,7 +37,12 @@ regenerates exactly the forward's eps):
 
 A seed is a pair of 32-bit words, the counterpart of the JAX package's
 ``_seed_from_key``; callers draw it from a ``torch.Generator``
-(``chunk_seeds``).
+(``chunk_seed_words``, ``chunk_seeds``). The split sampler takes its seed
+as a (2,) int64 tensor on the device of mu and reads the words from device
+memory, as the TPU kernel reads its ``seed_ref`` operand: it is the custom
+op ``torch.ops.auv.split_sampler``, which ``torch.export`` traces (a fake
+implementation gives the output's shape) and which dispatches by the
+tensors' device, to the kernel on CUDA and to ``split_plain`` on the CPU.
 """
 from __future__ import annotations
 
@@ -71,13 +76,28 @@ _PI = 3.141592653589793
 NOISE_MODES = ("f32", "fast", "lite")
 
 
+def chunk_seed_words(generator: torch.Generator, nchunks: int
+                     ) -> torch.Tensor:
+    """One (seed0, seed1) pair of 32-bit words per chunk from
+    ``generator``, as an (nchunks, 2) int64 tensor on the CPU: every
+    sampling path draws its seeds here, on the host, so that no step waits
+    on the device for a seed."""
+    return torch.randint(0, 1 << 32, (nchunks, 2), generator=generator,
+                         dtype=torch.int64)
+
+
 def chunk_seeds(generator: torch.Generator, nchunks: int
                 ) -> List[Tuple[int, int]]:
-    """One (seed0, seed1) pair of 32-bit words per chunk, from
-    ``generator``: every sampling path draws its seeds here."""
-    words = torch.randint(0, 1 << 32, (nchunks, 2), generator=generator,
-                          dtype=torch.int64)
-    return [(int(a), int(b)) for a, b in words.tolist()]
+    """``chunk_seed_words`` as a list of (seed0, seed1) int pairs."""
+    return [(int(a), int(b))
+            for a, b in chunk_seed_words(generator, nchunks).tolist()]
+
+
+def seed_tensor(seed: Tuple[int, int], device) -> torch.Tensor:
+    """A seed pair as the (2,) int64 tensor the split sampler reads, on
+    ``device``: its 32-bit words, masked as the kernels mask them."""
+    return torch.tensor([int(seed[0]) & _M32, int(seed[1]) & _M32],
+                        dtype=torch.int64, device=device)
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -267,19 +287,35 @@ def _fn(name: str, argtypes):
     return fn
 
 
+def _check_vector_loads(mu, scale) -> None:
+    if not (mu.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("mu and sigma must be contiguous")
+    if mu.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("mu and sigma must start on a 16-byte boundary "
+                         "(the kernels load them as vectors)")
+
+
 def _launch(name: str, mu, scale, seed, num_draws, out_dtype,
             extra=()) -> torch.Tensor:
     """One launch of sampler ``name`` into a (num_draws, P) buffer;
-    ``scale`` is sigma, or rho for the reparam sampler; ``extra``: trailing
-    int arguments."""
+    ``scale`` is sigma, or rho for the reparam sampler; ``seed``: the
+    (seed0, seed1) words by value, or for the split sampler a (2,) int64
+    tensor on the device that the kernel reads; ``extra``: trailing int
+    arguments."""
+    _check_vector_loads(mu, scale)
     P = mu.shape[0]
     out = torch.empty((num_draws, P), dtype=out_dtype, device=mu.device)
+    if isinstance(seed, torch.Tensor):
+        seed_args = [seed.data_ptr()]
+        seed_types = [ctypes.c_void_p]
+    else:
+        seed_args = [int(seed[0]) & _M32, int(seed[1]) & _M32]
+        seed_types = [ctypes.c_uint, ctypes.c_uint]
     args = [mu.data_ptr(), scale.data_ptr(), out.data_ptr(), P, num_draws,
-            int(seed[0]) & _M32, int(seed[1]) & _M32,
-            int(mu.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            *extra]
+            *seed_args, int(mu.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), *extra]
     types = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+             ctypes.c_longlong, ctypes.c_int, *seed_types,
              ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * len(extra)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
     fn = _fn(f"{name}_launch", types + [ctypes.c_void_p])
@@ -288,20 +324,40 @@ def _launch(name: str, mu, scale, seed, num_draws, out_dtype,
     return out
 
 
-def _launch_sampler(mu, sigma, seed, num_draws, out_dtype, fast_math,
-                    stacked: bool) -> torch.Tensor:
-    """One launch of the split kernel (``stacked=False``) or the stacked
-    one."""
-    if stacked:
-        return _launch("stacked_sampler", mu, sigma, seed, num_draws,
-                       out_dtype)
-    return _launch("split_sampler", mu, sigma, seed, num_draws, out_dtype,
+def _check_seeds(seeds: torch.Tensor, device) -> None:
+    if (seeds.dtype != torch.int64 or tuple(seeds.shape) != (2,)
+            or seeds.device != device):
+        raise ValueError(f"seeds: a (2,) int64 tensor on {device}, got "
+                         f"{tuple(seeds.shape)} {seeds.dtype} on "
+                         f"{seeds.device}")
+
+
+@torch.library.custom_op("auv::split_sampler", mutates_args=(),
+                         device_types="cpu")
+def split_sampler(mu: torch.Tensor, sigma: torch.Tensor, seeds: torch.Tensor,
+                  num_draws: int, out_dtype: torch.dtype,
+                  fast_math: bool) -> torch.Tensor:
+    """Kernel #1 as an op: (num_draws, P) draws mu + sigma * eps with the
+    seed words read from ``seeds``. This body is the CPU implementation,
+    the plain version."""
+    return stacked_plain(mu, sigma, tuple(seeds.tolist()), num_draws,
+                         out_dtype, fast_math)
+
+
+@split_sampler.register_kernel("cuda")
+def _split_sampler_cuda(mu, sigma, seeds, num_draws, out_dtype, fast_math):
+    """The CUDA implementation: one launch of the kernel, which reads the
+    seed words from device memory."""
+    _check_seeds(seeds, mu.device)
+    if not seeds.is_contiguous():
+        raise ValueError("seeds must be contiguous")
+    return _launch("split_sampler", mu, sigma, seeds, num_draws, out_dtype,
                    (int(fast_math),))
 
 
-def _launch_reparam(mu, rho, seed, num_draws, out_dtype) -> torch.Tensor:
-    """One launch of the reparam sampler (kernel #4)."""
-    return _launch("reparam_sampler", mu, rho, seed, num_draws, out_dtype)
+@split_sampler.register_fake
+def _split_sampler_fake(mu, sigma, seeds, num_draws, out_dtype, fast_math):
+    return mu.new_empty((num_draws, mu.shape[0]), dtype=out_dtype)
 
 
 def launch_noise(name: str, P: int, seed, num_draws: int, device,
@@ -334,34 +390,33 @@ def _check_args(mu, sigma, num_draws, out_dtype):
         raise ValueError(f"num_draws={num_draws} must be >= 1")
     if mu.device != sigma.device:
         raise ValueError(f"mu on {mu.device}, sigma on {sigma.device}")
-    if mu.is_cuda and not (mu.is_contiguous() and sigma.is_contiguous()):
-        raise ValueError("mu and sigma must be contiguous")
-    if mu.is_cuda and (mu.data_ptr() % 16 or sigma.data_ptr() % 16):
-        raise ValueError("mu and sigma must start on a 16-byte boundary "
-                         "(the kernels load them as vectors)")
     if not mu.is_cuda and mu.device.type != "cpu":
         raise ValueError(f"no sampler for device {mu.device}")
 
 
 def gaussian_shift_scale_split(mu: torch.Tensor, sigma: torch.Tensor,
-                               seed: Tuple[int, int], num_draws: int, *,
+                               seed, num_draws: int, *,
                                out_dtype: torch.dtype = None,
                                fast_math: bool = False) -> List[torch.Tensor]:
     """``num_draws`` posterior draws mu + sigma * eps as a list of flat (P,)
     tensors (views of one (num_draws, P) buffer). Not differentiable.
 
-    ``fast_math``: the bf16-budget polynomials of ``_normal_block_fast``;
-    bf16 outputs only. On a CUDA tensor this launches the kernel or raises;
-    on a CPU tensor it runs the plain version."""
+    ``seed``: a (2,) int64 tensor on mu's device (the main path's: one row
+    of the step's seed tensor, no host round trip), or a (seed0, seed1)
+    pair, copied to the device first. ``fast_math``: the bf16-budget
+    polynomials of ``_normal_block_fast``; bf16 outputs only. One call of
+    the op ``auv::split_sampler``: on a CUDA tensor it launches the kernel
+    or raises; on a CPU tensor it runs the plain version."""
     out_dtype = out_dtype or mu.dtype
     if fast_math and out_dtype != torch.bfloat16:
         raise ValueError("fast_math sampling is bf16-output-only (its error "
                          f"budget is the bf16 quantum); got {out_dtype}")
     _check_args(mu, sigma, num_draws, out_dtype)
-    if mu.is_cuda:
-        return list(_launch_sampler(mu, sigma, seed, num_draws, out_dtype,
-                                    fast_math, stacked=False).unbind(0))
-    return split_plain(mu, sigma, seed, num_draws, out_dtype, fast_math)
+    seeds = (seed if isinstance(seed, torch.Tensor)
+             else seed_tensor(seed, mu.device))
+    _check_seeds(seeds, mu.device)
+    return list(torch.ops.auv.split_sampler(mu, sigma, seeds, num_draws,
+                                            out_dtype, fast_math).unbind(0))
 
 
 def check_noise_args(P: int, num_draws: int, device, out_dtype
@@ -404,8 +459,8 @@ class _GaussianShiftScale(torch.autograd.Function):
         ctx.dtypes = (mu.dtype, sigma.dtype)
         ctx.P, ctx.device = mu.shape[0], mu.device
         if mu.is_cuda:
-            return _launch_sampler(mu, sigma, (seed0, seed1), num_draws,
-                                   out_dtype, False, stacked=True)
+            return _launch("stacked_sampler", mu, sigma, (seed0, seed1),
+                           num_draws, out_dtype)
         return stacked_plain(mu, sigma, (seed0, seed1), num_draws, out_dtype)
 
     @staticmethod
@@ -463,7 +518,7 @@ def gaussian_reparam(mu: torch.Tensor, rho: torch.Tensor,
             "differentiate through gaussian_shift_scale")
     _check_args(mu, rho, n, out_dtype)
     if mu.is_cuda:
-        out = _launch_reparam(mu, rho, seed, n, out_dtype)
+        out = _launch("reparam_sampler", mu, rho, seed, n, out_dtype)
     else:
         out = reparam_plain(mu, rho, seed, n, out_dtype)
     return out[0] if num_draws is None else out

@@ -2,6 +2,7 @@
 ``multimodal_auv_tpu/pipelines/__init__.py``, for the pipelines ported so
 far)."""
 from multimodal_auv_torch.pipelines.inference import (  # noqa: F401
+    export_auv_serving_artifact,
     run_auv_inference,
 )
 from multimodal_auv_torch.pipelines.training import (  # noqa: F401

@@ -1,10 +1,10 @@
-"""run_auv_inference — the main path (port of
-``multimodal_auv_tpu/pipelines/inference.py``).
+"""run_auv_inference — the main path — and export_auv_serving_artifact
+(port of ``multimodal_auv_tpu/pipelines/inference.py``).
 
 Resolve the pretrained weights (a local bayesian-torch checkpoint, or the
 HF Hub) into the multimodal Bayesian bundle -> an inference loader (packed
 uint8 batches, or decoded folders) -> MC predict -> CSV in the reference
-schema.
+schema; or the same bundle -> an exported serving artifact (serving.py).
 """
 from __future__ import annotations
 
@@ -158,3 +158,56 @@ def pretrained_bundle(num_classes: int, spec: BNNPriorSpec, arch: ArchConfig,
     else:
         logger.warning("Proceeding with randomly initialised model.")
     return bundle
+
+
+def export_auv_serving_artifact(
+    output_dir: str,
+    batch_size=4,  # int, or "poly" for a batch-polymorphic artifact
+    num_mc_samples: int = 20,
+    num_classes: int = 7,
+    *,
+    model_weights_path: Optional[str] = None,
+    allow_random_init: bool = False,
+    arch: Optional[ArchConfig] = None,
+    mc_chunk: Optional[int] = None,
+    seed: int = 0,
+    platforms=None,
+    use_dvp: bool = False,
+    dvp_on_excess: str = "mc",
+    data_shards: int = 1,
+    mc_shards: int = 1,
+    fast_sampling: Optional[bool] = None,
+    bn_mode: str = "train",
+    device: DeviceLike = None,
+):
+    """Export a serving artifact (serving.py): the packed MC predict
+    programs + posterior state, loadable on a serving host with torch,
+    numpy and the port's ops alone (no model code, no Hub access, no
+    tracing). The bundle is built and the programs traced on ``device``
+    (None = the card), where the artifact then serves.
+
+    ``use_dvp`` and ``data_shards`` / ``mc_shards`` > 1 are not ported
+    yet and raise, naming their ROADMAP items, before anything is built."""
+    if use_dvp:
+        raise NotImplementedError(
+            "use_dvp is not ported yet: ROADMAP.md, Open items, "
+            "1 'Modules to port' item 6 (DVP)")
+    if data_shards > 1 or mc_shards > 1:
+        raise NotImplementedError(
+            "data_shards / mc_shards > 1 are not ported yet: ROADMAP.md, "
+            "Open items, 1 'Modules to port' item 8 (parallel)")
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(levelname)s - %(message)s")
+    dev = resolve_device(device)
+    arch = arch or ArchConfig()
+    bundle = pretrained_bundle(num_classes, BNNPriorSpec(), arch, seed,
+                               model_weights_path, allow_random_init, dev)
+    from multimodal_auv_torch.serving import export_predict_artifact
+
+    return export_predict_artifact(
+        bundle, output_dir, batch_size=batch_size,
+        num_mc_samples=num_mc_samples, image_size=arch.image_size,
+        mc_chunk=mc_chunk, platforms=platforms, seed=seed,
+        mode="dvp" if use_dvp else "mc", dvp_on_excess=dvp_on_excess,
+        data_shards=data_shards, mc_shards=mc_shards,
+        fast_sampling=fast_sampling, bn_mode=bn_mode)

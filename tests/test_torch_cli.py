@@ -18,10 +18,12 @@ from multimodal_auv_tpu import cli as jcli
 
 PIPELINES = {"inference": "run_auv_inference",
              "retrain": "run_auv_retraining",
-             "train-scratch": "run_AUV_training_from_scratch"}
+             "train-scratch": "run_AUV_training_from_scratch",
+             "export-serving": "export_auv_serving_artifact"}
 REQUIRED = {"inference": ["--data_dir", "/d", "--output_csv", "/o.csv"],
             "retrain": ["--data_dir", "/d"],
-            "train-scratch": ["--root_dir", "/d"]}
+            "train-scratch": ["--root_dir", "/d"],
+            "export-serving": ["--output_dir", "/a"]}
 TRAINING = ["--bathy_patch_base", "10", "--sss_patch_base", "20",
             "--mc_chunk", "2", "--bf16_weights", "--strict_errors",
             "--resume_checkpoint", "/ck", "--packed_loader", "--remat", "off",
@@ -41,6 +43,12 @@ SET_ALL = {
                       "0.01", "--num_classes", "4", "--devices", "gpu",
                       "--batch_size_unimodal", "2", "--pretrained_trunks",
                       "tv.pth"] + TRAINING,
+    "export-serving": ["--batch_size", "poly", "--num_mc_samples", "6",
+                       "--num_classes", "5", "--model_weights", "w.pt",
+                       "--allow_random_init", "--mc_chunk", "3",
+                       "--dvp_on_excess", "warn", "--platforms", "cpu",
+                       "--fast_sampling", "off", "--bn_mode", "eval",
+                       "--tiny"],
 }
 
 
@@ -97,7 +105,9 @@ NOT_PORTED = [
     ("train-scratch", ["--fsdp"], "item 8"),
     ("train-scratch", ["--async_checkpoints"], "item 5"),
     ("train-scratch", ["--remat", "auto"], "item 5"),
-    ("export-serving", [], "item 7"),
+    ("export-serving", ["--dvp"], "item 6"),
+    ("export-serving", ["--mc_shards", "2"], "item 8"),
+    ("export-serving", ["--data_shards", "2"], "item 8"),
     ("data-prep", [], "item 9"),
 ]
 
@@ -135,6 +145,9 @@ def test_usage_and_default_device_needs_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([command] + REQUIRED[command][:1] + [str(tmp_path),
                                                           "--tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["export-serving", "--output_dir", str(tmp_path / "a"),
+                  "--allow_random_init", "--tiny"])
 
 
 def test_selfcheck_is_offline_and_reports_failures(monkeypatch):

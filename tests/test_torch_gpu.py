@@ -266,3 +266,106 @@ def test_import_on_card_equals_cpu(tmp_path):
         assert la.keys() == lb.keys()
         assert all(v.device.type == "cuda" and torch.equal(v.cpu(), lb[k])
                    for k, v in la.items())
+
+
+@pytest.mark.parametrize("fast_math", [False, True], ids=["f32", "bf16fast"])
+@pytest.mark.parametrize("P", [RAGGED_P] + QUARTER_PS,
+                         ids=["ragged", "q0", "q1", "q2", "q3"])
+def test_split_op_reads_device_seeds_bit_equal_plain(P, fast_math):
+    """``torch.ops.auv.split_sampler`` on CUDA tensors, its seed words in a
+    device tensor (one row of an (nchunks, 2) int64 tensor, as the main
+    path passes them), equals ``split_plain`` bit for bit; one launch."""
+    _cuda_or_skip()
+    dt = torch.bfloat16 if fast_math else torch.float32
+    g = torch.Generator().manual_seed(P)
+    mu = torch.randn(P, generator=g).to(dt).cuda()
+    sg = (torch.rand(P, generator=g) + 0.01).to(dt).cuda()
+    seeds = torch.tensor([[P, 3], [(1 << 32) + 7, 0xFFFFFFFF]],
+                         dtype=torch.int64, device="cuda")
+    for k in range(2):
+        before = kernels.LAUNCHES["split_sampler"]
+        got = torch.ops.auv.split_sampler(mu, sg, seeds[k], 2, dt, fast_math)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["split_sampler"] == before + 1
+        want = S.split_plain(mu, sg, tuple(seeds[k].tolist()), 2, dt,
+                             fast_math)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_split_op_traces_with_torch_export_on_card():
+    """A module calling the op exports on the card (the fake implementation
+    gives the output's shape), and the exported program's output equals
+    the eager op's bit for bit."""
+    _cuda_or_skip()
+
+    class Draws(torch.nn.Module):
+        def forward(self, mu, sigma, seeds):
+            return torch.stack([w.float().sum() for w in
+                                S.gaussian_shift_scale_split(
+                                    mu, sigma, seeds[0], 2,
+                                    out_dtype=torch.bfloat16,
+                                    fast_math=True)])
+
+    mu = torch.randn(RAGGED_P, device="cuda").bfloat16()
+    sg = torch.rand(RAGGED_P, device="cuda").bfloat16()
+    seeds = torch.tensor([[5, 9]], dtype=torch.int64, device="cuda")
+    ep = torch.export.export(Draws(), (mu, sg, seeds), strict=False)
+    assert any("auv.split_sampler" in str(n.target) for n in ep.graph.nodes)
+    before = kernels.LAUNCHES["split_sampler"]
+    got = ep.module()(mu, sg, seeds)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["split_sampler"] == before + 1
+    assert torch.equal(got, Draws()(mu, sg, seeds))
+
+
+def test_split_launch_failure_raises_without_fallback():
+    """A launch the kernel refuses (zero draws) raises and counts nothing;
+    seeds that are not a (2,) int64 tensor on mu's device raise before any
+    launch; nothing falls back to the plain version."""
+    _cuda_or_skip()
+    mu = torch.zeros(RAGGED_P, device="cuda")
+    seeds = torch.tensor([1, 2], dtype=torch.int64, device="cuda")
+    before = kernels.LAUNCHES["split_sampler"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        S._launch("split_sampler", mu, mu, seeds, 0, torch.float32, (0,))
+    for bad in (seeds.cpu(), seeds.int(), seeds[:1]):
+        with pytest.raises(ValueError, match="seeds"):
+            torch.ops.auv.split_sampler(mu, mu, bad, 1, torch.float32, False)
+    assert kernels.LAUNCHES["split_sampler"] == before
+
+
+def test_artifact_on_card_equals_in_process_step(tmp_path):
+    """A micro() artifact exported and loaded on the card equals the
+    in-process packed predict step on the card at the same seeds, bit for
+    bit; one split launch per chunk; loading it for the CPU raises."""
+    _cuda_or_skip()
+    from multimodal_auv_torch.serving import (
+        export_predict_artifact,
+        load_predict_artifact,
+    )
+
+    bundle = make_multimodal_bundle(3, BNNPriorSpec(),
+                                    torch.Generator().manual_seed(0),
+                                    ArchConfig.micro(), device="cuda")
+    d = str(tmp_path / "art")
+    export_predict_artifact(bundle, d, batch_size=4, num_mc_samples=4,
+                            image_size=32)
+    art = load_predict_artifact(d)
+    assert art.meta["platforms"] == ["cuda"]
+    rng = np.random.default_rng(0)
+    u8 = [rng.integers(0, 256, (4, 32, 32, c), dtype=np.uint8)
+          for c in (3, 3, 1)]
+    before = kernels.LAUNCHES["split_sampler"]
+    out = art.predict(*u8, key=7)
+    assert kernels.LAUNCHES["split_sampler"] == before + 2
+    step = make_packed_predict_step(bundle, 4)
+    ref = step(bundle.post, bundle.batch_stats,
+               tuple(torch.from_numpy(a).cuda() for a in u8),
+               torch.Generator().manual_seed(7),
+               torch.ones(4, device="cuda"))
+    np.testing.assert_array_equal(out["csv_cols"],
+                                  ref["csv_cols"].cpu().numpy())
+    np.testing.assert_array_equal(out["mean_prob"],
+                                  ref["mean_prob"].cpu().numpy())
+    with pytest.raises(ValueError, match="exported for"):
+        load_predict_artifact(d, device="cpu")

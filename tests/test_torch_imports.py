@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                  "pipelines.unimodal", "models.model_utils",
                  "interop.from_jax", "interop.torch_import",
                  "interop.torch_export", "interop.hf_manifest", "interop.hub",
-                 "cli", "selfcheck"):
+                 "cli", "selfcheck", "serving", "serve_http",
+                 "serve_client"):
         assert f"multimodal_auv_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 
@@ -81,7 +82,11 @@ def test_entry_points_need_the_card_by_default():
         make_multimodal_bundle,
         make_unimodal_bundle,
     )
-    from multimodal_auv_torch.pipelines.inference import run_auv_inference
+    from multimodal_auv_torch import serve_http
+    from multimodal_auv_torch.pipelines.inference import (
+        export_auv_serving_artifact,
+        run_auv_inference,
+    )
     from multimodal_auv_torch.pipelines.training import (
         run_AUV_training_from_scratch,
         run_auv_retraining,
@@ -104,3 +109,9 @@ def test_entry_points_need_the_card_by_default():
         make_unimodal_bundle(1, 7, BNNPriorSpec(), None, ArchConfig.micro())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_unimodal_training(REPO, "sss", arch=ArchConfig.micro())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_auv_serving_artifact(os.path.join(REPO, "no_artifact"),
+                                    allow_random_init=True,
+                                    arch=ArchConfig.micro())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_http.main(["--artifact", os.path.join(REPO, "no_artifact")])
