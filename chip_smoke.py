@@ -129,14 +129,35 @@ result line):
     and a shutdown inside a time limit. Prints export and load seconds, the
     programs' sizes, patches/s and request latencies.
 
-The kernels line's launches of #1-#3 add phases 13, 14 and 15 to their
-paths' counts. Beside each sampler's bound the script prints the noise contract's Philox
-calls for that launch and their estimated INT32 time, labelled as an
-estimate; it is not part of ``bound_ms``.
+16. DVP (single-pass deterministic variance propagation, engine/moment.py)
+    at full width: the DVP step over phase 4's packed set through
+    ``multimodal_predict_and_save_packed`` (b4 x 20 feature samples, a
+    warm-up run, a counted run, then DVP_REPEATS timed runs): its CSV,
+    exactly 3 split_sampler launches (one per batch) in the counted run,
+    patches/s over all the timed runs beside phase 4's MC patches/s, and
+    peak memory; kernel #1 at the DVP draw shape (the head's 2,945,675
+    elements and the batch's 3 x 4 x 2048 features, padded to 128, x 20
+    draws, f32 out) == ``split_plain`` bit for bit, its time beside its
+    bound; the micro() DVP logits on the card against the CPU's at the
+    same seed words (1e-4 absolute); DVP against 20-draw MC on one batch
+    at the MOPED spread (argmax agreement, max |d mean_prob|: printed, not
+    gated); the guardrail: sigma = 0.5 |mu| gives mode "mc" and exactly
+    the MC path's 30 split_sampler launches over the same set; then
+    ``export-serving --dvp`` in-process from phase 13's file, the
+    artifact loaded, its ``predict_batches`` over phase 4's patches bit-equal
+    to the in-process DVP step at the same seeds with meta mode "dvp" and
+    exactly 3 split_sampler launches; export s, load s, program size,
+    patches/s over DVP_REPEATS timed passes.
 
-``--profile`` also writes profiler summaries of one inference batch and of
-one train step to chiprun_out/chip_smoke/. Launch counts are reset at the
-start of each counted run, and each phase expects exactly its own kernels.
+The kernels line's launches of #1-#3 add phases 13, 14, 15 and 16 to
+their paths' counts. Beside each sampler's bound the script prints the
+noise contract's Philox calls for that launch and their estimated INT32
+time, labelled as an estimate; it is not part of ``bound_ms``.
+
+``--profile`` also writes profiler summaries of one inference batch, of
+one train step and of one DVP batch to chiprun_out/chip_smoke/. Launch
+counts are reset at the start of each counted run, and each phase expects
+exactly its own kernels.
 Before them it prints the script's own wall time. The line before the
 last is the kernels' JSON; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -194,6 +215,9 @@ PROBE_F32_OPS = {"rng_bits": 2, "rng_bmlite": SAMPLER_F32_OPS[True] - 6,
 # capability 9.0): 132 SMs x 64 x 1.98 GHz boost.
 PHILOX_INT32_OPS = 60
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# phase 16 times this many passes over phase 4's set (a DVP pass takes
+# ~0.4 s on an H100, too short a window for a rate on its own)
+DVP_REPEATS = 10
 UNI_MC, UNI_BATCH, UNI_CLASSES = 10, 4, 7      # BASELINE.json configs[0]
 UNI_TRAIN_MC, UNI_TRAIN_BATCH = 5, 8           # BASELINE.json configs[1]
 
@@ -486,7 +510,7 @@ def phase_main_path(args, smi: str, work: str):
 
     if args.profile:
         profile_batch(bundle, step, args.seed)
-    return bundle, entry
+    return bundle, entry, N_SAMPLES / wall
 
 
 def profile_batch(bundle, step, seed: int) -> None:
@@ -1742,6 +1766,267 @@ def phase_serving(args, smi: str, work: str, weights: str) -> int:
     return n_launches
 
 
+def check_dvp_kernel(mean, scale, seed, smi: str) -> None:
+    """Phase 16 (a): kernel #1 at the DVP step's draw shape (the vectors
+    the step handed it) against ``split_plain`` bit for bit; its time
+    beside its bound, the plain version and one ``torch.normal`` call over
+    the same work."""
+    from multimodal_auv_torch.ops import sampling as S
+    from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
+
+    f32, n = torch.float32, mean.numel()
+    words = tuple(seed.tolist())
+    got = S.split_draws(mean, scale, seed, NUM_MC, out_dtype=f32)
+    want = torch.stack(S.split_plain(mean, scale, words, NUM_MC, f32))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"split_sampler != plain at the DVP shape "
+                             f"(n={n}, {NUM_MC} draws f32): max abs err "
+                             f"{err}")
+    del got, want
+    ms = cuda_ms(lambda: S.split_draws(mean, scale, seed, NUM_MC,
+                                       out_dtype=f32), 50)
+    plain_ms = cuda_ms(lambda: S.split_plain(mean, scale, words, NUM_MC,
+                                             f32), 3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lib_ms = cuda_ms(lambda: torch.normal(mean.expand(NUM_MC, n),
+                                          scale.expand(NUM_MC, n),
+                                          generator=gen), 50)
+    nbytes = 2 * n * 4 + NUM_MC * n * 4
+    b_ms, b_by = bound_ms(nbytes, (n // 2) * NUM_MC * SAMPLER_F32_OPS[False])
+    log(f"split_sampler at the DVP shape (n={n}, {NUM_MC} draws, f32 out, "
+        f"f32 noise, seed from device memory) == plain bit for bit; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch.normal {lib_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e9:.3f} GB) [{smi}]; "
+        f"{philox_note(n, NUM_MC)}")
+
+
+def check_dvp_card_vs_cpu() -> None:
+    """Phase 16 (b): the micro() DVP logits on the card and on the CPU at
+    the same seed words. The draws' noise is bit-equal; the f32 moment
+    passes (TF32 off) differ only in summation order and libm's last
+    bits, so the logits agree to 1e-4 absolute."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.engine.moment import make_dvp_logits_fn
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+
+    rng = np.random.default_rng(0)
+    u8 = [rng.integers(0, 256, (3, 32, 32, c), dtype=np.uint8)
+          for c in (3, 3, 1)]
+    seeds = torch.tensor([[12345, 678]], dtype=torch.int64)
+    logits = []
+    for dev in ("cuda", "cpu"):
+        b = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                   torch.Generator().manual_seed(0),
+                                   ArchConfig.micro(), device=dev)
+        fn = make_dvp_logits_fn(b, NUM_MC, packed_inputs=True)
+        with torch.inference_mode():
+            logits.append(fn(b.post, b.batch_stats,
+                             tuple(torch.from_numpy(a).to(dev) for a in u8),
+                             seeds.to(dev)).cpu())
+    err = float((logits[0] - logits[1]).abs().max())
+    if not err < 1e-4:
+        raise AssertionError(f"DVP card vs CPU at micro(): logits max abs "
+                             f"err {err}")
+    log(f"DVP card == CPU at micro(): ({NUM_MC}, 3, {NUM_CLASSES}) logits "
+        f"max abs err {err:.2e} (limit 1e-4)")
+
+
+def phase_dvp(args, smi: str, work: str, weights: str,
+              mc_rate: float) -> int:
+    """Phase 16: single-pass DVP at full width (see the module docstring).
+    Returns the phase's split_sampler launches on its paths."""
+    import multimodal_auv_torch.engine.moment as M
+    from multimodal_auv_torch import cli
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.engine.predict import (
+        make_packed_predict_step,
+        multimodal_predict_and_save_packed,
+    )
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+    from multimodal_auv_torch.pipelines.inference import pretrained_bundle
+    from multimodal_auv_torch.serving import fold_seed, load_predict_artifact
+
+    t_phase = time.perf_counter()
+    bundle = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                    torch.Generator().manual_seed(args.seed),
+                                    ArchConfig(), device="cuda")
+    t0 = time.perf_counter()
+    spread = M.posterior_spread(bundle.post, bundle.meta)
+    t_spread = time.perf_counter() - t0
+    step, mode = M.make_dvp_predict_step(
+        bundle, NUM_MC, on_excess="mc", packed_inputs=True, mc_chunk=2,
+        return_mode=True, spread=spread)
+    if mode != "dvp":
+        raise AssertionError(f"MOPED spread {spread}: mode {mode}")
+    packed = os.path.join(work, "packed")  # phase 4's set
+    csv_path = os.path.join(OUT_DIR, "dvp_predictions.csv")
+    n_batches = -(-N_SAMPLES // BATCH)
+
+    def run(s):
+        multimodal_predict_and_save_packed(
+            bundle, packed, csv_path, num_mc_samples=NUM_MC,
+            batch_size=BATCH, generator=torch.Generator().manual_seed(
+                args.seed + 1), step=s, device="cuda")
+        torch.cuda.synchronize()
+
+    drawn, draws = [], M.split_draws
+
+    def recorded(mean, scale, seed, num_draws, **kw):
+        if not drawn:  # the first batch's vectors, for (a)
+            drawn.append((mean, scale, seed.clone()))
+        return draws(mean, scale, seed, num_draws, **kw)
+
+    M.split_draws = recorded
+    try:
+        t0 = time.perf_counter()
+        run(step)  # warm-up: cuDNN's algorithm choice, allocator growth
+        t_warm = time.perf_counter() - t0
+    finally:
+        M.split_draws = draws
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run(step)
+    launches = check_launches("DVP path", {"split_sampler": n_batches})
+    n_launches = launches["split_sampler"]
+    check_csv(csv_path)
+    walls = []
+    for _ in range(DVP_REPEATS):
+        t0 = time.perf_counter()
+        run(step)
+        walls.append(time.perf_counter() - t0)
+    log(f"DVP path (spread {spread:.6f}, measured in {t_spread:.3f} s): "
+        f"{DVP_REPEATS} x {N_SAMPLES} patches, {n_batches} batches of "
+        f"{BATCH} x {NUM_MC} feature samples a pass, in {sum(walls):.3f} s "
+        f"= {DVP_REPEATS * N_SAMPLES / sum(walls):.3f} patches/s (passes "
+        f"{min(walls):.3f}-{max(walls):.3f} s; MC, phase 4, this run: "
+        f"{mc_rate:.3f}) [{smi}]; warm-up {t_warm:.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches of "
+        f"the counted pass {launches}")
+    batches, valid = _padded_batches(packed)
+    main, bathy, sss, mask = batches[0]
+    x = tuple(torch.from_numpy(a).cuda() for a in (main, bathy, sss))
+    mk = torch.from_numpy(mask).cuda()
+    if args.profile:
+        gen = torch.Generator().manual_seed(args.seed)
+        profile_run(f"one DVP batch of {BATCH} x {NUM_MC}",
+                    "profile_dvp.txt",
+                    lambda: step(bundle.post, bundle.batch_stats, x, gen, mk))
+
+    with torch.inference_mode():
+        check_dvp_kernel(*drawn[0], smi)
+    del drawn
+    free_cuda()
+    check_dvp_card_vs_cpu()
+
+    # (f) fidelity at the MOPED spread: printed, not gated (random weights
+    # give near-uniform outputs; a gate waits for the published weights)
+    mc_step = make_packed_predict_step(bundle, NUM_MC, mc_chunk=2)
+    outs = [s(bundle.post, bundle.batch_stats, x,
+              torch.Generator().manual_seed(args.seed + 2), mk)
+            for s in (step, mc_step)]
+    n = valid[0]
+    dvp, mc = ({k: v.cpu().numpy()[:n] for k, v in o.items()
+                if k != "csv_cols"} for o in outs)
+    log(f"DVP vs {NUM_MC}-draw MC at spread {spread:.4f} (batch 0, {n} "
+        f"rows): argmax agreement "
+        f"{float(np.mean(dvp['predicted'] == mc['predicted'])):.2f}, max "
+        f"|d mean_prob| {np.abs(dvp['mean_prob'] - mc['mean_prob']).max():.3e}"
+        f", predictive u DVP {dvp['predictive_uncertainty'].mean():.3e} MC "
+        f"{mc['predictive_uncertainty'].mean():.3e} (random weights; "
+        f"printed, not gated)")
+    del outs, mc_step, x, mk
+
+    # (d) the guardrail: sigma = 0.5 |mu| over the real region
+    n_real = bundle.meta.n_real
+    with torch.no_grad():
+        bundle.post.rho[:n_real] = torch.log(torch.expm1(torch.clamp_min(
+            0.5 * bundle.post.mu[:n_real].abs(), 1e-12)))
+    wide = M.posterior_spread(bundle.post, bundle.meta)
+    fallback, mode = M.make_dvp_predict_step(
+        bundle, NUM_MC, on_excess="mc", packed_inputs=True, mc_chunk=2,
+        return_mode=True, spread=wide)
+    if mode != "mc" or not wide > M.DVP_SPREAD_THRESHOLD:
+        raise AssertionError(f"spread {wide}: mode {mode}, want mc")
+    reset_launches()
+    run(fallback)
+    launches = check_launches("DVP guardrail fallback",
+                              {"split_sampler": n_batches * NUM_MC // 2})
+    n_launches += launches["split_sampler"]
+    check_csv(csv_path)
+    log(f"DVP guardrail: spread {wide:.4f} > {M.DVP_SPREAD_THRESHOLD} -> "
+        f"mode {mode}, the exact MC step; launches {launches}")
+    del bundle, step, fallback
+    free_cuda()
+
+    # (e) export-serving --dvp from phase 13's file
+    art_dir = os.path.join(work, "artifact_dvp")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["export-serving", "--output_dir", art_dir, "--batch_size",
+                   str(BATCH), "--num_mc_samples", str(NUM_MC),
+                   "--model_weights", weights, "--dvp", "--device", "cuda"])
+    t_export = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"export-serving --dvp exited {rc}")
+    check_launches("DVP export", {})
+    size = os.path.getsize(os.path.join(art_dir, "program.pt2")) / 1e6
+    free_cuda()
+    t0 = time.perf_counter()
+    art = load_predict_artifact(art_dir)
+    t_load = time.perf_counter() - t0
+    if (art.meta["mode"] != "dvp" or art.nchunks != 1
+            or art.mc_chunk != NUM_MC):
+        raise AssertionError(f"DVP artifact meta {art.meta}, chunk "
+                             f"{art.mc_chunk} x {art.nchunks}")
+    key = args.seed + 16
+    list(art.predict_batches(batches, key=key))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = list(art.predict_batches(batches, key=key))
+    torch.cuda.synchronize()
+    launches = check_launches("DVP artifact",
+                              {"split_sampler": len(batches)})
+    n_launches += launches["split_sampler"]
+    t0 = time.perf_counter()
+    for _ in range(DVP_REPEATS):
+        list(art.predict_batches(batches, key=key))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bundle = pretrained_bundle(NUM_CLASSES, BNNPriorSpec(), ArchConfig(), 0,
+                               weights, False, torch.device("cuda"))
+    step = M.make_dvp_predict_step(bundle, NUM_MC, packed_inputs=True)
+    for i, ((m, b, ss, mask), out) in enumerate(zip(batches, outs)):
+        ref = step(bundle.post, bundle.batch_stats,
+                   tuple(torch.from_numpy(a).cuda() for a in (m, b, ss)),
+                   torch.Generator().manual_seed(fold_seed(key, i)),
+                   torch.from_numpy(mask).cuda())
+        for k in ("predicted", "csv_cols", "mean_prob"):
+            if not np.array_equal(out[k], ref[k].cpu().numpy()):
+                raise AssertionError(f"DVP artifact batch {i}: {k} differs "
+                                     f"from the in-process DVP step")
+    log(f"DVP artifact (export-serving --dvp, full width, b{BATCH} x "
+        f"{NUM_MC}): export {t_export:.2f} s (bundle and import of the "
+        f"published file included), load {t_load:.2f} s, program.pt2 "
+        f"{size:.1f} MB, meta mode {art.meta['mode']} spread "
+        f"{art.meta['posterior_spread']}; predict_batches {DVP_REPEATS} x "
+        f"{N_SAMPLES} patches in {wall:.3f} s = "
+        f"{DVP_REPEATS * N_SAMPLES / wall:.3f} patches/s "
+        f"[{smi}]; bit-equal to the in-process DVP step at the same seeds; "
+        f"launches {launches}")
+    del art, bundle, step
+    free_cuda()
+    log(f"phase 16 (DVP): {time.perf_counter() - t_phase:.1f} s")
+    return n_launches
+
+
 def check_probe_kernels(P_full: int) -> None:
     """Every kernel the RNG-split probe launches (its three and the eps
     kernel, its ``bm``) against its plain version, bit for bit: at the
@@ -1841,7 +2126,7 @@ def main() -> int:
     # bulky work files (packed sets, the survey tree, GB-sized checkpoints)
     # stay out of OUT_DIR, which is kept after the run
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        bundle, split_entry = phase_main_path(args, smi, work)
+        bundle, split_entry, mc_rate = phase_main_path(args, smi, work)
         kernels_line = [split_entry] + phase_training(args, smi, bundle,
                                                       work)
         P_full = bundle.meta.n_padded
@@ -1861,7 +2146,9 @@ def main() -> int:
         retrain = phase_retraining(args, smi, work, weights)
         free_cuda()
         split_launches += phase_serving(args, smi, work, weights)
-        # each kernel's launches on the paths: add phases 13, 14 and 15
+        free_cuda()
+        split_launches += phase_dvp(args, smi, work, weights, mc_rate)
+        # each kernel's launches on the paths: add phases 13, 14, 15 and 16
         retrain["split_sampler"] += split_launches
         for e in kernels_line:
             e["launches"] += retrain[e["name"]]

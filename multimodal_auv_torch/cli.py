@@ -105,8 +105,10 @@ def inference_cli(argv=None):
                         help="decode-once serving: pack the survey into "
                              "uint8 memmaps, normalize on the card")
     parser.add_argument("--dvp", action="store_true",
-                        help="single-pass moment-propagated serving (not "
-                             "ported yet)")
+                        help="single-pass moment-propagated serving "
+                             "(approximate; falls back to exact MC "
+                             "outside the validated posterior-spread "
+                             "regime)")
     parser.add_argument("--fast_sampling", choices=("auto", "on", "off"),
                         default="auto",
                         help="bf16-budget fast-math sampling noise (auto = "
@@ -120,10 +122,6 @@ def inference_cli(argv=None):
     _add_device_flag(parser)
     parser.add_argument("--tiny", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.dvp:
-        raise NotPorted("--dvp is not ported yet: ROADMAP.md, Open items, 1 "
-                        "'Modules to port' item 6 (DVP)")
-
     from multimodal_auv_torch.pipelines import run_auv_inference
 
     run_auv_inference(
@@ -325,8 +323,9 @@ def export_serving_cli(argv=None):
     parser.add_argument("--allow_random_init", action="store_true")
     parser.add_argument("--mc_chunk", type=int, default=None)
     parser.add_argument("--dvp", action="store_true",
-                        help="single-pass moment-propagation program (not "
-                             "ported yet)")
+                        help="Export the single-pass moment-propagation "
+                             "program (guardrailed at export time, see "
+                             "--dvp_on_excess).")
     parser.add_argument("--mc_shards", type=int, default=1,
                         help="MC ensemble over an M-device mesh axis (not "
                              "ported yet)")
@@ -334,8 +333,11 @@ def export_serving_cli(argv=None):
                         help="batch sharded over N devices (not ported yet)")
     parser.add_argument("--dvp_on_excess", choices=("warn", "mc"),
                         default="mc",
-                        help="DVP guardrail action (with --dvp; not ported "
-                             "yet)")
+                        help="Guardrail action if the posterior spread "
+                             "exceeds the DVP-validated regime: 'mc' "
+                             "exports the exact MC program instead "
+                             "(recorded in meta.json), 'warn' exports DVP "
+                             "anyway.")
     parser.add_argument("--platforms", type=str, default=None,
                         help="Comma-separated targets; the program is traced "
                              "on --device and runs there, so only that "
@@ -354,9 +356,6 @@ def export_serving_cli(argv=None):
     _add_device_flag(parser)
     parser.add_argument("--tiny", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.dvp:
-        raise NotPorted("--dvp is not ported yet: ROADMAP.md, Open items, 1 "
-                        "'Modules to port' item 6 (DVP)")
     if args.mc_shards > 1 or args.data_shards > 1:
         raise NotPorted("--mc_shards / --data_shards are not ported yet: "
                         "ROADMAP.md, Open items, 1 'Modules to port' item 8 "

@@ -2,8 +2,9 @@
 
 Port of ``multimodal_auv_tpu/ops/sampling.py``:
 
-* ``gaussian_shift_scale_split`` (Pallas ``_pallas_reparam_split``): the
-  inference sampler, a list of separate draws, not differentiable;
+* ``split_draws`` / ``gaussian_shift_scale_split`` (Pallas
+  ``_pallas_reparam_split``): the inference sampler, a (num_draws, P)
+  tensor or a list of its rows, not differentiable;
 * ``gaussian_shift_scale`` (Pallas ``_reparam_sigma_kernel``): the training
   sampler, a stacked (num_draws, P) tensor, differentiable. Its backward
   regenerates eps from the seed (Pallas ``_eps_kernel``, here
@@ -394,12 +395,11 @@ def _check_args(mu, sigma, num_draws, out_dtype):
         raise ValueError(f"no sampler for device {mu.device}")
 
 
-def gaussian_shift_scale_split(mu: torch.Tensor, sigma: torch.Tensor,
-                               seed, num_draws: int, *,
-                               out_dtype: torch.dtype = None,
-                               fast_math: bool = False) -> List[torch.Tensor]:
-    """``num_draws`` posterior draws mu + sigma * eps as a list of flat (P,)
-    tensors (views of one (num_draws, P) buffer). Not differentiable.
+def split_draws(mu: torch.Tensor, sigma: torch.Tensor, seed, num_draws: int,
+                *, out_dtype: torch.dtype = None,
+                fast_math: bool = False) -> torch.Tensor:
+    """``num_draws`` posterior draws mu + sigma * eps as one (num_draws, P)
+    tensor. Not differentiable.
 
     ``seed``: a (2,) int64 tensor on mu's device (the main path's: one row
     of the step's seed tensor, no host round trip), or a (seed0, seed1)
@@ -415,8 +415,18 @@ def gaussian_shift_scale_split(mu: torch.Tensor, sigma: torch.Tensor,
     seeds = (seed if isinstance(seed, torch.Tensor)
              else seed_tensor(seed, mu.device))
     _check_seeds(seeds, mu.device)
-    return list(torch.ops.auv.split_sampler(mu, sigma, seeds, num_draws,
-                                            out_dtype, fast_math).unbind(0))
+    return torch.ops.auv.split_sampler(mu, sigma, seeds, num_draws,
+                                       out_dtype, fast_math)
+
+
+def gaussian_shift_scale_split(mu: torch.Tensor, sigma: torch.Tensor,
+                               seed, num_draws: int, *,
+                               out_dtype: torch.dtype = None,
+                               fast_math: bool = False) -> List[torch.Tensor]:
+    """``split_draws`` as a list of flat (P,) tensors (views of its one
+    (num_draws, P) buffer)."""
+    return list(split_draws(mu, sigma, seed, num_draws, out_dtype=out_dtype,
+                            fast_math=fast_math).unbind(0))
 
 
 def check_noise_args(P: int, num_draws: int, device, out_dtype

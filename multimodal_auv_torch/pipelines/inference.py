@@ -56,15 +56,14 @@ def run_auv_inference(
     ``<dir>/.packed_cache_<size>``) that is repacked when stale.
     ``fast_sampling``: None = bf16-budget noise exactly when sampling to
     bf16. ``bn_mode``: "train" (batch statistics, the reference's quirk) or
-    "eval" (running statistics)."""
+    "eval" (running statistics). ``use_dvp``: the single-pass DVP step
+    (engine/moment.py) with its guardrail set to fall back to exact MC
+    (``on_excess="mc"``); ``fast_sampling`` and ``bn_mode`` do not reach
+    it (the fallback takes their defaults), as in the JAX package."""
     if mesh_spec is not None:
         raise NotImplementedError(
             "mesh_spec is not ported yet: ROADMAP.md, Open items, "
             "1 'Modules to port' item 8 (parallel)")
-    if use_dvp:
-        raise NotImplementedError(
-            "use_dvp is not ported yet: ROADMAP.md, Open items, "
-            "1 'Modules to port' item 6 (DVP)")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     logger = logging.getLogger(__name__)
@@ -74,6 +73,14 @@ def run_auv_inference(
     bundle = pretrained_bundle(num_classes, BNNPriorSpec(), arch, seed,
                                model_weights_path, allow_random_init, dev)
     generator = torch.Generator().manual_seed(seed + 1)
+    step = None
+    if use_dvp:
+        from multimodal_auv_torch.engine.moment import make_dvp_predict_step
+
+        # built here, so mc_chunk reaches the guardrail's exact-MC fallback
+        step = make_dvp_predict_step(bundle, num_mc_samples, on_excess="mc",
+                                     packed_inputs=use_packed_loader,
+                                     mc_chunk=mc_chunk)
     dirs = ([data_directory] if isinstance(data_directory, (str, bytes))
             else list(data_directory))
     if use_packed_loader:
@@ -110,7 +117,8 @@ def run_auv_inference(
         multimodal_predict_and_save_packed(
             bundle, cache, output_csv, num_mc_samples=num_mc_samples,
             batch_size=batch_size, generator=generator, mc_chunk=mc_chunk,
-            fast_sampling=fast_sampling, bn_mode=bn_mode, device=dev)
+            fast_sampling=fast_sampling, bn_mode=bn_mode, step=step,
+            device=dev)
     else:
         from multimodal_auv_torch.data.loaders import (
             prepare_inference_datasets_and_loaders,
@@ -124,7 +132,8 @@ def run_auv_inference(
         multimodal_predict_and_save(
             bundle, dataloader, output_csv, num_mc_samples=num_mc_samples,
             generator=generator, mc_chunk=mc_chunk,
-            fast_sampling=fast_sampling, bn_mode=bn_mode, device=dev)
+            fast_sampling=fast_sampling, bn_mode=bn_mode, step=step,
+            device=dev)
     logger.info("Final inference process completed successfully.")
     return output_csv
 
@@ -186,12 +195,10 @@ def export_auv_serving_artifact(
     tracing). The bundle is built and the programs traced on ``device``
     (None = the card), where the artifact then serves.
 
-    ``use_dvp`` and ``data_shards`` / ``mc_shards`` > 1 are not ported
-    yet and raise, naming their ROADMAP items, before anything is built."""
-    if use_dvp:
-        raise NotImplementedError(
-            "use_dvp is not ported yet: ROADMAP.md, Open items, "
-            "1 'Modules to port' item 6 (DVP)")
+    ``use_dvp`` exports the single-pass DVP program instead (same ABI;
+    guardrailed at export time by ``dvp_on_excess``, see serving.py).
+    ``data_shards`` / ``mc_shards`` > 1 are not ported yet and raise,
+    naming their ROADMAP item, before anything is built."""
     if data_shards > 1 or mc_shards > 1:
         raise NotImplementedError(
             "data_shards / mc_shards > 1 are not ported yet: ROADMAP.md, "

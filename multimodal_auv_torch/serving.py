@@ -1,17 +1,18 @@
-"""Serving artifacts: ``torch.export`` of the packed MC predict step (port
-of ``multimodal_auv_tpu/serving.py``).
+"""Serving artifacts: ``torch.export`` of the packed predict step (port of
+``multimodal_auv_tpu/serving.py``).
 
-The packed predict step (uint8 batch -> fused CSV columns,
-engine/predict.py) is exported once with ``torch.export`` and written to
-disk next to the posterior and BatchNorm state. A serving host then needs
-only this module, torch, numpy and the port's ops (which register the
-sampler op the program calls): no model code and no tracing.
+The packed predict step (uint8 batch -> fused CSV columns: exact MC,
+engine/predict.py, or single-pass DVP, engine/moment.py) is exported once
+with ``torch.export`` and written to disk next to the posterior and
+BatchNorm state. A serving host then needs only this module, torch, numpy
+and the port's ops (which register the sampler op the program calls): no
+model code and no tracing.
 
 Artifact layout (a directory):
 
     program.pt2   one MC chunk: (state_leaves, (main_u8, bathy_u8, sss_u8),
                   seeds (1, 2) int64, mask f32) -> (mc_chunk, batch, C)
-                  logits
+                  logits (DVP: all num_mc draws in one chunk, f32)
     reduce.pt2    (num_mc, batch, C) logits -> the fused (3 + C, batch) f32
                   output: rows predicted, predictive_u, aleatoric_u, then
                   mean_prob transposed
@@ -134,9 +135,17 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     ``batch_size="poly"`` for a batch-polymorphic artifact
     (``torch.export.Dim``): one artifact serves any batch size.
     ``platforms``: None, or the bundle's device type alone (the program is
-    traced where it will run). ``mode="dvp"`` and ``data_shards`` /
-    ``mc_shards`` > 1 are not ported yet and raise, naming their ROADMAP
-    items; ``dvp_on_excess`` belongs to the DVP mode."""
+    traced where it will run).
+
+    ``mode="dvp"`` exports the single-pass DVP logits function
+    (engine/moment.py) as the chunk program: it returns all
+    ``num_mc_samples`` draws' logits in one call, so the loader serves it
+    as one chunk, with the same ABI. The guardrail runs at export: if the
+    posterior spread exceeds the validated regime, ``dvp_on_excess``
+    decides (default "mc": the artifact holds the exact MC program). The
+    mode exported and the spread are recorded in meta.json.
+    ``data_shards`` / ``mc_shards`` > 1 are not ported yet and raise,
+    naming their ROADMAP item."""
     from multimodal_auv_torch.engine.mc import not_ported
     from multimodal_auv_torch.engine.predict import (
         _default_chunk,
@@ -144,10 +153,11 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
         make_packed_logits_fn,
     )
 
-    if mode == "dvp":
-        raise not_ported("mode='dvp'", "6 (DVP)")
-    if mode != "mc":
+    if mode not in ("mc", "dvp"):
         raise ValueError(f"mode must be 'mc' or 'dvp', got {mode!r}")
+    if mc_shards > 1 and mode != "mc":
+        raise ValueError("mc_shards > 1 requires mode='mc' (DVP's trunk "
+                         "pass has no MC-draw axis to shard)")
     if data_shards > 1 or mc_shards > 1:
         raise not_ported("data_shards / mc_shards > 1 (sharded artifacts)",
                          "8 (parallel)")
@@ -156,16 +166,33 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
         raise ValueError(f"platforms {list(platforms)}: the program is traced "
                          f"on the bundle's device and runs there, "
                          f"[{dev.type!r}]")
-    mc_chunk = _default_chunk(num_mc_samples, mc_chunk)
-    if num_mc_samples % mc_chunk:
-        raise ValueError(f"num_mc_samples {num_mc_samples} must be divisible "
-                         f"by mc_chunk {mc_chunk}")
     leaves, unflatten = _flatten_state(bundle)
     if any(t.dtype != torch.float32 for t in leaves):
         raise ValueError("the state's leaves must be f32")
-    logits_fn = make_packed_logits_fn(bundle, mc_chunk=mc_chunk,
-                                      fast_sampling=fast_sampling,
-                                      bn_mode=bn_mode)
+    exported_mode, spread = mode, None
+    if mode == "dvp":
+        from multimodal_auv_torch.engine.moment import (
+            make_dvp_predict_step,
+            posterior_spread,
+        )
+
+        spread = posterior_spread(bundle.post, bundle.meta)
+        step, exported_mode = make_dvp_predict_step(
+            bundle, num_mc_samples, on_excess=dvp_on_excess,
+            packed_inputs=True, mc_chunk=mc_chunk, return_mode=True,
+            spread=spread)
+    if exported_mode == "dvp":
+        logits_fn, logits_dtype = step.logits_fn, torch.float32
+        mc_chunk = num_mc_samples
+    else:
+        mc_chunk = _default_chunk(num_mc_samples, mc_chunk)
+        if num_mc_samples % mc_chunk:
+            raise ValueError(f"num_mc_samples {num_mc_samples} must be "
+                             f"divisible by mc_chunk {mc_chunk}")
+        logits_fn = make_packed_logits_fn(bundle, mc_chunk=mc_chunk,
+                                          fast_sampling=fast_sampling,
+                                          bn_mode=bn_mode)
+        logits_dtype = bundle.module.dtype
 
     class ChunkProgram(torch.nn.Module):
         def forward(self, state_leaves, u8_inputs, seeds, mask):
@@ -185,7 +212,7 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     mask = torch.ones((b,), dtype=torch.float32, device=dev)
     num_classes = bundle.module.num_classes
     logits = torch.zeros((num_mc_samples, b, num_classes),
-                         dtype=bundle.module.dtype, device=dev)
+                         dtype=logits_dtype, device=dev)
     chunk_dims = reduce_dims = None
     if poly:
         batch = torch.export.Dim("batch", min=1)
@@ -218,24 +245,25 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
         "class_names": list(class_names) if class_names else None,
         "platforms": [dev.type],
         "seed": seed,
-        "mode": mode,
+        "mode": exported_mode,
         # None = resolved at trace time (engine/mc.py::_resolve_fast); the
         # choice is traced into the program, so it is made at export
         "fast_sampling": fast_sampling,
         # "train" = the reference's BN in train mode at inference; "eval" =
         # frozen running statistics
         "bn_mode": bn_mode,
-        "posterior_spread": None,
+        "posterior_spread": (None if spread is None
+                             else round(float(spread), 6)),
         "data_shards": int(data_shards),
         "mc_shards": int(mc_shards),
         "sha256": digests,
     }
     with open(os.path.join(out_dir, _META), "w") as f:
         json.dump(meta, f, indent=1)
-    logger.info("Exported serving artifact to %s (platforms=%s, batch=%s, "
-                "mc=%d in chunks of %d, %d state leaves)", out_dir,
-                meta["platforms"], batch_size, num_mc_samples, mc_chunk,
-                len(leaves))
+    logger.info("Exported serving artifact to %s (mode=%s, platforms=%s, "
+                "batch=%s, mc=%d in chunks of %d, %d state leaves)", out_dir,
+                exported_mode, meta["platforms"], batch_size, num_mc_samples,
+                mc_chunk, len(leaves))
     return out_dir
 
 

@@ -32,7 +32,8 @@ SET_ALL = {
     "inference": ["--batch_size", "8", "--num_mc_samples", "3",
                   "--num_classes", "5", "--model_weights", "w.pt",
                   "--allow_random_init", "--mc_chunk", "2", "--packed_loader",
-                  "--fast_sampling", "off", "--bn_mode", "eval", "--tiny"],
+                  "--dvp", "--fast_sampling", "off", "--bn_mode", "eval",
+                  "--tiny"],
     "retrain": ["--batch_size_multimodal", "6", "--num_epochs_multimodal",
                 "2", "--num_mc_samples", "4", "--learning_rate_multimodal",
                 "0.01", "--weight_decay_multimodal", "0.1", "--num_classes",
@@ -45,7 +46,7 @@ SET_ALL = {
                       "tv.pth"] + TRAINING,
     "export-serving": ["--batch_size", "poly", "--num_mc_samples", "6",
                        "--num_classes", "5", "--model_weights", "w.pt",
-                       "--allow_random_init", "--mc_chunk", "3",
+                       "--allow_random_init", "--mc_chunk", "3", "--dvp",
                        "--dvp_on_excess", "warn", "--platforms", "cpu",
                        "--fast_sampling", "off", "--bn_mode", "eval",
                        "--tiny"],
@@ -94,7 +95,6 @@ def test_same_argv_same_kwargs_as_jax(monkeypatch, command, flags):
 
 
 NOT_PORTED = [
-    ("inference", ["--dvp"], "item 6"),
     ("retrain", ["--mesh_data", "2"], "item 8"),
     ("retrain", ["--mesh_mc", "2"], "item 8"),
     ("retrain", ["--fsdp"], "item 8"),
@@ -105,7 +105,6 @@ NOT_PORTED = [
     ("train-scratch", ["--fsdp"], "item 8"),
     ("train-scratch", ["--async_checkpoints"], "item 5"),
     ("train-scratch", ["--remat", "auto"], "item 5"),
-    ("export-serving", ["--dvp"], "item 6"),
     ("export-serving", ["--mc_shards", "2"], "item 8"),
     ("export-serving", ["--data_shards", "2"], "item 8"),
     ("data-prep", [], "item 9"),

@@ -40,8 +40,9 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("engine.predict", "ops.sampling", "engine.steps",
                  "engine.optim", "engine.loops", "engine.checkpointing",
-                 "engine.preemption", "pipelines.training", "utils.tb",
-                 "utils.plotting", "utils.manifest", "utils.logging_utils",
+                 "engine.preemption", "engine.moment", "pipelines.training",
+                 "utils.tb", "utils.plotting", "utils.manifest",
+                 "utils.logging_utils",
                  "pipelines.unimodal", "models.model_utils",
                  "interop.from_jax", "interop.torch_import",
                  "interop.torch_export", "interop.hf_manifest", "interop.hub",

@@ -236,24 +236,21 @@ def test_polymorphic_batch_artifact(artifact, tmp_path):
 
 
 def test_refusals_name_their_items(artifact, tmp_path):
-    """DVP and sharded exports are not ported yet and raise naming ROADMAP
-    items 6 and 8; so do a sharded artifact's load, the pipeline's flags,
-    and platforms other than the bundle's device; an artifact refuses a
-    device of another type than it was exported on."""
+    """Sharded exports are not ported yet and raise naming ROADMAP item 8;
+    so do a sharded artifact's load and the pipeline's shard flags;
+    platforms other than the bundle's device and an unknown mode are
+    refused; an artifact refuses a device of another type than it was
+    exported on."""
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
 
     d, bundle, _ = artifact
     kw = dict(batch_size=B, num_mc_samples=MC, image_size=S)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        export_predict_artifact(bundle, str(tmp_path / "x"), mode="dvp", **kw)
     for shards in ({"data_shards": 2}, {"mc_shards": 2}):
         with pytest.raises(NotImplementedError, match="item 8"):
             export_predict_artifact(bundle, str(tmp_path / "x"), **shards,
                                     **kw)
         with pytest.raises(NotImplementedError, match="item 8"):
             export_auv_serving_artifact(str(tmp_path / "x"), **shards)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        export_auv_serving_artifact(str(tmp_path / "x"), use_dvp=True)
     with pytest.raises(ValueError, match="mode"):
         export_predict_artifact(bundle, str(tmp_path / "x"), mode="x", **kw)
     with pytest.raises(ValueError, match="platforms"):
