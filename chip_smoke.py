@@ -149,8 +149,47 @@ result line):
     exactly 3 split_sampler launches; export s, load s, program size,
     patches/s over DVP_REPEATS timed passes.
 
-The kernels line's launches of #1-#3 add phases 13, 14, 15 and 16 to
-their paths' counts. Beside each sampler's bound the script prints the
+17. grouped trunks (models/fused.py) at full width over phase 4's set, b4
+    x 20 MC in chunks of 2, from the same seeds: the fused and unfused
+    logits of one batch in f32 (an f32 copy of the module, f32 draws) to
+    FUSED_F32_TOL of the largest logit; the bf16 main path fused against
+    unfused: max |d mean_prob| <= FUSED_BF16_PROB_TOL over the 10
+    patches, the argmax equal on every patch whose top-2 margin exceeds
+    twice that difference (agreement printed for all); exactly 30
+    split_sampler launches over the fused run; fused and unfused
+    patches/s in the same run (timed alternately); with --profile the
+    device events and busy share of one fused and one unfused b4 batch.
+18. parallel: two ranks on the card with ``backend="gloo"`` (one process
+    each, this script with --rank; a free port on 127.0.0.1), at full
+    width: one b12 x 20 MC train step (chunk 1, remat on, lr 1e-3,
+    kl_weight 0, so the loss is the CE alone) on a data=2 mesh against
+    the same step in one process (rank 0, same seeds and batch) and
+    against a control, the one-process step on the batch with its halves
+    swapped (the same function, its sums in another order): with bf16
+    activations the loss to PAR_LOSS_RTOL_BF16 and the BN running
+    statistics after the step to PAR_STATS_RTOL_BF16, the gradients'
+    relative L2 errors reported; with f32 activations the loss to
+    PAR_LOSS_RTOL, the statistics to PAR_STATS_RTOL and mu's and rho's
+    gradients within PAR_GRAD_CONTROL x the control's error (at most
+    PAR_GRAD_CAP). The same gates must reject each fault
+    of PAR_FAULTS planted in the BN sums for one step (per-rank
+    statistics; a backward without its all_reduce). The f32 step with
+    fsdp against data=2: gradients and the gathered Adam moment to
+    PAR_GRAD_REPEAT, and its state (posterior, gradients, moments) at
+    least P floats smaller; each step's state and peak bytes printed.
+    Exactly 40 stacked_sampler and 20 eps launches per rank and step,
+    nothing else; both ranks' mu equal. Then an mc=2 mesh: the logits of
+    phase 4's first batch, 20 draws in chunks of 2, bf16 weights, each
+    rank drawing its row of every chunk (10 stacked_sampler launches per
+    rank, the draw offset folded into the seed), bit-equal to the
+    one-process stacked path. Kernel #2 with bf16 mu, sigma and output at
+    the full P against its plain version first (the mc-sharded path's
+    form). Then the f32 train step at world size 1 under NCCL against the
+    one-process step (PAR_GRAD_REPEAT). Prints each step's seconds and
+    collectives.
+
+The kernels line's launches of #1-#3 add phases 13, 14, 15, 16, 17 and 18
+to their paths' counts. Beside each sampler's bound the script prints the
 noise contract's Philox calls for that launch and their estimated INT32
 time, labelled as an estimate; it is not part of ``bound_ms``.
 
@@ -218,12 +257,46 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # phase 16 times this many passes over phase 4's set (a DVP pass takes
 # ~0.4 s on an H100, too short a window for a rate on its own)
 DVP_REPEATS = 10
+# phase 17: f32 fused against unfused logits (one batch), relative to the
+# largest |logit| (cuDNN's grouped and plain convolutions sum in other
+# orders through 53 layers of train-mode BN); bf16 mean probabilities
+FUSED_F32_TOL, FUSED_BF16_PROB_TOL = 1e-3, 2e-2
+# phase 18: data=2 against one process at lr 1e-3, MOPED random weights,
+# kl_weight 0 (the loss is the CE alone: the KL term is the same function
+# of mu and rho on every layout and would hide the CE's differences). The
+# gradient is ill-conditioned in the order of its sums there: on an H100
+# the one-process step on its batch halves swapped differs from itself by
+# ~2e-2 in relative L2 (f32, TF32 off), ~0.5 with bf16 activations. So
+# with f32 activations the data=2 gradients are held within
+# PAR_GRAD_CONTROL x that control's error, measured in the same run (and
+# under PAR_GRAD_CAP), and with bf16 they are only reported. Both steps
+# hold the loss (PAR_LOSS_RTOL, PAR_LOSS_RTOL_BF16) and the BN running
+# statistics after the step, all leaves in relative L2 (PAR_STATS_RTOL,
+# PAR_STATS_RTOL_BF16). On an H100 data=2 read 9.0e-7 (f32) and 2.2e-3
+# (bf16) there, and per-rank BN statistics 1.1e-2 and 1.2e-2. Each step's
+# gates must also reject the faults of PAR_FAULTS, planted for one step
+# each. A step repeated (fsdp against data=2, NCCL at world 1 against one
+# process) agrees to cuDNN's run-to-run floor (~5e-6).
+PAR_LR, PAR_MU_ATOL, PAR_KL_WEIGHT = 1e-3, 1e-5, 0.0
+PAR_LOSS_RTOL, PAR_LOSS_RTOL_BF16 = 1e-6, 1e-4
+PAR_STATS_RTOL, PAR_STATS_RTOL_BF16 = 1e-4, 5e-3
+PAR_GRAD_CONTROL, PAR_GRAD_CAP, PAR_GRAD_REPEAT = 2.0, 5e-2, 1e-4
+PAR_FAULTS = {"data2_bf16": ("bn_local",),
+              "data2": ("bn_local", "bn_no_bwd")}
+PAR_TIMEOUT = 600      # seconds for the ranks of phase 18
 UNI_MC, UNI_BATCH, UNI_CLASSES = 10, 4, 7      # BASELINE.json configs[0]
 UNI_TRAIN_MC, UNI_TRAIN_BATCH = 5, 8           # BASELINE.json configs[1]
 
 
-def log(msg: str) -> None:
+# phases 17-18's results, printed again before the kernels line (the
+# tool that runs this script keeps only the end of its output)
+SUMMARY = []
+
+
+def log(msg: str, summary: bool = False) -> None:
     print(msg, flush=True)
+    if summary:
+        SUMMARY.append(msg)
 
 
 def reset_launches() -> None:
@@ -562,6 +635,507 @@ def profile_run(label: str, filename: str, fn) -> None:
         f"{total_ms:.2f} ms in {len(kern)} launches, device busy share "
         f"{busy_ms / wall_ms:.3f}; top: " + "; ".join(
             f"{n[:50]} {t:.2f} ms x{c}" for n, (t, c) in rows[:6]))
+    return len(kern), busy_ms / wall_ms
+
+
+def phase_fused(args, smi: str, bundle, work: str) -> int:
+    """Phase 17: the grouped trunks against the unfused module at full
+    width (see the module docstring). Returns the split_sampler launches
+    of its counted run."""
+    from multimodal_auv_torch.engine.predict import (
+        make_packed_logits_fn,
+        make_packed_predict_step,
+        multimodal_predict_and_save_packed,
+    )
+    from multimodal_auv_torch.models.fused import grouped_layer_count
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        ModelBundle,
+        multimodal_module,
+    )
+    from multimodal_auv_torch.ops.sampling import chunk_seed_words
+
+    t_phase = time.perf_counter()
+    packed = os.path.join(work, "packed")  # phase 4's set
+    batches = [([torch.from_numpy(a).cuda() for a in b[:3]],
+                torch.from_numpy(b[3]).cuda().bool())
+               for b in _padded_batches(packed)[0]]
+    u8, mask = batches[0]
+
+    # (a) f32: an f32 copy of the module over the same posterior, f32 draws
+    f32 = ModelBundle(multimodal_module(NUM_CLASSES, ArchConfig(
+        dtype=torch.float32)), bundle.post, bundle.meta, bundle.batch_stats)
+    seeds = chunk_seed_words(torch.Generator().manual_seed(args.seed + 17),
+                             NUM_MC // 2).cuda()
+    with torch.inference_mode():
+        logits = [make_packed_logits_fn(
+            f32, mc_chunk=2, sample_dtype=torch.float32,
+            fused_trunks=fused)(bundle.post, bundle.batch_stats, u8, seeds,
+                                mask) for fused in (False, True)]
+    scale = float(logits[0].abs().max())
+    err = float((logits[1] - logits[0]).abs().max())
+    log(f"fused f32 logits: max |d| {err:.3e} of max |logit| {scale:.3e} "
+        f"(relative {err / scale:.3e}, gate {FUSED_F32_TOL:g}), 1 batch x "
+        f"{NUM_MC} draws", summary=True)
+    if not err <= FUSED_F32_TOL * scale:
+        raise AssertionError(f"fused f32 logits off the unfused: {err}")
+    del logits, f32
+    free_cuda()
+
+    # (b) bf16, the main path: fused against unfused over phase 4's set
+    steps = {fused: make_packed_predict_step(bundle, NUM_MC,
+                                             fused_trunks=fused)
+             for fused in (False, True)}
+
+    def run(fused, csv_path):
+        multimodal_predict_and_save_packed(
+            bundle, packed, csv_path, num_mc_samples=NUM_MC,
+            batch_size=BATCH,
+            generator=torch.Generator().manual_seed(args.seed + 1),
+            step=steps[fused], device="cuda")
+        torch.cuda.synchronize()
+
+    probs = {}
+    for fused in (False, True):
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        with torch.inference_mode():
+            probs[fused] = torch.cat([steps[fused](
+                bundle.post, bundle.batch_stats, b_u8, gen, b_mask)[
+                "mean_prob"][b_mask].float() for b_u8, b_mask in batches])
+    d = float((probs[True] - probs[False]).abs().max())
+    top2 = probs[False].topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * d
+    agree = probs[True].argmax(1) == probs[False].argmax(1)
+    log(f"fused bf16 over {N_SAMPLES} patches: max |d mean_prob| {d:.3e} "
+        f"(gate {FUSED_BF16_PROB_TOL:g}); argmax agreement "
+        f"{int(agree.sum())}/{N_SAMPLES}, {int(clear.sum())} patches with "
+        f"a top-2 margin above 2 x that, all agreeing: "
+        f"{bool(agree[clear].all())}", summary=True)
+    if not (d <= FUSED_BF16_PROB_TOL and bool(agree[clear].all())):
+        raise AssertionError("fused bf16 outputs off the unfused")
+
+    csv_path = os.path.join(OUT_DIR, "fused_predictions.csv")
+    for fused in (False, True):
+        run(fused, csv_path)  # warm-up: cuDNN's choice for each geometry
+    reset_launches()
+    run(True, csv_path)
+    launches = check_launches("fused path", {
+        "split_sampler": -(-N_SAMPLES // BATCH) * NUM_MC // 2})
+    check_csv(csv_path)
+    walls = {False: [], True: []}
+    for fused in (True, False, False, True):
+        t0 = time.perf_counter()
+        run(fused, os.path.join(work, "fused_timed.csv"))
+        walls[fused].append(time.perf_counter() - t0)
+    rate = {f: [N_SAMPLES / w for w in ws] for f, ws in walls.items()}
+    n_layers = grouped_layer_count(
+        bundle.module.image_model_feat.stage_sizes)
+    log(f"fused path: {min(rate[True]):.3f}-{max(rate[True]):.3f} patches/s "
+        f"against unfused {min(rate[False]):.3f}-{max(rate[False]):.3f} "
+        f"(b{BATCH} x {NUM_MC} MC, timed fused, unfused, unfused, fused) "
+        f"[{smi}]; launches {launches}; per draw {n_layers} grouped convs "
+        f"(3 x {n_layers} unfused), {n_layers} kernel concatenations and "
+        f"2 x {n_layers} BN scale / bias concatenations", summary=True)
+    if args.profile:
+        b_u8, b_mask = batches[0]
+        for fused in (True, False):
+            gen = torch.Generator().manual_seed(args.seed)
+            n, share = profile_run(
+                f"one {'fused' if fused else 'unfused'} batch of {BATCH} x "
+                f"{NUM_MC} MC", f"profile_fused{int(fused)}.txt",
+                lambda: steps[fused](bundle.post, bundle.batch_stats, b_u8,
+                                     gen, b_mask))
+            log(f"{'fused' if fused else 'unfused'} b{BATCH} batch: {n} "
+                f"device events, busy share {share:.3f}", summary=True)
+    log(f"phase 17 (fused): {time.perf_counter() - t_phase:.1f} s",
+        summary=True)
+    return launches["split_sampler"]
+
+
+def _clone_tree(t):
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    return t.detach().clone()
+
+
+def parallel_rank(args) -> int:
+    """One rank of phase 18 (this script with --rank): joins the process
+    group, runs its steps and prints one ``PHASE18 {json}`` line per
+    result."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from multimodal_auv_torch.bayes.packing import PackedPosterior
+    from multimodal_auv_torch.config import BNNPriorSpec, DistSpec, MeshSpec
+    from multimodal_auv_torch.data.packing import load_packed
+    from multimodal_auv_torch.device import resolve_device
+    from multimodal_auv_torch.engine.mc import mc_logits
+    from multimodal_auv_torch.engine.optim import (
+        BayesTrainState,
+        make_optimizer,
+    )
+    from multimodal_auv_torch.engine.steps import make_train_step
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        ModelBundle,
+        make_multimodal_bundle,
+        multimodal_module,
+    )
+    from multimodal_auv_torch.ops import kernels
+    from multimodal_auv_torch.ops.preprocess import normalize_multimodal
+    from multimodal_auv_torch.parallel import collectives as C
+    from multimodal_auv_torch.parallel import mesh as M
+    from multimodal_auv_torch.parallel.collectives import COUNTS, reset_counts
+    from multimodal_auv_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+
+    def emit(**kw):
+        print("PHASE18 " + json.dumps(dict(kw, rank=args.rank,
+                                           world=args.world,
+                                           backend=args.backend)),
+              flush=True)
+
+    coord = f"127.0.0.1:{args.port}"
+    if args.world > 1:
+        maybe_initialize_distributed(DistSpec(
+            coordinator=coord, num_processes=args.world,
+            process_id=args.rank, initialization_timeout=300,
+            backend=args.backend))
+    else:  # a group of one, to run the step under NCCL's process group
+        torch.cuda.set_device(0)
+        dist.init_process_group(args.backend, init_method=f"tcp://{coord}",
+                                world_size=1, rank=0)
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        if float(one) != 1.0:
+            raise AssertionError(f"NCCL all_reduce of 1 over 1 rank: {one}")
+    try:
+        dev = resolve_device(None)
+        base = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                      torch.Generator().manual_seed(args.seed),
+                                      ArchConfig(), device=dev)
+        modules = {torch.bfloat16: base.module,
+                   torch.float32: multimodal_module(NUM_CLASSES, ArchConfig(
+                       dtype=torch.float32))}
+        rng = np.random.default_rng(args.seed + 18)
+        inputs = [torch.from_numpy(rng.integers(
+            0, 256, (TRAIN_BATCH, IMAGE, IMAGE, c), dtype=np.uint8)).to(dev)
+            for c in (3, 3, 1)]
+        labels = torch.from_numpy(rng.integers(0, NUM_CLASSES,
+                                               TRAIN_BATCH)).to(dev)
+        mask = torch.ones(TRAIN_BATCH, device=dev)
+
+        def clone(dtype):
+            p = base.post
+            return ModelBundle(modules[dtype], PackedPosterior(
+                p.mu.detach().clone(), p.rho.detach().clone(),
+                _clone_tree(p.det)), base.meta, _clone_tree(base.batch_stats))
+
+        def train(mesh, fsdp=False, dtype=torch.float32, perm=None):
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            b = clone(dtype)
+            x, y = inputs, labels
+            if perm is not None:  # the same batch, its rows reordered
+                x, y = [a[perm] for a in x], y[perm]
+            tx = make_optimizer(PAR_LR, 1e-5)
+            state = BayesTrainState(b.post, tx.init(b.post) if mesh is None
+                                    else M.shard_optimizer(mesh, tx, b.post,
+                                                           fsdp),
+                                    b.batch_stats)
+            step = make_train_step(b.module, b.meta, BNNPriorSpec(), NUM_MC,
+                                   mc_chunk=1, packed_inputs=True,
+                                   remat="on", mesh=mesh)
+            if mesh is not None:
+                step = M.wrap_train_step(mesh, step)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            reset_counts()
+            t0 = time.perf_counter()
+            state, m = step(state, x, y, mask,
+                            torch.Generator().manual_seed(args.seed + 18),
+                            PAR_KL_WEIGHT, float(TRAIN_BATCH))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # the state's bytes after its first step (posterior, gradients,
+            # Adam moments) and the step's peak, both above the start
+            mem = {"state_mib": (torch.cuda.memory_allocated() - mem0) / 2**20,
+                   "peak_mib": (torch.cuda.max_memory_allocated() - mem0)
+                   / 2**20}
+            return state, m, dict(kernels.LAUNCHES), dict(COUNTS), wall, mem
+
+        def summary(state, m, launches, coll, wall, mem, label):
+            mu = state.post.mu.detach().double()
+            emit(label=label, loss=float(m["loss"]), skipped=m["skipped"],
+                 mu_sum=float(mu.sum()), mu_sq=float((mu * mu).sum()),
+                 launches=launches, collectives=coll, seconds=wall, **mem)
+
+        @contextlib.contextmanager
+        def planted(fault):
+            """A fault planted in BatchNorm's sums for one step, a negative
+            control the gates must reject: "bn_local" skips their
+            all_reduce (each rank normalises by its own rows); "bn_no_bwd"
+            keeps the forward's sum and drops the all_reduce of its
+            backward (the right loss, wrong gradients)."""
+            saved = C.all_reduce_sum
+            if fault == "bn_local":
+                C.all_reduce_sum = lambda t, axis: t
+            else:
+                C.all_reduce_sum = lambda t, axis: t + (
+                    C.all_reduce_(t.detach().clone(), axis) - t.detach())
+            try:
+                yield
+            finally:
+                C.all_reduce_sum = saved
+
+        if args.world == 1:
+            mesh = M.make_mesh(MeshSpec(1, 1))
+            got = train(mesh)
+            summary(*got, label="nccl_world1")
+            ref = train(None)
+            summary(*ref, label="one_process")
+            _compare_steps(got[0], ref[0], got[1], ref[1], emit,
+                           "nccl_world1")
+            return 0
+
+        data2 = M.make_mesh(MeshSpec(2, 1))
+        # the control: one process on the same batch with its two halves
+        # swapped, the same function with its sums in another order
+        halves = torch.arange(TRAIN_BATCH, device=dev).roll(TRAIN_BATCH // 2)
+        for dtype, name in ((torch.bfloat16, "data2_bf16"),
+                            (torch.float32, "data2")):
+            ref = None
+            if args.rank == 0:  # rank 1 waits in the first collective
+                ref = train(None, dtype=dtype)
+                summary(*ref, label=f"one_process_{name}")
+                ctl = train(None, dtype=dtype, perm=halves)
+                _compare_steps(ctl[0], ref[0], ctl[1], ref[1], emit,
+                               f"{name}_control")
+                del ctl
+            got = train(data2, dtype=dtype)
+            summary(*got, label=name)
+            if ref is not None:
+                _compare_steps(got[0], ref[0], got[1], ref[1], emit, name)
+            for fault in PAR_FAULTS[name]:
+                with planted(fault):
+                    bad = train(data2, dtype=dtype)
+                summary(*bad, label=f"{name}_{fault}")
+                if ref is not None:
+                    _compare_steps(bad[0], ref[0], bad[1], ref[1], emit,
+                                   f"{name}_{fault}")
+                del bad
+            del ref
+            if dtype == torch.float32:
+                fs = train(data2, fsdp=True)
+                summary(*fs, label="data2_fsdp")
+                exp = [s.opt_state.state_dict()["state"][0]["exp_avg"]
+                       for s in (got[0], fs[0])]
+                _compare_steps(fs[0], got[0], fs[1], got[1], emit,
+                               "fsdp", exp_avg_rel_l2=_rel(exp[1], exp[0]))
+                del fs, exp
+            del got
+            torch.cuda.empty_cache()
+
+        # mc=2: each rank draws its row of every chunk of 2
+        mc2 = M.make_mesh(MeshSpec(1, 2))
+        packed = load_packed(os.path.join(args.work, "packed"))
+        u8 = [torch.from_numpy(np.asarray(packed[k][:BATCH])).to(dev)
+              for k in ("main", "bathy", "sss")]
+        bmask = torch.ones(BATCH, dtype=torch.bool, device=dev)
+
+        def logits(ws):
+            with torch.inference_mode():
+                return mc_logits(
+                    base.module, base.meta, base.post, base.batch_stats,
+                    normalize_multimodal(*u8),
+                    torch.Generator().manual_seed(args.seed + 1), NUM_MC,
+                    mc_chunk=2, train=True, remat=False,
+                    sample_dtype=torch.bfloat16, batch_mask=bmask,
+                    split_sampling=False, ws_sharding=ws)
+
+        torch.cuda.synchronize()
+        reset_launches()
+        reset_counts()
+        t0 = time.perf_counter()
+        sharded = logits(mc2)
+        torch.cuda.synchronize()
+        emit(label="mc2", launches=dict(kernels.LAUNCHES),
+             collectives=dict(COUNTS), seconds=time.perf_counter() - t0)
+        if args.rank == 0:
+            want = logits(None)
+            emit(label="mc2_vs_stacked",
+                 max_abs=float((sharded.float() - want.float()).abs().max()),
+                 bit_equal=bool(torch.equal(sharded, want)),
+                 shape=list(sharded.shape))
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel(a, b) -> float:
+    """Relative L2 error of ``a`` against ``b``."""
+    return float((a - b).double().norm() / b.double().norm())
+
+
+def _flat_stats(tree) -> torch.Tensor:
+    """Every running statistic of a BatchNorm tree as one f64 vector."""
+    if isinstance(tree, dict):
+        return torch.cat([_flat_stats(tree[k]) for k in sorted(tree)])
+    return tree.detach().double().reshape(-1)
+
+
+def _compare_steps(state, ref, m, ref_m, emit, label, **extra) -> None:
+    """One train step's result against a reference step's: the loss, the
+    gradients' and the updated running statistics' relative L2 errors,
+    the share of updated mu within PAR_MU_ATOL and the largest
+    differences."""
+    d = (state.post.mu.detach() - ref.post.mu.detach()).abs()
+    emit(label=f"{label}_vs_ref",
+         loss_rel=abs(float(m["loss"]) - float(ref_m["loss"]))
+         / abs(float(ref_m["loss"])),
+         stats_rel_l2=_rel(_flat_stats(state.batch_stats),
+                           _flat_stats(ref.batch_stats)),
+         grad_rel_l2={k: _rel(getattr(state.post, k).grad,
+                              getattr(ref.post, k).grad)
+                      for k in ("mu", "rho")},
+         mu_share=float((d <= PAR_MU_ATOL).double().mean()),
+         mu_max_abs=float(d.max()),
+         rho_max_abs=float((state.post.rho.detach()
+                            - ref.post.rho.detach()).abs().max()), **extra)
+
+
+def _run_ranks(world: int, backend: str, args, work: str) -> list:
+    """Run ``world`` ranks of this script (--rank) and return their
+    PHASE18 results; any rank failing or outliving PAR_TIMEOUT fails the
+    phase, and every rank is stopped on the way out."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(world), "--backend", backend, "--port", str(port),
+         "--work", work, "--seed", str(args.seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 18 rank {r}/{world} ({backend}) "
+                                 f"exited {p.returncode}:\n{out[-6000:]}")
+    return [json.loads(ln[len("PHASE18 "):]) for out in outs
+            for ln in out.splitlines() if ln.startswith("PHASE18 ")]
+
+
+def phase_parallel(args, smi: str, bundle, work: str) -> dict:
+    """Phase 18 (see the module docstring). Returns the launches of #2 and
+    #3 its ranks counted on their paths."""
+    from multimodal_auv_torch.bayes.packing import softplus
+    from multimodal_auv_torch.ops import sampling as S
+
+    t_phase = time.perf_counter()
+    # kernel #2 in the mc-sharded path's form: bf16 mu, sigma and output
+    with torch.no_grad():
+        mu = bundle.post.mu.detach().to(torch.bfloat16)
+        sg = softplus(bundle.post.rho.detach().float()).to(torch.bfloat16)
+        for n in (1, 2):
+            seed = S.draw_offset_seed((2024, 18), n, mu.numel())
+            got = S.gaussian_shift_scale(mu, sg, seed, n,
+                                         out_dtype=torch.bfloat16)
+            want = S.stacked_plain(mu, sg, seed, n, torch.bfloat16)
+            if not torch.equal(got, want):
+                raise AssertionError(f"stacked_sampler bf16 in and out != "
+                                     f"plain at P={mu.numel()}, {n} draws")
+            del got, want
+    log(f"stacked_sampler == plain bit for bit: bf16 mu, sigma and output, "
+        f"P={mu.numel()}, 1 and 2 draws (folded seeds)")
+    del mu, sg
+    free_cuda()
+
+    res = _run_ranks(2, "gloo", args, work)
+    res += _run_ranks(1, "nccl", args, work)
+    by = {(r["label"], r["rank"], r["backend"]): r for r in res}
+    for r in res:
+        body = {k: v for k, v in r.items()
+                if k not in ("rank", "world", "backend")}
+        log(f"phase 18 {r['backend']} rank {r['rank']}/{r['world']}: "
+            f"{json.dumps(body)}", summary=True)
+    want = {"stacked_sampler": 2 * NUM_MC, "eps": NUM_MC}
+    full = lambda w: {k: w.get(k, 0) for k in by[("data2", 0, "gloo")][
+        "launches"]}
+    for label in ("data2_bf16", "data2", "data2_fsdp"):
+        a, b = by[(label, 0, "gloo")], by[(label, 1, "gloo")]
+        for r in (a, b):
+            if r["launches"] != full(want) or r["skipped"]:
+                raise AssertionError(f"{label}: {r}")
+        if (a["mu_sum"], a["mu_sq"]) != (b["mu_sum"], b["mu_sq"]):
+            raise AssertionError(f"{label}: the ranks' mu differ")
+    grad = lambda key: max(by[key]["grad_rel_l2"].values())
+    # f32: data=2 within PAR_GRAD_CONTROL x the control's own error (the
+    # one-process step on its batch halves swapped), and under the cap
+    # (loss, gradients, running statistics); bf16: no gradient gate
+    gates = {"data2_bf16": (PAR_LOSS_RTOL_BF16, None, PAR_STATS_RTOL_BF16),
+             "data2": (PAR_LOSS_RTOL, min(
+                 PAR_GRAD_CONTROL * grad(("data2_control_vs_ref", 0, "gloo")),
+                 PAR_GRAD_CAP), PAR_STATS_RTOL)}
+    repeat = (PAR_LOSS_RTOL, PAR_GRAD_REPEAT, PAR_GRAD_REPEAT)
+
+    def held(key, loss_tol, grad_tol, stats_tol) -> bool:
+        c = by[key]
+        return (c["loss_rel"] <= loss_tol
+                and (grad_tol is None or grad(key) <= grad_tol)
+                and c["stats_rel_l2"] <= stats_tol
+                and c.get("exp_avg_rel_l2", 0.0) <= PAR_GRAD_REPEAT)
+
+    checks = [(("nccl_world1_vs_ref", 0, "nccl"), repeat)]
+    checks += [(("fsdp_vs_ref", r, "gloo"), repeat) for r in (0, 1)]
+    for name, tols in gates.items():
+        checks.append(((f"{name}_vs_ref", 0, "gloo"), tols))
+        for fault in PAR_FAULTS[name]:
+            key = (f"{name}_{fault}_vs_ref", 0, "gloo")
+            if held(key, *tols):
+                raise AssertionError(
+                    f"{name}'s gates (loss, gradients, statistics {tols}) "
+                    f"let the planted fault {fault} through: {by[key]}")
+    for key, tols in checks:
+        if not held(key, *tols):
+            raise AssertionError(f"{key[0]} (gates: loss, gradients, "
+                                 f"statistics {tols}): {by[key]}")
+    # fsdp keeps (1 - 1/2) of the four P-float moment vectors: its state
+    # must be at least one P-float vector smaller than data=2's
+    P_mib = bundle.post.mu.numel() * 4 / 2**20
+    for r in range(2):
+        fs, d2 = by[("data2_fsdp", r, "gloo")], by[("data2", r, "gloo")]
+        if not fs["state_mib"] <= d2["state_mib"] - P_mib:
+            raise AssertionError(f"fsdp rank {r}: state {fs['state_mib']:.1f}"
+                                 f" MiB, data=2 {d2['state_mib']:.1f} MiB")
+    if by[("nccl_world1", 0, "nccl")]["launches"] != full(want):
+        raise AssertionError("nccl world 1: launches")
+    for r in range(2):
+        if by[("mc2", r, "gloo")]["launches"] != full(
+                {"stacked_sampler": NUM_MC // 2}):
+            raise AssertionError(f"mc=2 rank {r}: launches")
+    c = by[("mc2_vs_stacked", 0, "gloo")]
+    if not c["bit_equal"]:
+        raise AssertionError(f"mc=2 logits != the stacked path's: {c}")
+    log(f"phase 18 (parallel): data=2, fsdp, mc=2 and NCCL world 1 ok "
+        f"[{smi}] in {time.perf_counter() - t_phase:.1f} s", summary=True)
+    out = {"stacked_sampler": 0, "eps": 0}
+    for (label, _, _), r in by.items():
+        for k in out:
+            out[k] += r.get("launches", {}).get(k, 0) if label in (
+                "data2_bf16", "data2", "data2_fsdp", "mc2",
+                "nccl_world1") else 0
+    return out
 
 
 def check_train_kernels(post, n_padded: int):
@@ -2111,7 +2685,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    # one rank of phase 18 (the script starts them itself)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--work", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank is not None:
+        return parallel_rank(args)
 
     # every phase passes its weights as a local file: never try the Hub
     os.environ.setdefault("HF_HUB_OFFLINE", "1")
@@ -2129,6 +2711,12 @@ def main() -> int:
         bundle, split_entry, mc_rate = phase_main_path(args, smi, work)
         kernels_line = [split_entry] + phase_training(args, smi, bundle,
                                                       work)
+        free_cuda()
+        split_entry["launches"] += phase_fused(args, smi, bundle, work)
+        free_cuda()
+        parallel = phase_parallel(args, smi, bundle, work)
+        for e in kernels_line:
+            e["launches"] += parallel.get(e["name"], 0)
         P_full = bundle.meta.n_padded
         del bundle
         free_cuda()
@@ -2149,10 +2737,12 @@ def main() -> int:
         free_cuda()
         split_launches += phase_dvp(args, smi, work, weights, mc_rate)
         # each kernel's launches on the paths: add phases 13, 14, 15 and 16
+        # (17 and 18 were added above)
         retrain["split_sampler"] += split_launches
         for e in kernels_line:
             e["launches"] += retrain[e["name"]]
         kernels_line += phase_probe(smi, P_full)
+    log("summary of phases 17-18:\n  " + "\n  ".join(SUMMARY))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))

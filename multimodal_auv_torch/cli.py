@@ -36,41 +36,51 @@ def _add_device_flag(parser):
 
 def _add_mesh_flags(parser):
     parser.add_argument("--mesh_data", type=int, default=0,
-                        help="data-parallel mesh axis (not ported yet)")
+                        help="data-parallel mesh axis: each batch's rows "
+                             "split over this many processes (0 = the "
+                             "process count // mesh_mc)")
     parser.add_argument("--mesh_mc", type=int, default=1,
-                        help="MC-ensemble mesh axis (not ported yet)")
+                        help="MC-ensemble mesh axis: each chunk's draws "
+                             "split over this many processes")
     parser.add_argument("--fsdp", action="store_true",
-                        help="shard the posterior and Adam moments (not "
-                             "ported yet)")
+                        help="shard the posterior's Adam moments over every "
+                             "process")
 
 
-def _mesh_spec(args) -> None:
-    if args.mesh_data > 0 or args.mesh_mc > 1 or args.fsdp:
-        raise NotPorted("--mesh_data / --mesh_mc / --fsdp are not ported "
-                        "yet: ROADMAP.md, Open items, 1 'Modules to port' "
-                        "item 8 (parallel)")
-    return None
+def _mesh_spec(args):
+    if args.mesh_data <= 0 and args.mesh_mc <= 1 and not args.fsdp:
+        return None
+    from multimodal_auv_torch.config import MeshSpec
+
+    # data=0 means "the process count // mc" in make_mesh
+    return MeshSpec(data=max(args.mesh_data, 0), mc=max(args.mesh_mc, 1),
+                    fsdp=args.fsdp)
 
 
 def _add_dist_flags(parser):
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="multi-host coordinator 'host:port' (not "
-                             "ported yet)")
+                        help="multi-process run: rank 0's 'host:port', where "
+                             "the process group meets; every process runs "
+                             "this same command with its own --process_id")
     parser.add_argument("--num_processes", type=int, default=0,
-                        help="multi-host: total number of processes (not "
-                             "ported yet)")
+                        help="multi-process run: total number of processes, "
+                             "one per card")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="multi-host: this process's index")
+                        help="multi-process run: this process's rank")
     parser.add_argument("--dist_timeout", type=int, default=300,
-                        help="multi-host: rendezvous timeout (seconds)")
+                        help="multi-process run: rendezvous timeout "
+                             "(seconds)")
 
 
-def _dist_spec(args) -> None:
-    if args.coordinator is not None or args.num_processes > 1:
-        raise NotPorted("--coordinator / --num_processes are not ported "
-                        "yet: ROADMAP.md, Open items, 1 'Modules to port' "
-                        "item 8 (parallel)")
-    return None
+def _dist_spec(args):
+    if args.num_processes and args.num_processes > 1:
+        from multimodal_auv_torch.config import DistSpec
+
+        return DistSpec(coordinator=args.coordinator,
+                        num_processes=args.num_processes,
+                        process_id=args.process_id,
+                        initialization_timeout=args.dist_timeout)
+    return None  # the pipelines still read the AUV_* environment
 
 
 def _refuse_training_flags(args) -> None:

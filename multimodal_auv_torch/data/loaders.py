@@ -21,6 +21,7 @@ from typing import Any, Iterator, List, Optional, Sequence
 import numpy as np
 
 from multimodal_auv_torch.config import IMAGE_SIZE
+from multimodal_auv_torch.parallel.distributed import barrier, is_coordinator
 from multimodal_auv_torch.data.datasets import (
     ConcatDataset,
     InferenceFolderDataset,
@@ -123,7 +124,7 @@ class DataLoader:
         self._epoch += 1
         if self.num_workers == 0:
             for b in batches:
-                yield _collate([self.dataset[i] for i in b])
+                yield _collate(self._load_samples(b, map))
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
@@ -145,7 +146,7 @@ class DataLoader:
                     if stop.is_set():
                         return
                     try:
-                        samples = list(pool.map(self.dataset.__getitem__, b))
+                        samples = self._load_samples(b, pool.map)
                     except Exception as e:  # handed to the consumer, raised there
                         put(e)
                         return
@@ -166,6 +167,75 @@ class DataLoader:
         finally:
             stop.set()
             t.join(timeout=10)
+
+
+    def _load_samples(self, b: List[int], mapper) -> List[Any]:
+        """The samples of batch ``b``, decoded through ``mapper`` (``map``,
+        or the worker pool's)."""
+        return list(mapper(self.dataset.__getitem__, b))
+
+
+class HostShardLoader(DataLoader):
+    """Multi-process feeding, torch's DistributedSampler's analogue (port
+    of the JAX package's ``HostShardLoader``): every data rank iterates
+    the SAME global index order (same seed, same pinned epoch), but
+    decodes ONLY its contiguous rows [pi * B / P, (pi + 1) * B / P) of each
+    global batch. Batches stay GLOBAL-shaped: the rows of other ranks are
+    zero-filled placeholders with their true labels (read from
+    ``dataset.labels``, no decode), so the eval ledgers see every label.
+    The mesh's step wrappers take this rank's rows back out; placeholder
+    rows never reach a step. ``process_index`` / ``process_count``: the
+    data rank and the data axis size (the mc ranks of one data rank read
+    the same rows)."""
+
+    def __init__(self, dataset, batch_size: int, *, process_index: int,
+                 process_count: int, **kw):
+        super().__init__(dataset, batch_size, **kw)
+        if batch_size % process_count:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be divisible by the data "
+                f"axis ({process_count}): every rank feeds an equal slice "
+                f"of each global batch")
+        self.process_index, self.process_count = process_index, process_count
+        self.rows_per_host = batch_size // process_count
+        self._zero_template = None
+
+    @classmethod
+    def from_loader(cls, loader: DataLoader, process_index: int,
+                    process_count: int) -> "HostShardLoader":
+        out = cls(loader.dataset, loader.batch_size, shuffle=loader.shuffle,
+                  num_workers=loader.num_workers, seed=loader.seed,
+                  process_index=process_index, process_count=process_count)
+        out._epoch = loader._epoch
+        return out
+
+    def _placeholder(self, label) -> Any:
+        if self._zero_template is None:
+            self._zero_template = _zeros_like_sample(self.dataset[0])
+        out = dict(self._zero_template)  # nested arrays shared, read-only
+        out["label"] = np.int32(label)
+        return out
+
+    def _load_samples(self, b: List[int], mapper) -> List[Any]:
+        lo = self.process_index * self.rows_per_host
+        hi = min(lo + self.rows_per_host, len(b))
+        owned = (list(mapper(self.dataset.__getitem__, b[lo:hi]))
+                 if lo < len(b) else [])
+        labels = getattr(self.dataset, "labels", None)
+        return [owned[j - lo] if lo <= j < hi
+                else self._placeholder(labels[i] if labels is not None
+                                       else 0)
+                for j, i in enumerate(b)]
+
+
+def _zeros_like_sample(sample):
+    if isinstance(sample, dict):
+        return {k: _zeros_like_sample(v) for k, v in sample.items()}
+    if isinstance(sample, (list, tuple)):
+        return type(sample)(_zeros_like_sample(v) for v in sample)
+    if isinstance(sample, (str, bytes)) or sample is None:
+        return sample
+    return np.zeros_like(np.asarray(sample))
 
 
 def prepare_datasets_and_loaders(
@@ -202,7 +272,8 @@ def prepare_packed_train_loaders(
     patch-type pair (data/packing.py) and serve uint8 dict batches from
     memmaps, with the same 80/20 split as ``prepare_datasets_and_loaders``.
     Pair with steps built with ``packed_inputs=True``. A cache packed from
-    other files is repacked. Returns (train_batches, test_batches,
+    other files is repacked. Under a process group rank 0 writes the cache
+    and every rank reads it after a barrier. Returns (train_batches, test_batches,
     num_classes, dataset)."""
     from multimodal_auv_torch.data.packing import (
         PackedTrainBatches,
@@ -219,17 +290,21 @@ def prepare_packed_train_loaders(
     out = os.path.join(
         cache_dir or os.path.join(root_dir, ".packed_train_cache"),
         f"{bathy_patch_type or 'full'}_{sss_patch_type or 'full'}_{sz}")
-    if not os.path.exists(os.path.join(out, "meta.json")):
-        pack_training_dataset(dataset, out, bathy_patch_type, sss_patch_type,
-                              size=sz)
+    if is_coordinator():
+        # rank 0 writes the cache; the others read it after the barrier
+        if not os.path.exists(os.path.join(out, "meta.json")):
+            pack_training_dataset(dataset, out, bathy_patch_type,
+                                  sss_patch_type, size=sz)
+        packed = load_packed_training(out)
+        if (packed["main"].shape[0] != len(dataset)
+                or packed["meta"].get("fingerprint") != dataset_fingerprint(
+                    dataset)):
+            logger.warning("Stale packed cache %s (content mismatch); "
+                           "repacking", out)
+            pack_training_dataset(dataset, out, bathy_patch_type,
+                                  sss_patch_type, size=sz)
+    barrier()
     packed = load_packed_training(out)
-    if (packed["main"].shape[0] != len(dataset)
-            or packed["meta"].get("fingerprint") != dataset_fingerprint(
-                dataset)):
-        logger.warning("Stale packed cache %s (content mismatch); "
-                       "repacking", out)
-        packed = pack_training_dataset(dataset, out, bathy_patch_type,
-                                       sss_patch_type, size=sz)
     train_idx, test_idx = split_indices(len(dataset))
     train = PackedTrainBatches(packed, batch_size, train_idx, shuffle=True,
                                seed=seed)

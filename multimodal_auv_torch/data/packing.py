@@ -227,13 +227,64 @@ class PackedTrainBatches:
                 idx)
             self._epoch += 1
         for i in range(0, len(idx), self.batch_size):
-            take = np.sort(idx[i:i + self.batch_size])
-            yield {
-                "main_image": np.asarray(self.packed["main"][take]),
-                "bathy_image": np.asarray(self.packed["bathy"][take]),
-                "sss_image": np.asarray(self.packed["sss"][take]),
-                "label": np.asarray(self.packed["labels"][take], np.int32),
-            }
+            yield self._materialize(np.sort(idx[i:i + self.batch_size]))
+
+    def _materialize(self, take: np.ndarray) -> Dict[str, np.ndarray]:
+        """The batch of the packed rows ``take``."""
+        return {
+            "main_image": np.asarray(self.packed["main"][take]),
+            "bathy_image": np.asarray(self.packed["bathy"][take]),
+            "sss_image": np.asarray(self.packed["sss"][take]),
+            "label": np.asarray(self.packed["labels"][take], np.int32),
+        }
+
+
+class HostShardPackedBatches(PackedTrainBatches):
+    """Multi-process packed feeding, the twin of ``data/loaders.py::
+    HostShardLoader``: every data rank iterates the SAME seeded global
+    batch order but reads ONLY its contiguous rows [pi * B / P, (pi + 1) *
+    B / P) of each global batch from the memmaps. Batches stay
+    GLOBAL-shaped: the other ranks' image rows are zeros, the labels are
+    all filled (from the in-memory labels array), and the mesh's step
+    wrappers take this rank's rows back out."""
+
+    def __init__(self, packed: Dict[str, object], batch_size: int,
+                 indices=None, shuffle: bool = False, seed: int = 0, *,
+                 process_index: int, process_count: int):
+        super().__init__(packed, batch_size, indices, shuffle, seed)
+        if batch_size % process_count:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be divisible by the data "
+                f"axis ({process_count}): every rank feeds an equal slice "
+                f"of each global batch")
+        self.process_index, self.process_count = process_index, process_count
+        self.rows_per_host = batch_size // process_count
+
+    @classmethod
+    def from_batches(cls, b: PackedTrainBatches, process_index: int,
+                     process_count: int) -> "HostShardPackedBatches":
+        out = cls(b.packed, b.batch_size, b.indices, shuffle=b.shuffle,
+                  seed=b._seed, process_index=process_index,
+                  process_count=process_count)
+        out._epoch = b._epoch
+        return out
+
+    def _materialize(self, take: np.ndarray) -> Dict[str, np.ndarray]:
+        n = len(take)
+        lo = self.process_index * self.rows_per_host
+        hi = min(lo + self.rows_per_host, n)
+        own = take[lo:hi] if lo < n else take[:0]
+        batch = {}
+        for out_key, in_key in (("main_image", "main"),
+                                ("bathy_image", "bathy"),
+                                ("sss_image", "sss")):
+            mm = self.packed[in_key]
+            arr = np.zeros((n,) + tuple(mm.shape[1:]), mm.dtype)
+            if len(own):
+                arr[lo:hi] = mm[own]
+            batch[out_key] = arr
+        batch["label"] = np.asarray(self.packed["labels"][take], np.int32)
+        return batch
 
 
 class PackedBatches:

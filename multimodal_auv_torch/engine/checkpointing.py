@@ -9,7 +9,13 @@
   so the scheduler metadata commits together with the weights.
 
 Every file is written to a temporary name and renamed into place, so a
-crash mid-write leaves the previous checkpoint whole. Tensors are saved on
+crash mid-write leaves the previous checkpoint whole. Under a process
+group every rank checks that it names the same path
+(``parallel.distributed.assert_same_across_processes``) and rank 0 alone
+writes: the posterior is replicated, and a sharded optimizer's
+``state_dict`` gathers its moments (a collective every rank joins), so the
+file is the one a single process writes. Every rank reads the file to
+resume. Tensors are saved on
 the CPU and restored onto the device of the state they are restored into.
 Async saving is not ported yet (``async_save=True`` raises).
 """
@@ -24,6 +30,10 @@ import torch
 from multimodal_auv_torch.bayes.packing import PackedPosterior, tree_to
 from multimodal_auv_torch.engine.mc import not_ported
 from multimodal_auv_torch.engine.optim import BayesTrainState
+from multimodal_auv_torch.parallel.distributed import (
+    assert_same_across_processes,
+    is_coordinator,
+)
 
 logger = logging.getLogger(__name__)
 _ASYNC = ("async checkpoint saves", "5 (training: async checkpoints)")
@@ -41,6 +51,9 @@ def _post_dict(post: PackedPosterior) -> Dict[str, Any]:
 
 def _atomic_save(obj, path: str) -> str:
     path = os.path.abspath(path)
+    assert_same_across_processes("checkpoint path", path)
+    if not is_coordinator():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(obj, tmp)

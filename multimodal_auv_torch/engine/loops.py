@@ -9,10 +9,16 @@ off-by-one, ``skip_epoch_zero``). Randomness: each epoch's train and eval
 generators are derived from the base seed and the absolute epoch index,
 and the loaders' shuffle epoch is pinned to that index, so a run resumed
 at epoch e replays an uninterrupted run exactly.
+
+Under a process group every rank runs the loops on global-shaped batches
+(the steps are wrapped by ``parallel/mesh.py``); rank 0 alone writes the
+CSV ledgers and confusion matrices, and checkpoints
+(``engine/checkpointing.py``).
 """
 from __future__ import annotations
 
 import csv
+import io
 import logging
 import os
 from pathlib import Path
@@ -32,6 +38,7 @@ from multimodal_auv_torch.engine.steps import (
     unfuse_eval_metrics,
     unfuse_train_metrics,
 )
+from multimodal_auv_torch.parallel.distributed import is_coordinator
 from multimodal_auv_torch.utils.plotting import save_confusion_matrix
 
 logger = logging.getLogger(__name__)
@@ -97,8 +104,20 @@ class _LaggedFetch:
         return self.push(None)
 
 
+class _NullCSVWriter:
+    """csv.writer stand-in for the ranks that own no ledger."""
+
+    def writerow(self, row):
+        pass
+
+
 def _ledger_open(csv_path: str):
-    """(file, writer, write_header) of an appended CSV ledger."""
+    """(file, writer, write_header) of an appended CSV ledger. Under a
+    process group only rank 0 opens it: ``open(mode="a")`` creates the
+    file, and would race rank 0's header-if-new check; the other ranks
+    get an in-memory buffer and a writer that discards."""
+    if not is_coordinator():
+        return io.StringIO(), _NullCSVWriter(), False
     exists = os.path.isfile(csv_path)
     f = open(csv_path, mode="a", newline="")
     return f, csv.writer(f), not exists
@@ -292,8 +311,9 @@ def evaluate_multimodal_model(
 
             test_accuracy = correct / max(total, 1.0)
             test_loss = total_loss / max(len(dataloader), 1)
-            save_confusion_matrix(all_lab, all_pred, csv_path, model_type,
-                                  epoch, class_names)
+            if is_coordinator():
+                save_confusion_matrix(all_lab, all_pred, csv_path,
+                                      model_type, epoch, class_names)
             writer.writerow([
                 epoch + 1, model_type, test_loss, test_accuracy,
                 float(np.mean(all_predictive)) if all_predictive else 0.0,
@@ -526,8 +546,9 @@ def evaluate_unimodal_model(
 
             accuracy = correct / max(total, 1.0)
             avg_loss = total_loss / max(total, 1.0)
-            save_confusion_matrix(all_lab, all_pred, csv_path, model_type,
-                                  epoch, class_names)
+            if is_coordinator():
+                save_confusion_matrix(all_lab, all_pred, csv_path,
+                                      model_type, epoch, class_names)
             writer.writerow([
                 epoch + 1, model_type, avg_loss, accuracy,
                 float(np.mean(all_epi)) if all_epi else 0.0,

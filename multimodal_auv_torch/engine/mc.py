@@ -37,9 +37,11 @@ from multimodal_auv_torch.bayes.packing import PackedPosterior, PackMeta, softpl
 from multimodal_auv_torch.ops.sampling import (
     chunk_seed_words,
     chunk_seeds,
+    draw_offset_seed,
     gaussian_shift_scale,
     gaussian_shift_scale_split,
 )
+from multimodal_auv_torch.parallel.collectives import LOCAL, gather_draws
 
 
 def not_ported(flag: str, item: str) -> NotImplementedError:
@@ -112,15 +114,20 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
     before sampling (inference); False keeps them f32 and casts only the
     sampler's output (training: f32 master posterior and f32 gradients).
     ``split_sampling``: the split sampler; ignored (stacked) with
-    ``return_batch_stats``. ``fast_sampling``: the bf16-budget noise on the
-    split path (None = exactly when sampling to bf16); the stacked path
-    always uses the f32 noise its backward regenerates. ``train``: BN from
-    batch statistics (else running statistics). ``remat``: checkpoint each
-    chunk's sampling and forwards when gradients are being recorded."""
+    ``return_batch_stats`` or ``ws_sharding``. ``ws_sharding``: a mesh
+    (``parallel/mesh.py``) whose mc axis splits each chunk's draws:
+    rank m draws rows [m k, (m + 1) k) of every chunk, k = mc_chunk / mc,
+    from the chunk's seed with its draw offset folded in
+    (``draw_offset_seed``), so the rows equal the unsharded stack's, and
+    the logits are gathered over the mc axis (differentiably: each rank's
+    backward takes its own draws' gradient). ``fast_sampling``: the
+    bf16-budget noise on the split path (None = exactly when sampling to
+    bf16); the stacked path always uses the f32 noise its backward
+    regenerates. ``train``: BN from batch statistics (else running
+    statistics). ``remat``: checkpoint each chunk's sampling and forwards
+    when gradients are being recorded."""
     if antithetic:
         raise not_ported("antithetic", "5 (training: antithetic draws)")
-    if ws_sharding is not None:
-        raise not_ported("ws_sharding", "8 (parallel)")
     if pipelined:
         raise not_ported("pipelined", "4 (MC inference, pipelined variant)")
     if num_mc % mc_chunk != 0:
@@ -129,7 +136,15 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
     if return_batch_stats and not train:
         raise ValueError("return_batch_stats requires train=True")
     nchunks = num_mc // mc_chunk
-    if split_sampling and not return_batch_stats:
+    axis = LOCAL if ws_sharding is None else ws_sharding.mc_axis
+    if mc_chunk % axis.size:
+        raise ValueError(f"mc_chunk={mc_chunk} must be divisible by the mc "
+                         f"axis ({axis.size})")
+    if return_batch_stats and axis.size > 1:
+        raise ValueError("return_batch_stats: chained BN updates are "
+                         "sequential per draw, incompatible with mc-sharded "
+                         "draws (refresh_batch_stats instead)")
+    if split_sampling and not return_batch_stats and ws_sharding is None:
         seeds = chunk_seed_words(generator, nchunks)
         return split_mc_logits(
             module, meta, post, batch_stats, inputs,
@@ -138,6 +153,7 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
             fast_sampling=fast_sampling)
 
     mu, sigma = _sampling_posterior(post, sample_dtype, cast_posterior)
+    P = mu.shape[0]
     # seeds come from the generator here, outside any checkpoint: drawn
     # inside, the re-forward would sample other weights
     seeds = chunk_seeds(generator, nchunks)
@@ -152,13 +168,16 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
 
     recording = torch.is_grad_enabled() and (mu.requires_grad
                                              or sigma.requires_grad)
-    if remat and recording and mc_chunk > 4:
+    # under an mc axis this rank draws rows [d0, d0 + k) of every chunk
+    k = mc_chunk // axis.size
+    d0 = axis.index * k
+    if remat and recording and k > 4:
         raise not_ported("remat with mc_chunk > 4 (per-draw checkpoints "
                          "keeping the sampled weights)", "5 (training)")
 
     def chunk(seed, bs):
-        ws = gaussian_shift_scale(mu, sigma, seed, mc_chunk,
-                                  out_dtype=sample_dtype)
+        ws = gaussian_shift_scale(mu, sigma, draw_offset_seed(seed, d0, P),
+                                  k, out_dtype=sample_dtype)
         outs = []
         for w in ws.unbind(0):
             out, bs = fwd(w, bs)
@@ -175,6 +194,12 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
             out, bs = chunk(seed, bs)
         logits.append(out)
     logits = torch.cat(logits)
+    if axis.size > 1:
+        # [rank 0's draws of every chunk | rank 1's | ...] -> chunk order
+        logits = gather_draws(logits, axis).view(
+            (axis.size, nchunks, k) + tuple(logits.shape[1:]))
+        logits = logits.transpose(0, 1).reshape((num_mc,)
+                                                + tuple(logits.shape[3:]))
     return (logits, bs) if return_batch_stats else logits
 
 

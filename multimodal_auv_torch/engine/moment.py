@@ -53,7 +53,7 @@ from multimodal_auv_torch.bayes.packing import (
     PackMeta,
     softplus,
 )
-from multimodal_auv_torch.engine.predict import _mc_outputs
+from multimodal_auv_torch.engine.predict import _mc_outputs, mesh_predict_step
 from multimodal_auv_torch.models.model_utils import ModelBundle
 from multimodal_auv_torch.models.resnet import conv
 from multimodal_auv_torch.ops.preprocess import normalize_multimodal
@@ -62,6 +62,7 @@ from multimodal_auv_torch.ops.sampling import (
     chunk_seed_words,
     split_draws,
 )
+from multimodal_auv_torch.parallel.collectives import gather_rows, sync_sums
 
 logger = logging.getLogger(__name__)
 
@@ -141,9 +142,13 @@ def batchnorm_moments(m: torch.Tensor, v: torch.Tensor, scale: torch.Tensor,
     statistics are the mean map's (population variance) plus the mean
     input variance; the output variance is scaled by the same factor."""
     axes = (0,) + tuple(range(2, m.dim()))
-    bm = _channels(m.mean(dim=axes), m.dim())
-    centred = m - bm
-    bv = (centred * centred).mean(dim=axes) + v.mean(dim=axes)
+    # [sum m | sum v] over the BN axis, then the sum of squares centred on
+    # that global mean (two all_reduces under a mesh, none without)
+    sums, count = sync_sums(torch.cat([m.sum(dim=axes), v.sum(dim=axes)]),
+                            m.numel() // m.shape[1])
+    mean_m, mean_v = (sums / count).chunk(2)
+    centred = m - _channels(mean_m, m.dim())
+    bv = sync_sums((centred * centred).sum(dim=axes))[0] / count + mean_v
     inv = scale / torch.sqrt(bv + eps)
     m_out = centred * _channels(inv, m.dim()) + _channels(bias, m.dim())
     v_out = v * _channels(inv * inv, m.dim())
@@ -362,7 +367,7 @@ def _draw(layout: DrawLayout, mu, var, fm, fv, seeds: torch.Tensor,
 
 
 def make_dvp_logits_fn(bundle: ModelBundle, num_feature_samples: int,
-                       packed_inputs: bool = False) -> Callable:
+                       packed_inputs: bool = False, mesh=None) -> Callable:
     """(post, batch_stats, inputs, seeds, mask) -> (S, B, C) f32 logits of
     the multimodal DVP step, S = ``num_feature_samples``, its draws from
     the seed words in row 0 of ``seeds`` ((1, 2) int64 on the posterior's
@@ -374,7 +379,13 @@ def make_dvp_logits_fn(bundle: ModelBundle, num_feature_samples: int,
     signature and not used: the moment BN takes its statistics from the
     mean map of the whole batch, so the pad rows of a ragged tail enter
     them, as in the JAX package (an approximation on top of an
-    approximate mode; exact MC keeps its masked BN)."""
+    approximate mode; exact MC keeps its masked BN).
+
+    ``mesh``: ``inputs`` are this data rank's rows (under
+    ``bn_sync(mesh.data_axis)``, so the moment BN's statistics are the
+    global batch's); the pooled feature moments are gathered over the data
+    axis, the draws and the head run on the global batch, as without a
+    mesh, and the logits of this rank's rows are returned."""
     module, meta = bundle.module, bundle.meta
     trunk = getattr(module, _TRUNKS[0])
     stage_sizes = trunk.stage_sizes
@@ -390,23 +401,41 @@ def make_dvp_logits_fn(bundle: ModelBundle, num_feature_samples: int,
                    for n, x in zip(_TRUNKS, inputs)]
         fm = torch.stack([m for m, _ in moments])
         fv = torch.stack([v for _, v in moments])
+        if mesh is not None:
+            # the noise is laid out by global row: draw for the whole batch
+            fm, fv = (gather_rows(t.transpose(0, 1).contiguous(),
+                                  mesh.data_axis).transpose(0, 1)
+                      for t in (fm, fv))
         draws = _draw(layout, post.mu, var, fm, fv, seeds,
                       num_feature_samples)
-        return _multimodal_head(draws, layout)
+        logits = _multimodal_head(draws, layout)
+        if mesh is not None:
+            b = inputs[0].shape[0]
+            i = mesh.data_axis.index
+            logits = logits[:, i * b:(i + 1) * b]
+        return logits
 
     logits_fn.layout = layout
     return logits_fn
 
 
-def _step_of(logits_fn: Callable) -> Callable:
+def _step_of(logits_fn: Callable, mesh=None) -> Callable:
     """The predict step over a logits function: one seed pair per batch
-    from the generator, sent to the device without a wait."""
+    from the generator, sent to the device without a wait. ``mesh``: the
+    step of ``engine.predict.mesh_predict_step``."""
 
-    @torch.inference_mode()
-    def step(post, batch_stats, inputs, generator, mask=None):
+    def logits_of(post, batch_stats, inputs, generator, mask=None):
         seeds = chunk_seed_words(generator, 1).to(post.mu.device,
                                                   non_blocking=True)
-        return _mc_outputs(logits_fn(post, batch_stats, inputs, seeds, mask))
+        return logits_fn(post, batch_stats, inputs, seeds, mask)
+
+    if mesh is not None:
+        step = mesh_predict_step(logits_of, mesh)
+    else:
+        @torch.inference_mode()
+        def step(post, batch_stats, inputs, generator, mask=None):
+            return _mc_outputs(logits_of(post, batch_stats, inputs,
+                                         generator, mask))
 
     step.logits_fn = logits_fn
     return step
@@ -443,7 +472,7 @@ def make_dvp_predict_step(bundle: ModelBundle, num_feature_samples: int = 20,
                           packed_inputs: bool = False,
                           mc_chunk: Optional[int] = None,
                           return_mode: bool = False,
-                          spread: Optional[float] = None):
+                          spread: Optional[float] = None, mesh=None):
     """Single-probabilistic-pass predict step for the multimodal bundle:
     moment-propagated trunks, MC over the features and head weights only.
     ``step(post, batch_stats, inputs, generator, mask)`` -> the outputs
@@ -463,7 +492,9 @@ def make_dvp_predict_step(bundle: ModelBundle, num_feature_samples: int = 20,
 
     ``return_mode=True`` returns ``(step, mode)``, mode "dvp" or "mc": the
     one record of which step was built (``serving.py`` writes it to the
-    artifact's meta.json)."""
+    artifact's meta.json). ``mesh``: the trunks' rows over its data axis
+    (``make_dvp_logits_fn``), every mc rank running the one pass; the MC
+    fallback splits its draws over the mc axis."""
     if on_excess not in ("warn", "mc"):
         # anything else would silently act as "warn": the accuracy loss the
         # guardrail exists to prevent
@@ -489,12 +520,12 @@ def make_dvp_predict_step(bundle: ModelBundle, num_feature_samples: int = 20,
                 num_feature_samples)
             make = make_packed_predict_step if packed_inputs else \
                 make_predict_step
-            return ret(make(bundle, num_feature_samples, mc_chunk=mc_chunk),
-                       "mc")
+            return ret(make(bundle, num_feature_samples, mc_chunk=mc_chunk,
+                            mesh=mesh), "mc")
         logger.warning(
             "DVP guardrail: posterior spread %.3f exceeds the validated "
             "regime (threshold %.3f) — DVP estimators may diverge from "
             "exact MC; pass on_excess='mc' to fall back automatically.",
             spread, spread_threshold)
     return ret(_step_of(make_dvp_logits_fn(bundle, num_feature_samples,
-                                           packed_inputs)), "dvp")
+                                           packed_inputs, mesh), mesh), "dvp")

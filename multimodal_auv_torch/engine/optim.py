@@ -178,3 +178,84 @@ def kl_annealing_weight(epoch: int, total_num_epochs: int) -> float:
     """kl_weight = 2^(epoch+1) / 2^total_epochs
     (the reference's train/multimodal.py:80)."""
     return float(2.0 ** (epoch + 1 - total_num_epochs))
+
+
+class ShardedAdam:
+    """The optimizer of ``tx`` (``AdamDef`` or ``GatedAdamDef``) with the
+    Adam moments of the packed mu and rho on this rank's [lo, hi) shard:
+    the ``fsdp`` of ``parallel/mesh.py``. Only the optimizer state is
+    sharded. mu and rho stay whole on every rank, because the forward needs
+    them whole and a gather written as an all_reduce fills the whole
+    vector anyway; the deterministic leaves and their moments stay
+    replicated. The inner optimizer's mu and rho are views of this rank's
+    shard, and their gradients views of the summed gradients' shard (a
+    reduce_scatter written as the train step's all_reduce plus a slice), so
+    ``step`` updates mu and rho on the shard in place and then gathers them
+    (every rank zeroes the rest and sums): two more all_reduces of P floats
+    a step. Over N ranks that keeps 4 P / N of the four P-float moment
+    vectors. ``state_dict`` gathers the moments to the unsharded
+    optimizer's format, so a checkpoint is the same file with or without
+    fsdp; ``load_state_dict`` takes this rank's shard of one."""
+
+    def __init__(self, tx, post: PackedPosterior, bounds, axis):
+        self.post, (self.lo, self.hi), self.axis = post, bounds, axis
+        lo, hi = self.lo, self.hi
+        self.shard = PackedPosterior(mu=post.mu.detach()[lo:hi],
+                                     rho=post.rho.detach()[lo:hi],
+                                     det=post.det)
+        if isinstance(tx, GatedAdamDef):
+            m = tx.mask
+            tx = GatedAdamDef(tx.lr, tx.weight_decay, PackedPosterior(
+                mu=m.mu[lo:hi], rho=m.rho[lo:hi], det=m.det))
+        self.inner = tx.init(self.shard)
+        post.mu.requires_grad_(True)
+        post.rho.requires_grad_(True)
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+        self.post.mu.grad = self.post.rho.grad = None
+
+    def _gather(self, shard: torch.Tensor, n: int) -> torch.Tensor:
+        from multimodal_auv_torch.parallel.collectives import all_reduce_
+
+        full = shard.new_zeros(n)
+        full[self.lo:self.hi] = shard
+        return all_reduce_(full, self.axis)
+
+    @torch.no_grad()
+    def step(self):
+        from multimodal_auv_torch.parallel.collectives import all_reduce_
+
+        for full, part in ((self.post.mu, self.shard.mu),
+                           (self.post.rho, self.shard.rho)):
+            part.grad = (None if full.grad is None
+                         else full.grad[self.lo:self.hi])
+        self.inner.step()
+        for full in (self.post.mu.detach(), self.post.rho.detach()):
+            full[:self.lo].zero_()
+            full[self.hi:].zero_()
+            all_reduce_(full, self.axis)
+
+    def state_dict(self):
+        sd = self.inner.state_dict()
+        n = self.post.mu.shape[0]
+        state = dict(sd["state"])
+        for i in (0, 1):  # mu and rho
+            if i in state:
+                state[i] = {k: (self._gather(v, n) if k.startswith("exp_avg")
+                                else v) for k, v in state[i].items()}
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def load_state_dict(self, sd) -> None:
+        state = dict(sd["state"])
+        for i in (0, 1):
+            if i in state:
+                state[i] = {k: (v[self.lo:self.hi].clone()
+                                if k.startswith("exp_avg") else v)
+                            for k, v in state[i].items()}
+        self.inner.load_state_dict({"state": state,
+                                    "param_groups": sd["param_groups"]})

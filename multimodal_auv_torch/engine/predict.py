@@ -8,6 +8,7 @@ MC variance estimator and aleatoric the mean MC entropy (eps 1e-7).
 from __future__ import annotations
 
 import csv
+import io
 import logging
 from typing import Callable, Iterable, Optional
 
@@ -20,6 +21,8 @@ from multimodal_auv_torch.engine.mc import mc_logits, split_mc_logits
 from multimodal_auv_torch.models.model_utils import ModelBundle
 from multimodal_auv_torch.ops.preprocess import normalize_multimodal
 from multimodal_auv_torch.ops.sampling import chunk_seed_words
+from multimodal_auv_torch.parallel.collectives import bn_sync, gather_rows
+from multimodal_auv_torch.parallel.distributed import host_rows, is_coordinator
 
 logger = logging.getLogger(__name__)
 
@@ -52,9 +55,55 @@ def fused_outputs(logits: torch.Tensor) -> torch.Tensor:
     return torch.cat([out["csv_cols"], out["mean_prob"].to(torch.float32).T])
 
 
-def _check_bn_mode(bn_mode: str) -> None:
+def _unfuse_outputs(fused: torch.Tensor):
+    """The outputs dict of a (3 + C, batch) ``fused_outputs`` tensor."""
+    return {
+        "predicted": fused[0].to(torch.int64),
+        "predictive_uncertainty": fused[1],
+        "aleatoric_uncertainty": fused[2],
+        "mean_prob": fused[3:].T,
+        "csv_cols": fused[:3],
+    }
+
+
+def mesh_predict_step(logits_of: Callable, mesh) -> Callable:
+    """A predict step over a mesh (``parallel/mesh.py``) from ``logits_of
+    (post, batch_stats, inputs, generator, mask) -> (num_mc, rows, C)``,
+    which runs on this rank's rows: the step takes the global batch, hands
+    its data rank's rows to ``logits_of`` with BatchNorm statistics over
+    the data axis, and gathers the (3 + C, rows) ``fused_outputs`` over the
+    data axis (one all_reduce) into the global batch's outputs, the same
+    on every rank."""
+
+    @torch.inference_mode()
+    def step(post, batch_stats, inputs, generator, mask=None):
+        rows = lambda a: host_rows(mesh, a)
+        with bn_sync(mesh.data_axis):
+            logits = logits_of(post, batch_stats, [rows(a) for a in inputs],
+                               generator, None if mask is None else rows(mask))
+        fused = gather_rows(fused_outputs(logits).T.contiguous(),
+                            mesh.data_axis).T
+        return _unfuse_outputs(fused)
+
+    return step
+
+
+def _check_bn_mode(bn_mode: str, fused_trunks: bool = False) -> None:
     if bn_mode not in ("train", "eval"):
         raise ValueError(f"bn_mode must be 'train' or 'eval', got {bn_mode!r}")
+    if fused_trunks and bn_mode == "eval":
+        # the grouped trunks compute train-mode BN only
+        raise ValueError("fused_trunks=True supports bn_mode='train' only: "
+                         "the grouped trunks normalise by batch statistics")
+
+
+def _module(bundle: ModelBundle, fused_trunks: bool):
+    """The bundle's module, or its grouped-trunk twin (models/fused.py)."""
+    if not fused_trunks:
+        return bundle.module
+    from multimodal_auv_torch.models.fused import fused_module_for
+
+    return fused_module_for(bundle.module)
 
 
 def _default_chunk(num_mc_samples: int, mc_chunk: Optional[int]) -> int:
@@ -64,30 +113,58 @@ def _default_chunk(num_mc_samples: int, mc_chunk: Optional[int]) -> int:
     return mc_chunk
 
 
+def _mc_logits_of(bundle: ModelBundle, num_mc_samples: int, mc_chunk: int,
+                  sample_dtype, fast_sampling, bn_mode: str,
+                  fused_trunks: bool, packed: bool, mesh=None) -> Callable:
+    """(post, batch_stats, inputs, generator, mask) -> MC logits over
+    normalised float inputs, or uint8 ones with ``packed``; under a mesh
+    with an mc axis the draws are split over it (the stacked sampler)."""
+    module, meta = _module(bundle, fused_trunks), bundle.meta
+    ws = None if mesh is None or mesh.mc == 1 else mesh
+
+    def logits_of(post, batch_stats, inputs, generator, mask=None):
+        if packed:
+            inputs = normalize_multimodal(*inputs)
+        return mc_logits(module, meta, post, batch_stats, inputs, generator,
+                         num_mc_samples, mc_chunk=mc_chunk,
+                         train=(bn_mode == "train"), remat=False,
+                         sample_dtype=sample_dtype, batch_mask=mask,
+                         split_sampling=True, fast_sampling=fast_sampling,
+                         ws_sharding=ws)
+
+    return logits_of
+
+
 def make_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
                       mc_chunk: Optional[int] = None,
                       sample_dtype: Optional[torch.dtype] = torch.bfloat16,
                       fast_sampling: Optional[bool] = None,
-                      bn_mode: str = "train") -> Callable:
+                      bn_mode: str = "train", fused_trunks: bool = False,
+                      mesh=None) -> Callable:
     """(post, batch_stats, inputs, generator, mask) -> outputs dict, over
     already-normalised float NHWC inputs.
 
     ``sample_dtype=bfloat16`` (default) casts the posterior once and samples
     straight to bf16 weights. ``bn_mode``: "train" (reference-faithful,
-    batch statistics) or "eval" (frozen running statistics)."""
-    _check_bn_mode(bn_mode)
+    batch statistics) or "eval" (frozen running statistics).
+    ``fused_trunks``: the grouped-conv trunks (models/fused.py), train-mode
+    BN only (with "eval" it raises). ``mesh``: rows over the data axis and
+    draws over the mc axis (``mesh_predict_step``); the mc chunk defaults
+    to all draws then, so every chunk spans the mc axis."""
+    _check_bn_mode(bn_mode, fused_trunks)
+    if mesh is not None and mesh.mc > 1 and mc_chunk is None:
+        mc_chunk = num_mc_samples
     mc_chunk = _default_chunk(num_mc_samples, mc_chunk)
-    module, meta = bundle.module, bundle.meta
+    logits_of = _mc_logits_of(bundle, num_mc_samples, mc_chunk, sample_dtype,
+                              fast_sampling, bn_mode, fused_trunks, False,
+                              mesh)
+    if mesh is not None:
+        return mesh_predict_step(logits_of, mesh)
 
     @torch.inference_mode()
     def step(post, batch_stats, inputs, generator, mask=None):
-        logits = mc_logits(module, meta, post, batch_stats, inputs, generator,
-                           num_mc_samples, mc_chunk=mc_chunk,
-                           train=(bn_mode == "train"), remat=False,
-                           sample_dtype=sample_dtype, batch_mask=mask,
-                           split_sampling=True,
-                           fast_sampling=fast_sampling)
-        return _mc_outputs(logits)
+        return _mc_outputs(logits_of(post, batch_stats, inputs, generator,
+                                     mask))
 
     return step
 
@@ -95,14 +172,16 @@ def make_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
 def make_packed_logits_fn(bundle: ModelBundle, *, mc_chunk: int,
                           sample_dtype: Optional[torch.dtype] = torch.bfloat16,
                           fast_sampling: Optional[bool] = None,
-                          bn_mode: str = "train") -> Callable:
+                          bn_mode: str = "train",
+                          fused_trunks: bool = False) -> Callable:
     """(post, batch_stats, u8_inputs, seeds, mask) -> (nchunks * mc_chunk,
     batch, C) logits over uint8 NHWC batches, chunk k's draws from row k
     of ``seeds`` ((nchunks, 2) int64 on the device): the packed predict
     step as a function of tensors, which ``serving.py`` exports. The
-    /255 + optical normalisation runs on the device (ops/preprocess.py)."""
-    _check_bn_mode(bn_mode)
-    module, meta = bundle.module, bundle.meta
+    /255 + optical normalisation runs on the device (ops/preprocess.py).
+    ``fused_trunks``: the grouped-conv trunks (models/fused.py)."""
+    _check_bn_mode(bn_mode, fused_trunks)
+    module, meta = _module(bundle, fused_trunks), bundle.meta
 
     def logits_fn(post, batch_stats, u8_inputs, seeds, mask=None):
         return split_mc_logits(module, meta, post, batch_stats,
@@ -118,19 +197,32 @@ def make_packed_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
                              mc_chunk: Optional[int] = None,
                              sample_dtype: Optional[torch.dtype] = torch.bfloat16,
                              fast_sampling: Optional[bool] = None,
-                             bn_mode: str = "train") -> Callable:
+                             bn_mode: str = "train",
+                             fused_trunks: bool = False,
+                             mesh=None) -> Callable:
     """Predict step over uint8 NHWC batches: the /255 + optical
     normalisation runs on the device (ops/preprocess.py). The chunks' seeds
     are drawn from the generator on the host and go to the device as one
-    tensor (``make_packed_logits_fn``), with no wait on the device."""
+    tensor (``make_packed_logits_fn``), with no wait on the device.
+    ``fused_trunks``: the grouped-conv trunks (models/fused.py), train-mode
+    BN only; the split sampler (#1) still draws the weights. ``mesh``: as
+    in ``make_predict_step``."""
+    _check_bn_mode(bn_mode, fused_trunks)
+    if mesh is not None and mesh.mc > 1 and mc_chunk is None:
+        mc_chunk = num_mc_samples
     mc_chunk = _default_chunk(num_mc_samples, mc_chunk)
     if num_mc_samples % mc_chunk != 0:
         raise ValueError(f"num_mc={num_mc_samples} must be divisible by "
                          f"mc_chunk={mc_chunk}")
+    if mesh is not None:
+        return mesh_predict_step(_mc_logits_of(
+            bundle, num_mc_samples, mc_chunk, sample_dtype, fast_sampling,
+            bn_mode, fused_trunks, True, mesh), mesh)
     logits_fn = make_packed_logits_fn(bundle, mc_chunk=mc_chunk,
                                       sample_dtype=sample_dtype,
                                       fast_sampling=fast_sampling,
-                                      bn_mode=bn_mode)
+                                      bn_mode=bn_mode,
+                                      fused_trunks=fused_trunks)
     nchunks = num_mc_samples // mc_chunk
 
     @torch.inference_mode()
@@ -187,6 +279,20 @@ def _serve_batches(step, post, batch_stats, place, batches: Iterable, writer,
         drain(pending)
 
 
+def _check_rows(batch_size: Optional[int], mesh) -> None:
+    if mesh is not None and batch_size and batch_size % mesh.data:
+        raise ValueError(f"batch_size ({batch_size}) must be divisible by "
+                         f"the mesh 'data' axis ({mesh.data})")
+
+
+def _csv_open(csv_path: str):
+    """The CSV file, on rank 0; an in-memory sink on the other ranks of a
+    process group (every rank runs the serving loop)."""
+    if is_coordinator():
+        return open(csv_path, mode="w", newline="")
+    return io.StringIO()
+
+
 def _placer(bundle: ModelBundle, device: DeviceLike):
     dev = resolve_device(device)
     if bundle.device.type != dev.type:
@@ -200,22 +306,27 @@ def multimodal_predict_and_save_packed(
     generator: Optional[torch.Generator] = None,
     mc_chunk: Optional[int] = None, fast_sampling: Optional[bool] = None,
     bn_mode: str = "train", step=None, device: DeviceLike = None,
+    mesh=None,
 ) -> None:
     """Inference over a packed (decode-once) dataset (data/packing.py), same
     CSV schema as ``multimodal_predict_and_save``. ``step``: a prebuilt
-    ``make_packed_predict_step`` result to reuse across surveys."""
+    ``make_packed_predict_step`` result to reuse across surveys.
+    ``mesh``: rows over its data axis, draws over its mc axis
+    (``make_packed_predict_step(mesh=)``); every rank runs the loop, rank
+    0 writes the CSV. ``batch_size`` must divide by the data axis."""
     from multimodal_auv_torch.data.packing import PackedBatches, load_packed
 
     place = _placer(bundle, device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    _check_rows(batch_size, mesh)
     batches = PackedBatches(load_packed(packed_dir), batch_size)
     if step is None:
         step = make_packed_predict_step(bundle, num_mc_samples,
                                         mc_chunk=mc_chunk,
                                         fast_sampling=fast_sampling,
-                                        bn_mode=bn_mode)
-    with open(csv_path, mode="w", newline="") as csvfile:
+                                        bn_mode=bn_mode, mesh=mesh)
+    with _csv_open(csv_path) as csvfile:
         writer = csv.writer(csvfile)
         writer.writerow(CSV_HEADER)
         _serve_batches(step, bundle.post, bundle.batch_stats, place, batches,
@@ -228,17 +339,22 @@ def multimodal_predict_and_save(
     generator: Optional[torch.Generator] = None,
     mc_chunk: Optional[int] = None, fast_sampling: Optional[bool] = None,
     bn_mode: str = "train", step=None, device: DeviceLike = None,
+    mesh=None,
 ) -> None:
     """Iterate an inference loader of (main, bathy, sss, names) batches of
-    normalised float NHWC arrays and write the reference-schema CSV."""
+    normalised float NHWC arrays and write the reference-schema CSV.
+    ``mesh``: as in ``multimodal_predict_and_save_packed`` (the loader's
+    batch size must divide by the data axis)."""
     place = _placer(bundle, device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    _check_rows(getattr(dataloader, "batch_size", None), mesh)
     if step is None:
         step = make_predict_step(bundle, num_mc_samples, mc_chunk=mc_chunk,
-                                 fast_sampling=fast_sampling, bn_mode=bn_mode)
+                                 fast_sampling=fast_sampling, bn_mode=bn_mode,
+                                 mesh=mesh)
     logger.info("CSV will be saved to: %s", csv_path)
-    with open(csv_path, mode="w", newline="") as csvfile:
+    with _csv_open(csv_path) as csvfile:
         writer = csv.writer(csvfile)
         writer.writerow(CSV_HEADER)
         _serve_batches(step, bundle.post, bundle.batch_stats, place,

@@ -25,48 +25,100 @@ import torch.nn.functional as F
 from multimodal_auv_torch.bayes.packing import kl_divergence
 from multimodal_auv_torch.config import BNNPriorSpec
 from multimodal_auv_torch.engine import uncertainty as U
-from multimodal_auv_torch.engine.mc import mc_logits, not_ported
+from multimodal_auv_torch.engine.mc import (
+    mc_logits,
+    not_ported,
+    refresh_batch_stats,
+)
 from multimodal_auv_torch.engine.optim import BayesTrainState, trainable_leaves
 from multimodal_auv_torch.ops.preprocess import normalize_multimodal
+from multimodal_auv_torch.parallel.collectives import (
+    LOCAL,
+    Axis,
+    all_reduce_,
+    bn_sync,
+)
 
 
-def _masked_ce(output: torch.Tensor, labels: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
+def _masked_ce_sum(output: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """The CE summed over the real rows."""
     ce_vec = F.cross_entropy(output, labels.long(), reduction="none")
-    return (ce_vec * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return (ce_vec * mask).sum()
+
+
+def _data_axis(mesh) -> Axis:
+    """The axis the batch's rows are split over (one rank without a
+    mesh)."""
+    return LOCAL if mesh is None else mesh.data_axis
 
 
 def make_elbo_loss_fn(module, meta, spec: BNNPriorSpec, num_mc: int, *,
                       mc_chunk: int = 1, sample_dtype=None,
-                      packed_inputs: bool = False, remat: bool = True):
+                      packed_inputs: bool = False, remat: bool = True,
+                      mesh=None):
     """The training ELBO that ``make_train_step`` differentiates.
 
     Returns loss_fn(post, batch_stats, inputs, labels, mask, generator,
     kl_weight, bs_scale) -> (loss, (output, ce, scaled_kl,
     new_batch_stats)). ``mask`` is f32 (batch,): 1.0 for real rows, 0.0
     for the padding of a ragged last batch. The running statistics are
-    chained through the draws (``mc_logits(return_batch_stats=True)``)."""
+    chained through the draws (``mc_logits(return_batch_stats=True)``).
+
+    ``mesh`` (``parallel/mesh.py``; run under ``bn_sync(mesh.data_axis)``):
+    ``inputs`` are this rank's rows. The CE is this rank's share of the
+    global one, the sum over its real rows over the global count (JAX's
+    normalisation), and the KL, which every rank computes in full, enters
+    as 1/world of it, so the ranks' losses (and gradients) sum to the
+    global ELBO's. Under an mc axis the draws are split over it
+    (``ws_sharding``), and the chained BN update, sequential in the draws,
+    gives way to one posterior-mean refresh (``refresh_batch_stats``), as
+    in the JAX package."""
+    chained = mesh is None or mesh.mc == 1
+    world = 1 if mesh is None else mesh.world_axis.size
 
     def loss_fn(post, batch_stats, inputs, labels, mask, generator,
                 kl_weight, bs_scale):
         if packed_inputs:
             inputs = normalize_multimodal(*inputs)
-        logits, new_bs = mc_logits(
-            module, meta, post, batch_stats, inputs, generator, num_mc,
-            mc_chunk=mc_chunk, train=True, remat=remat, batch_mask=mask,
-            sample_dtype=sample_dtype, cast_posterior=False,
-            return_batch_stats=True)
+        kw = dict(mc_chunk=mc_chunk, train=True, remat=remat,
+                  batch_mask=mask, sample_dtype=sample_dtype,
+                  cast_posterior=False)
+        if chained:
+            logits, new_bs = mc_logits(
+                module, meta, post, batch_stats, inputs, generator, num_mc,
+                return_batch_stats=True, **kw)
+        else:
+            logits = mc_logits(module, meta, post, batch_stats, inputs,
+                               generator, num_mc, ws_sharding=mesh, **kw)
+            new_bs = refresh_batch_stats(module, meta, post, batch_stats,
+                                         inputs, batch_mask=mask)
         output = logits.to(torch.float32).mean(dim=0)
-        ce = _masked_ce(output, labels, mask)
+        # this rank's share of the CE over the global count of real rows
+        count = all_reduce_(mask.sum().reshape(1), _data_axis(mesh))[0]
+        ce = (_masked_ce_sum(output, labels, mask)
+              / torch.clamp_min(count, 1.0))
         scaled_kl = kl_divergence(post, spec) / bs_scale * kl_weight
-        return ce + scaled_kl, (output, ce, scaled_kl, new_bs)
+        return ce + scaled_kl / world, (output, ce, scaled_kl, new_bs)
 
     return loss_fn
 
 
+def _all_reduce_grads(post, mesh) -> None:
+    """Sum every trainable leaf's gradient over all ranks: one all_reduce
+    of their concatenation (nothing on one rank)."""
+    if mesh is None or mesh.world_axis.size == 1:
+        return
+    leaves = [p for p in trainable_leaves(post) if p.grad is not None]
+    flat = torch.cat([p.grad.reshape(-1) for p in leaves])
+    all_reduce_(flat, mesh.world_axis)
+    for p, g in zip(leaves, flat.split([p.numel() for p in leaves])):
+        p.grad.copy_(g.view_as(p.grad))
+
+
 def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
                     mc_chunk: int = 1, sample_dtype=None,
-                    packed_inputs: bool = False, remat="on"):
+                    packed_inputs: bool = False, remat="on", mesh=None):
     """Returns (state, inputs, labels, mask, generator, kl_weight,
     batch_size_scale) -> (state, metrics). ``mask`` is f32[batch]
     (1.0 = real row, 0.0 = ragged-tail padding) and sits BEFORE the
@@ -80,7 +132,14 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
     ``sample_dtype``: dtype of the sampled weights fed to the forward
     (``torch.bfloat16``: mixed precision; mu, rho, gradients and Adam stay
     f32). ``remat``: "on" (checkpoint each chunk's sampling and forwards,
-    memory flat in num_mc) or "off"."""
+    memory flat in num_mc) or "off".
+
+    ``mesh`` (``parallel/mesh.py``): the step takes this rank's rows
+    (``parallel.mesh.wrap_train_step`` slices them from the loops'
+    global batches). BatchNorm statistics are the global batch's, the
+    draws are split over the mc axis, the gradients are summed over all
+    ranks before the update (one all_reduce), and the metrics' scalars are
+    global; ``predicted`` holds this rank's rows."""
     if remat == "auto":
         raise not_ported("remat='auto' (it rests on XLA's compiled memory "
                          "analysis)", "5 (training: remat='auto')")
@@ -88,16 +147,26 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
                                                    "off": False}[remat]
     loss_fn = make_elbo_loss_fn(module, meta, spec, num_mc,
                                 mc_chunk=mc_chunk, sample_dtype=sample_dtype,
-                                packed_inputs=packed_inputs, remat=remat)
+                                packed_inputs=packed_inputs, remat=remat,
+                                mesh=mesh)
 
     def step(state: BayesTrainState, inputs, labels, mask, generator,
              kl_weight, batch_size_scale) -> Tuple[BayesTrainState, Any]:
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        loss, (output, ce, scaled_kl, new_bs) = loss_fn(
-            state.post, state.batch_stats, inputs, labels, mask, generator,
-            kl_weight, batch_size_scale)
-        loss.backward()
+        with bn_sync(_data_axis(mesh)):
+            loss, (output, ce, scaled_kl, new_bs) = loss_fn(
+                state.post, state.batch_stats, inputs, labels, mask,
+                generator, kl_weight, batch_size_scale)
+            loss.backward()
+        predicted = output.detach().argmax(dim=-1)
+        correct = ((predicted == labels) * mask).sum()
+        total = mask.sum()
+        _all_reduce_grads(state.post, mesh)
+        ce, correct, total = all_reduce_(torch.stack(
+            [ce.detach(), correct.to(ce.dtype), total]),
+            _data_axis(mesh)).unbind()
+        loss = ce + scaled_kl
         grads = [p.grad for p in trainable_leaves(state.post)
                  if p.grad is not None]
         finite = torch.stack([torch.isfinite(loss)]
@@ -108,10 +177,7 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
             opt.step()
 
         loss = loss.detach()
-        predicted = output.detach().argmax(dim=-1)
-        correct = ((predicted == labels) * mask).sum()
         loss_out = loss if loss_ok else torch.full_like(loss, float("nan"))
-        total = mask.sum()
         skipped = torch.tensor(float(not ok), device=loss.device)
         metrics = {
             "loss": loss_out,
@@ -136,29 +202,41 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
 
 
 def make_eval_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
-                   mc_chunk: int = 1, packed_inputs: bool = False):
+                   mc_chunk: int = 1, packed_inputs: bool = False,
+                   mesh=None):
     """Returns (post, batch_stats, inputs, labels, mask, generator,
     kl_scale) -> metrics with both uncertainty families, on the split
     sampling path with f32 noise. ``kl_scale`` absorbs the call site's
     divisor and the annealed kl_weight (multimodal eval divides the KL by
-    len(dataloader), the reference's multimodal.py:293)."""
+    len(dataloader), the reference's multimodal.py:293).
+
+    ``mesh``: this rank's rows in, global scalars out (one all_reduce over
+    the data axis), per-sample outputs of this rank's rows
+    (``parallel.mesh.wrap_eval_step`` gathers them); the draws split over
+    the mc axis on the stacked path."""
+    ws = None if mesh is None or mesh.mc == 1 else mesh
 
     @torch.no_grad()
     def step(post, batch_stats, inputs, labels, mask, generator, kl_scale):
         if packed_inputs:
             inputs = normalize_multimodal(*inputs)
-        logits = mc_logits(module, meta, post, batch_stats, inputs,
-                           generator, num_mc, mc_chunk=mc_chunk, train=True,
-                           remat=False, batch_mask=mask, split_sampling=True)
+        with bn_sync(_data_axis(mesh)):
+            logits = mc_logits(module, meta, post, batch_stats, inputs,
+                               generator, num_mc, mc_chunk=mc_chunk,
+                               train=True, remat=False, batch_mask=mask,
+                               split_sampling=True, ws_sharding=ws)
         probs = U.softmax_probs(logits)
         output_mean = logits.to(torch.float32).mean(dim=0)
-        ce = _masked_ce(output_mean, labels, mask)
-        kl_scaled = kl_divergence(post, spec) * kl_scale
         predicted = output_mean.argmax(dim=-1)
-        ent = U.entropy_decomposition(probs, eps=1e-8)
-        mean_prob = U.mean_probs(probs)
         correct = ((predicted == labels) * mask).sum()
         total = mask.sum()
+        ce_sum, correct, total = all_reduce_(torch.stack(
+            [_masked_ce_sum(output_mean, labels, mask),
+             correct.to(torch.float32), total]), _data_axis(mesh)).unbind()
+        ce = ce_sum / torch.clamp_min(total, 1.0)
+        kl_scaled = kl_divergence(post, spec) * kl_scale
+        ent = U.entropy_decomposition(probs, eps=1e-8)
+        mean_prob = U.mean_probs(probs)
         epi_var = U.variance_uncertainty(probs)
         alea_mc = U.aleatoric_uncertainty(probs, eps=1e-7)
         loss = ce + kl_scaled

@@ -16,6 +16,8 @@ BatchNorm follows flax, not ``nn.BatchNorm2d``: statistics in f32 with the
 biased variance E[x^2] - E[x]^2 (clipped at 0), taken in train mode over
 the rows where ``batch_mask`` is true; eps 1e-5; normalisation in f32, then
 a cast to the activation dtype. Running statistics are read in eval mode.
+Under ``parallel.collectives.bn_sync(axis)`` the train-mode statistics are
+the global batch's: the sums over every rank of the data axis.
 With ``mutable=True`` (train mode only) ``forward`` also returns them
 advanced by flax's update, ra = 0.9 ra + (1 - 0.9) batch_stat with the
 biased batch variance over the ``batch_mask`` rows, detached. The update
@@ -29,6 +31,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multimodal_auv_torch.parallel.collectives import sync_sums
 
 Tree = Dict[str, object]
 
@@ -65,16 +69,7 @@ def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
     Returns (y, new running statistics if ``mutable`` else None)."""
     x32 = cast(x, torch.float32)
     if train:
-        if batch_mask is None:
-            mean = x32.mean(dim=(0, 2, 3))
-            mean2 = (x32 * x32).mean(dim=(0, 2, 3))
-        else:
-            m = batch_mask.view(-1, 1, 1, 1)
-            count = batch_mask.sum().to(torch.float32) * (x.shape[2]
-                                                          * x.shape[3])
-            xm = torch.where(m, x32, 0.0)
-            mean = xm.sum(dim=(0, 2, 3)) / count
-            mean2 = (xm * xm).sum(dim=(0, 2, 3)) / count
+        mean, mean2 = _batch_moments(x32, batch_mask)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
     else:
         mean, var = stats["mean"], stats["var"]
@@ -88,6 +83,22 @@ def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
     mul = torch.rsqrt(var + eps) * p["scale"]
     y = y * mul.view(1, -1, 1, 1) + p["bias"].view(1, -1, 1, 1)
     return cast(y, dtype), new
+
+
+def _batch_moments(x32: torch.Tensor, batch_mask: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x^2]) per channel over the (masked) rows of every rank of
+    the BN axis: the sums and sums of squares, and their count, summed by
+    one (2C + 1) differentiable all_reduce (parallel/collectives.py::
+    sync_sums; nothing on an axis of size 1)."""
+    rows = x32.shape[0]
+    if batch_mask is not None:
+        x32 = torch.where(batch_mask.view(-1, 1, 1, 1), x32, 0.0)
+        rows = batch_mask.sum().to(torch.float32)
+    sums, count = sync_sums(
+        torch.cat([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3))]),
+        rows * (x32.shape[2] * x32.shape[3]))
+    return (sums / count).chunk(2)
 
 
 def _conv_init(gen, k, cin, cout):

@@ -101,6 +101,18 @@ def seed_tensor(seed: Tuple[int, int], device) -> torch.Tensor:
                         dtype=torch.int64, device=device)
 
 
+def draw_offset_seed(seed: Tuple[int, int], draw0: int, P: int
+              ) -> Tuple[int, int]:
+    """The seed whose draw d is draw ``draw0 + d`` of ``seed``, for a
+    sampler of P elements: stream (draw, blk) is keyed (seed0, seed1 +
+    draw * nblk + blk), so an offset of ``draw0`` draws folds into seed1 as
+    ``seed1 + draw0 * nblk`` mod 2^32. How an mc rank draws its own rows of
+    a chunk with no kernel change (kernels #2 and #3 take seeds by value;
+    the backward regenerates eps from the same folded seed)."""
+    nblk = -(-P // BLOCK_ELEMS)
+    return (int(seed[0]) & _M32, (int(seed[1]) + draw0 * nblk) & _M32)
+
+
 def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) 32-bit words of m * x for a uint32 constant m and uint32
     values x held in int64, via 16-bit limbs so no product overflows."""

@@ -23,6 +23,12 @@ from multimodal_auv_torch.models.model_utils import (
     ModelBundle,
     make_multimodal_bundle,
 )
+from multimodal_auv_torch.parallel.distributed import (
+    barrier,
+    is_coordinator,
+    maybe_initialize_distributed,
+)
+from multimodal_auv_torch.parallel.mesh import make_mesh
 
 
 def run_auv_inference(
@@ -59,15 +65,19 @@ def run_auv_inference(
     "eval" (running statistics). ``use_dvp``: the single-pass DVP step
     (engine/moment.py) with its guardrail set to fall back to exact MC
     (``on_excess="mc"``); ``fast_sampling`` and ``bn_mode`` do not reach
-    it (the fallback takes their defaults), as in the JAX package."""
-    if mesh_spec is not None:
-        raise NotImplementedError(
-            "mesh_spec is not ported yet: ROADMAP.md, Open items, "
-            "1 'Modules to port' item 8 (parallel)")
+    it (the fallback takes their defaults), as in the JAX package.
+
+    ``mesh_spec`` (config.MeshSpec, over the process group that the AUV_*
+    environment or the caller set up, one process per card): each batch's
+    rows go over the data axis (``batch_size`` must divide by it), the MC
+    draws over the mc axis; DVP runs its trunks over the data axis. Every
+    rank runs the pipeline; rank 0 packs the cache and writes the CSV."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     logger = logging.getLogger(__name__)
+    maybe_initialize_distributed()
     dev = resolve_device(device)
+    mesh = None if mesh_spec is None else make_mesh(mesh_spec)
     logger.info("Using device: %s", dev)
     arch = arch or ArchConfig()
     bundle = pretrained_bundle(num_classes, BNNPriorSpec(), arch, seed,
@@ -80,7 +90,7 @@ def run_auv_inference(
         # built here, so mc_chunk reaches the guardrail's exact-MC fallback
         step = make_dvp_predict_step(bundle, num_mc_samples, on_excess="mc",
                                      packed_inputs=use_packed_loader,
-                                     mc_chunk=mc_chunk)
+                                     mc_chunk=mc_chunk, mesh=mesh)
     dirs = ([data_directory] if isinstance(data_directory, (str, bytes))
             else list(data_directory))
     if use_packed_loader:
@@ -104,21 +114,25 @@ def run_auv_inference(
         # the cache is keyed by dirs[0] only: check it was packed from this
         # directory list and on-disk state
         meta_path = os.path.join(cache, "pack_meta.json")
-        stale = True
-        if os.path.exists(meta_path):
-            with open(meta_path) as f:
-                meta = json.load(f)
-            stale = (meta.get("size") != arch.image_size
-                     or meta.get("fingerprint") != inference_fingerprint(ds))
+        if is_coordinator():  # the other ranks read what rank 0 packs
+            stale = True
+            if os.path.exists(meta_path):
+                with open(meta_path) as f:
+                    meta = json.load(f)
+                stale = (meta.get("size") != arch.image_size
+                         or meta.get("fingerprint")
+                         != inference_fingerprint(ds))
+                if stale:
+                    logger.info("Packed cache %s is stale — repacking",
+                                cache)
             if stale:
-                logger.info("Packed cache %s is stale — repacking", cache)
-        if stale:
-            pack_inference_dataset(ds, cache, size=arch.image_size)
+                pack_inference_dataset(ds, cache, size=arch.image_size)
+        barrier()
         multimodal_predict_and_save_packed(
             bundle, cache, output_csv, num_mc_samples=num_mc_samples,
             batch_size=batch_size, generator=generator, mc_chunk=mc_chunk,
             fast_sampling=fast_sampling, bn_mode=bn_mode, step=step,
-            device=dev)
+            device=dev, mesh=mesh)
     else:
         from multimodal_auv_torch.data.loaders import (
             prepare_inference_datasets_and_loaders,
@@ -133,7 +147,7 @@ def run_auv_inference(
             bundle, dataloader, output_csv, num_mc_samples=num_mc_samples,
             generator=generator, mc_chunk=mc_chunk,
             fast_sampling=fast_sampling, bn_mode=bn_mode, step=step,
-            device=dev)
+            device=dev, mesh=mesh)
     logger.info("Final inference process completed successfully.")
     return output_csv
 
@@ -198,7 +212,10 @@ def export_auv_serving_artifact(
     ``use_dvp`` exports the single-pass DVP program instead (same ABI;
     guardrailed at export time by ``dvp_on_excess``, see serving.py).
     ``data_shards`` / ``mc_shards`` > 1 are not ported yet and raise,
-    naming their ROADMAP item, before anything is built."""
+    naming their ROADMAP item, before anything is built: the reference's
+    train-mode BN needs a reduction over the data shards inside every BN
+    layer, which JAX's SPMD puts into its exported program and a
+    ``torch.export`` program does not hold."""
     if data_shards > 1 or mc_shards > 1:
         raise NotImplementedError(
             "data_shards / mc_shards > 1 are not ported yet: ROADMAP.md, "

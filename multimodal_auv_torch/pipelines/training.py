@@ -1,6 +1,5 @@
 """run_AUV_training_from_scratch and run_auv_retraining — multimodal
-training (port of ``multimodal_auv_tpu/pipelines/training.py``, single
-device).
+training (port of ``multimodal_auv_tpu/pipelines/training.py``).
 
 Build the multimodal Bayesian bundle (random, MOPED from torchvision-named
 trunks, or a bayesian-torch checkpoint with the fc2 head swapped) -> the
@@ -36,10 +35,16 @@ from multimodal_auv_torch.engine.optim import (
 from multimodal_auv_torch.engine.preemption import maybe_guard, null_guard
 from multimodal_auv_torch.engine.steps import make_eval_step, make_train_step
 from multimodal_auv_torch.models.model_utils import ArchConfig, make_multimodal_bundle
+from multimodal_auv_torch.parallel import mesh as M
+from multimodal_auv_torch.parallel.distributed import (
+    is_coordinator,
+    maybe_initialize_distributed,
+    process_count,
+)
 from multimodal_auv_torch.pipelines.inference import pretrained_bundle
 from multimodal_auv_torch.utils.logging_utils import setup_pipeline_logging
 from multimodal_auv_torch.utils.manifest import write_run_manifest
-from multimodal_auv_torch.utils.tb import SummaryWriter
+from multimodal_auv_torch.utils.tb import NullSummaryWriter, SummaryWriter
 
 logger = logging.getLogger(__name__)
 
@@ -77,10 +82,18 @@ def _train_multimodal_common(
     handle_preemption: bool = True,
     preemption_guard=None,
     remat: str = "on",
+    mesh_spec=None,
 ) -> BayesTrainState:
     log_dir = setup_pipeline_logging()
-    sum_writer = SummaryWriter(os.path.join("tensorboard_logs",
-                                            os.path.basename(log_dir)))
+    # rank 0 owns every ledger: TB events, manifest, CSV rows
+    # (engine/loops.py) and checkpoint files (engine/checkpointing.py)
+    sum_writer = (SummaryWriter(os.path.join("tensorboard_logs",
+                                             os.path.basename(log_dir)))
+                  if is_coordinator() else NullSummaryWriter())
+    multi = process_count() > 1
+    if multi and mesh_spec is None:
+        raise ValueError("multi-process training needs a mesh_spec: the "
+                         "global batch is split over the mesh's data axis")
     bathy_type = _patch_type(bathy_patch_base, "bathy")
     sss_type = _patch_type(sss_patch_base, "sss")
     if use_packed_loader:
@@ -112,18 +125,35 @@ def _train_multimodal_common(
                                                         bundle.post))
     else:
         tx = make_optimizer(lr, weight_decay)
+    # data parallelism over the mesh's data axis, MC-ensemble parallelism
+    # over its mc axis, optional FSDP of the Adam moments; the epoch loops
+    # are untouched: the steps are wrapped, the loaders sharded
+    mesh = None
+    if mesh_spec is not None:
+        mesh, mc_chunk = M.training_mesh(mesh_spec, batch_size_multimodal, num_mc,
+                                   mc_chunk)
+    fsdp = mesh is not None and mesh.fsdp
     state = BayesTrainState(post=bundle.post, opt_state=tx.init(bundle.post),
                             batch_stats=bundle.batch_stats)
+    if mesh is not None:
+        state = M.shard_state(mesh, state, tx, fsdp)
     train_step = make_train_step(
         bundle.module, bundle.meta, spec, num_mc, mc_chunk=mc_chunk,
         sample_dtype=torch.bfloat16 if bf16_weights else None,
-        packed_inputs=use_packed_loader, remat=remat)
+        packed_inputs=use_packed_loader, remat=remat, mesh=mesh)
     eval_step = make_eval_step(bundle.module, bundle.meta, spec, num_mc,
                                mc_chunk=mc_chunk,
-                               packed_inputs=use_packed_loader)
+                               packed_inputs=use_packed_loader, mesh=mesh)
+    if mesh is not None:
+        train_loader, test_loader = M.shard_loaders(
+            mesh, train_loader, test_loader, use_packed_loader)
+        train_step = M.wrap_train_step(mesh, train_step)
+        eval_step = M.wrap_eval_step(mesh, eval_step)
+        logger.info("Training on mesh %s (fsdp=%s), process %d/%d",
+                    mesh.shape, fsdp, mesh.rank, mesh.world_axis.size)
     scheduler = StepLR(lr, scheduler_step_size, scheduler_gamma)
     class_names = [str(c) for c in dataset.label_encoder.classes_]
-    write_run_manifest(os.path.join(root_dir, "csvs"), "multimodal_training", {
+    manifest = {
         "root_dir": root_dir, "num_classes": num_classes, "lr": lr,
         "weight_decay": weight_decay, "num_epochs": num_epochs,
         "num_mc": num_mc, "batch_size": batch_size_multimodal,
@@ -137,7 +167,14 @@ def _train_multimodal_common(
         "use_packed_loader": use_packed_loader, "image_size": image_size,
         "strict_errors": strict_errors, "remat": remat,
         "class_names": class_names,
-    }, device=bundle.device)
+        "mesh": (dict(data=mesh.data, mc=mesh.mc, fsdp=fsdp)
+                 if mesh is not None else None),
+        "num_processes": process_count(),
+    }
+    if is_coordinator():
+        write_run_manifest(os.path.join(root_dir, "csvs"),
+                           "multimodal_training", manifest,
+                           device=bundle.device)
     # SIGTERM stops at the next batch boundary and leaves the resume
     # checkpoint at the last completed epoch; a guard the caller entered
     # takes precedence over installing our own
@@ -164,17 +201,12 @@ def _train_multimodal_common(
     return state
 
 
-def _refuse_unported(async_checkpoints, mesh_spec, dist_spec, remat,
-                     mc_chunk) -> None:
+def _refuse_unported(async_checkpoints, remat, mc_chunk) -> None:
     """Raise, naming the ROADMAP item, for a flag whose path is not ported
     yet."""
-    for flag, value, item in (
-            ("async_checkpoints", async_checkpoints,
-             "5 (training: async checkpoints)"),
-            ("mesh_spec", mesh_spec, "8 (parallel)"),
-            ("dist_spec", dist_spec, "8 (parallel)")):
-        if value:
-            raise not_ported(flag, item)
+    if async_checkpoints:
+        raise not_ported("async_checkpoints",
+                         "5 (training: async checkpoints)")
     if remat == "auto":
         raise not_ported("remat='auto'", "5 (training: remat='auto')")
     if remat in ("on", True) and mc_chunk > 4:
@@ -220,14 +252,20 @@ def run_AUV_training_from_scratch(
 ) -> bool:
     """Signature parity with the reference's functions.py:361-374
     (``devices`` is accepted and unused; ``device`` picks the card, or the
-    CPU with ``device="cpu"``). Returns True when training finished, False
+    CPU with ``device="cpu"``). ``dist_spec`` (or the AUV_* environment)
+    joins a process group first, one process per card; ``mesh_spec`` lays
+    the ranks out (``parallel/mesh.py``): data x mc must equal the number
+    of processes. Returns True when training finished, False
     when it raised (logged), as the reference does. Flags of paths not
     ported yet, and a missing card, raise before training starts.
 
     ``pretrained_trunks``: a torchvision-named ResNet-50 state dict that
     MOPED-initialises all three feature trunks, the offline stand-in for
     the reference's IMAGENET1K_V1 download."""
-    _refuse_unported(async_checkpoints, mesh_spec, dist_spec, remat, mc_chunk)
+    _refuse_unported(async_checkpoints, remat, mc_chunk)
+    maybe_initialize_distributed(dist_spec)
+    if mesh_spec is not None:
+        M.mesh_shape(mesh_spec)  # a layout the processes cannot run raises
     dev = resolve_device(device)
     try:
         spec = _spec(const_bnn_prior_parameters)
@@ -266,7 +304,7 @@ def run_AUV_training_from_scratch(
             use_packed_loader=use_packed_loader, strict_errors=strict_errors,
             handle_preemption=handle_preemption,
             preemption_guard=preemption_guard, remat=remat,
-            image_size=arch.image_size)
+            image_size=arch.image_size, mesh_spec=mesh_spec)
         logger.info("Full training pipeline finished.")
         return True
     except Exception as e:  # the reference reports failure as False
@@ -316,7 +354,10 @@ def run_auv_retraining(
     workload. Without weights it raises unless ``allow_random_init``.
     Returns True when training finished, False when it raised (logged);
     flags of paths not ported yet, and a missing card, raise before."""
-    _refuse_unported(async_checkpoints, mesh_spec, dist_spec, remat, mc_chunk)
+    _refuse_unported(async_checkpoints, remat, mc_chunk)
+    maybe_initialize_distributed(dist_spec)
+    if mesh_spec is not None:
+        M.mesh_shape(mesh_spec)  # a layout the processes cannot run raises
     dev = resolve_device(device)
     try:
         spec = _spec(const_bnn_prior_parameters)
@@ -338,7 +379,7 @@ def run_auv_retraining(
             use_packed_loader=use_packed_loader, strict_errors=strict_errors,
             handle_preemption=handle_preemption,
             preemption_guard=preemption_guard, remat=remat,
-            image_size=arch.image_size)
+            image_size=arch.image_size, mesh_spec=mesh_spec)
         return True
     except Exception as e:  # the reference reports failure as False
         logger.exception("An error occurred during retraining: %s", e)

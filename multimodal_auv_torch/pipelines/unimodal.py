@@ -43,8 +43,14 @@ from multimodal_auv_torch.models.model_utils import (
     ModelBundle,
     make_unimodal_bundle,
 )
+from multimodal_auv_torch.parallel import mesh as M
+from multimodal_auv_torch.parallel.distributed import (
+    is_coordinator,
+    maybe_initialize_distributed,
+    process_count,
+)
 from multimodal_auv_torch.utils.manifest import write_run_manifest
-from multimodal_auv_torch.utils.tb import SummaryWriter
+from multimodal_auv_torch.utils.tb import NullSummaryWriter, SummaryWriter
 
 logger = logging.getLogger(__name__)
 
@@ -167,20 +173,23 @@ def run_unimodal_training(
     ``<root_dir>/csvs``), confusion matrices, a run manifest, TensorBoard
     scalars under ``<csv_dir>/tb``, and cooperative preemption
     (``handle_preemption``; ``resume_checkpoint`` makes a preempted run
-    resumable). ``device``: the card unless ``"cpu"``. Flags of paths not
-    ported yet (``async_checkpoints``, ``mesh_spec``, ``dist_spec``) raise
-    before anything runs."""
-    for flag, value, item in (
-            ("async_checkpoints", async_checkpoints,
-             "5 (training: async checkpoints)"),
-            ("mesh_spec", mesh_spec, "8 (parallel)"),
-            ("dist_spec", dist_spec, "8 (parallel)")):
-        if value:
-            raise not_ported(flag, item)
+    resumable). ``device``: the card unless ``"cpu"``. ``dist_spec`` (or
+    the AUV_* environment) joins a process group, and ``mesh_spec`` lays
+    the ranks out, as in ``run_AUV_training_from_scratch``. Flags of paths
+    not ported yet (``async_checkpoints``) raise before anything runs."""
+    if async_checkpoints:
+        raise not_ported("async_checkpoints",
+                         "5 (training: async checkpoints)")
     if mc_chunk > 4:
         raise not_ported("mc_chunk > 4 in training", "5 (training)")
     if model_type not in CHANNELS:
         raise ValueError(f"Unknown model_type: {model_type}")
+    maybe_initialize_distributed(dist_spec)
+    if mesh_spec is not None:
+        M.mesh_shape(mesh_spec)  # a layout the processes cannot run raises
+    if process_count() > 1 and mesh_spec is None:
+        raise ValueError("multi-process training needs a mesh_spec: the "
+                         "global batch is split over the mesh's data axis")
     dev = resolve_device(device)
     arch = arch or ArchConfig()
     spec = BNNPriorSpec()
@@ -192,16 +201,25 @@ def run_unimodal_training(
     bundle = make_unimodal_bundle(CHANNELS[model_type], num_classes, spec,
                                   torch.Generator().manual_seed(seed), arch,
                                   device=dev)
-    state = BayesTrainState(
-        post=bundle.post,
-        opt_state=make_optimizer(lr, weight_decay).init(bundle.post),
-        batch_stats=bundle.batch_stats)
+    tx = make_optimizer(lr, weight_decay)
+    mesh = None
+    if mesh_spec is not None:
+        mesh, mc_chunk = M.training_mesh(mesh_spec, batch_size, num_mc,
+                                         mc_chunk)
+    state = BayesTrainState(post=bundle.post, opt_state=tx.init(bundle.post),
+                            batch_stats=bundle.batch_stats)
+    if mesh is not None:
+        state = M.shard_state(mesh, state, tx, mesh.fsdp)
     tstep = make_train_step(bundle.module, bundle.meta, spec, num_mc,
-                            mc_chunk=mc_chunk)
+                            mc_chunk=mc_chunk, mesh=mesh)
     estep = make_eval_step(bundle.module, bundle.meta, spec, num_mc,
-                           mc_chunk=mc_chunk)
+                           mc_chunk=mc_chunk, mesh=mesh)
+    if mesh is not None:
+        tl, te = M.shard_loaders(mesh, tl, te, packed=False)
+        tstep = M.wrap_train_step(mesh, tstep)
+        estep = M.wrap_eval_step(mesh, estep)
     csv_dir = csv_dir or os.path.join(root_dir, "csvs")
-    write_run_manifest(csv_dir, "unimodal_training", {
+    manifest = {
         "root_dir": root_dir, "model_type": model_type,
         "num_epochs": num_epochs, "num_mc": num_mc,
         "batch_size": batch_size, "lr": lr, "weight_decay": weight_decay,
@@ -210,8 +228,16 @@ def run_unimodal_training(
         "seed": seed, "mc_chunk": mc_chunk,
         "skip_epoch_zero": skip_epoch_zero, "strict_errors": strict_errors,
         "resume_checkpoint": resume_checkpoint,
-    }, device=dev)
-    sum_writer = SummaryWriter(os.path.join(csv_dir, "tb"))
+        "mesh": (dict(data=mesh.data, mc=mesh.mc, fsdp=mesh.fsdp)
+                 if mesh is not None else None),
+        "num_processes": process_count(),
+    }
+    # rank 0 owns the ledgers, the manifest and the TB events
+    if is_coordinator():
+        write_run_manifest(csv_dir, "unimodal_training", manifest,
+                           device=dev)
+    sum_writer = (SummaryWriter(os.path.join(csv_dir, "tb"))
+                  if is_coordinator() else NullSummaryWriter())
     # a guard the caller entered takes precedence over installing our own
     own = null_guard() if preemption_guard is not None else None
     with (own if own is not None else maybe_guard(handle_preemption)) as g:

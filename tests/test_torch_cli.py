@@ -3,6 +3,7 @@ keyword arguments to the pipelines (each monkeypatched to record them);
 flags and subcommands of paths not ported yet exit non-zero naming their
 ROADMAP item; the default ``--device cuda`` needs a card; the self-check
 is offline and reports a crashing pipeline as a FAIL line."""
+import dataclasses
 import io
 import os
 from contextlib import redirect_stdout
@@ -94,15 +95,17 @@ def test_same_argv_same_kwargs_as_jax(monkeypatch, command, flags):
     assert got == want
 
 
+# item None: a parallel flag of item 8, ported since; it must reach the
+# pipeline as the spec the JAX CLI builds
 NOT_PORTED = [
-    ("retrain", ["--mesh_data", "2"], "item 8"),
-    ("retrain", ["--mesh_mc", "2"], "item 8"),
-    ("retrain", ["--fsdp"], "item 8"),
-    ("retrain", ["--coordinator", "localhost:1"], "item 8"),
-    ("retrain", ["--num_processes", "2"], "item 8"),
+    ("retrain", ["--mesh_data", "2"], None),
+    ("retrain", ["--mesh_mc", "2"], None),
+    ("retrain", ["--fsdp"], None),
+    ("retrain", ["--coordinator", "localhost:1"], None),
+    ("retrain", ["--num_processes", "2"], None),
     ("retrain", ["--async_checkpoints"], "item 5"),
     ("retrain", ["--remat", "auto"], "item 5"),
-    ("train-scratch", ["--fsdp"], "item 8"),
+    ("train-scratch", ["--fsdp"], None),
     ("train-scratch", ["--async_checkpoints"], "item 5"),
     ("train-scratch", ["--remat", "auto"], "item 5"),
     ("export-serving", ["--mc_shards", "2"], "item 8"),
@@ -116,7 +119,28 @@ NOT_PORTED = [
 def test_unported_flags_exit_non_zero(monkeypatch, capsys, command, extra,
                                       item):
     """A flag or subcommand of a path not ported yet: a non-zero exit and a
-    message naming its ROADMAP item; the pipeline never runs."""
+    message naming its ROADMAP item; the pipeline never runs. The mesh and
+    multi-process flags (item 8, ported) instead reach the pipeline as the
+    ``MeshSpec`` / ``DistSpec`` the JAX CLI builds from the same argv (the
+    port's DistSpec has one field more, ``backend``, left None); the
+    sharded-serving flags still exit naming item 8."""
+    if item is None:
+        monkeypatch.setattr(jdevices, "enable_compilation_cache",
+                            lambda: None)
+        want = _record(monkeypatch, jpipelines, PIPELINES[command])
+        got = _record(monkeypatch, pipelines, PIPELINES[command])
+        argv = [command] + REQUIRED[command] + extra
+        assert jcli.main(argv) == 0 and cli.main(argv) == 0
+        for key in ("mesh_spec", "dist_spec"):
+            g, w = got[key], want[key]
+            assert (g is None) == (w is None), key
+            if g is not None:
+                fields = dataclasses.asdict(g)
+                assert fields.pop("backend", None) is None
+                assert fields == dataclasses.asdict(w), key
+        assert (got["mesh_spec"], got["dist_spec"]) != (None, None) or \
+            extra[0] == "--coordinator"
+        return
     if command in PIPELINES:
         def never(**kw):
             raise AssertionError("the pipeline ran")

@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
                  "interop.from_jax", "interop.torch_import",
                  "interop.torch_export", "interop.hf_manifest", "interop.hub",
                  "cli", "selfcheck", "serving", "serve_http",
-                 "serve_client"):
+                 "serve_client", "models.fused", "parallel.mesh",
+                 "parallel.distributed", "parallel.collectives"):
         assert f"multimodal_auv_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 

@@ -153,21 +153,27 @@ def test_mc_logits_seeds_and_unported_flags():
     assert torch.equal(a, run(0))
     assert not torch.equal(a, run(1))
     assert not torch.equal(a[0], a[1])
-    for kw in ({"antithetic": True}, {"ws_sharding": object()},
-               {"pipelined": True}):
+    for kw in ({"antithetic": True}, {"pipelined": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run(0, **kw)
+    # ws_sharding (item 8, ported): on a one-rank mesh, the stacked path
+    from multimodal_auv_torch.parallel.mesh import make_mesh
+
+    assert torch.equal(run(0, ws_sharding=make_mesh()),
+                       run(0, split_sampling=False))
 
 
 def test_run_auv_inference_refusals(tmp_path):
     """No weights (offline, no path) without allow_random_init, and a
-    weights path that does not exist, raise; so does ``mesh_spec``, not
-    ported yet, naming its ROADMAP item."""
+    weights path that does not exist, raise; so does a ``mesh_spec`` that
+    needs more processes than there are (none here: one rank)."""
     with pytest.raises(RuntimeError, match="allow_random_init"):
         run_auv_inference(str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError, match="w.pt"):
         run_auv_inference(str(tmp_path), model_weights_path="w.pt",
                           arch=ArchConfig.micro(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    from multimodal_auv_torch.config import MeshSpec
+
+    with pytest.raises(ValueError, match="processes"):
         run_auv_inference(str(tmp_path), allow_random_init=True,
-                          device="cpu", mesh_spec=object())
+                          device="cpu", mesh_spec=MeshSpec(2, 1))

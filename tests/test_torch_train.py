@@ -281,11 +281,18 @@ def test_resume_matches_uninterrupted(tmp_path, monkeypatch):
 
 def test_training_refusals(tmp_path):
     """Flags of paths not ported yet raise, naming their ROADMAP item,
-    before anything runs; so does an unknown remat."""
-    for kw, item in (({"async_checkpoints": True}, "async"),
-                     ({"mesh_spec": object()}, "parallel"),
-                     ({"dist_spec": object()}, "parallel"),
-                     ({"remat": "auto"}, "remat"),
-                     ({"mc_chunk": 5}, "training")):
-        with pytest.raises(NotImplementedError, match=item):
+    before anything runs; so does an unknown remat. The parallel specs
+    (item 8, ported) raise before anything runs when the processes cannot
+    run them: a 2x1 mesh over one process, two processes without a
+    coordinator."""
+    from multimodal_auv_torch.config import DistSpec, MeshSpec
+
+    for kw, err, item in (
+            ({"async_checkpoints": True}, NotImplementedError, "async"),
+            ({"mesh_spec": MeshSpec(2, 1)}, ValueError, "processes"),
+            ({"dist_spec": DistSpec(num_processes=2)}, ValueError,
+             "coordinator"),
+            ({"remat": "auto"}, NotImplementedError, "remat"),
+            ({"mc_chunk": 5}, NotImplementedError, "training")):
+        with pytest.raises(err, match=item):
             _train(str(tmp_path), None, **kw)

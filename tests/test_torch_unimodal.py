@@ -475,7 +475,8 @@ def test_run_unimodal_training_cpu(tmp_path, monkeypatch):
     manifest, TensorBoard events and a resumable train state (2 steps).
     Resuming bathy, whose trunk has the image's shapes, from that state is
     refused; flags of paths not ported yet raise, naming their ROADMAP
-    item."""
+    item, and parallel specs the processes cannot run raise before
+    anything runs."""
     monkeypatch.chdir(tmp_path)
     root = make_training_tree(str(tmp_path / "tree"), n_samples=6)
     state_path = str(tmp_path / "state.pt")
@@ -514,11 +515,15 @@ def test_run_unimodal_training_cpu(tmp_path, monkeypatch):
     assert saved["meta"]["scheduler_counts"] == {"image": 1}
     with pytest.raises(ValueError, match="refusing to resume 'bathy'"):
         run_unimodal_training(root, "bathy", **kw)
-    for flag, item in (({"async_checkpoints": True}, "async"),
-                       ({"mesh_spec": object()}, "item 8"),
-                       ({"dist_spec": object()}, "item 8"),
-                       ({"mc_chunk": 5}, "training")):
-        with pytest.raises(NotImplementedError, match=item):
+    from multimodal_auv_torch.config import DistSpec, MeshSpec
+
+    for flag, err, item in (
+            ({"async_checkpoints": True}, NotImplementedError, "async"),
+            ({"mesh_spec": MeshSpec(2, 1)}, ValueError, "processes"),
+            ({"dist_spec": DistSpec(num_processes=2)}, ValueError,
+             "coordinator"),
+            ({"mc_chunk": 5}, NotImplementedError, "training")):
+        with pytest.raises(err, match=item):
             run_unimodal_training(root, "sss", device="cpu", **flag)
 
 
