@@ -188,13 +188,48 @@ result line):
     one-process step (PAR_GRAD_REPEAT). Prints each step's seconds and
     collectives.
 
-The kernels line's launches of #1-#3 add phases 13, 14, 15, 16, 17 and 18
-to their paths' counts. Beside each sampler's bound the script prints the
+19. MC variants and the rest of training, at full width, right after
+    phase 18 with phase 4's model: (a) pipelined inference over phase 4's
+    set (``make_packed_predict_step(pipelined=True)``, chunk k + 1 sampled
+    on a second stream): one batch's logits bit-equal to the split path's
+    at the same seed words, the CSV byte-equal to the split step's, exactly
+    30 split_sampler launches, pipelined and split patches/s timed in turns
+    (pipelined, split, split, pipelined); with --profile the share of the
+    split kernels' device time that overlaps a kernel of the current
+    stream. (b) antithetic inference (``make_predict_step(antithetic=
+    True)``, bf16, chunk 1: each draw and its mirror) over the same set:
+    finite outputs, exactly 30 stacked_sampler launches (10 a batch); one
+    chunk's rows at full P equal [w; (2 mu - w) formed in f32, cast to
+    bf16] of the plain sampler bit for bit; micro() card == CPU (classes
+    equal, uncertainty to 1e-4); kernel #2 with bf16 mu, sigma and output
+    at one draw against its byte bound and ``torch.normal``. (c) per-draw
+    remat: one b12 x 20 MC train step in chunks of VAR_CHUNK (f32
+    posterior): exactly 2 stacked_sampler and 2 eps launches, its time and
+    peak memory; its gradients against remat off at VAR_GRAD_BATCH x
+    VAR_GRAD_MC draws in one chunk (f32 activations, cuDNN deterministic)
+    within PAR_GRAD_CONTROL x a control (remat off on the rows swapped),
+    at least PAR_GRAD_REPEAT, the loss to PAR_LOSS_RTOL. (d)
+    ``remat="auto"`` on the unimodal sss b8 x 5 step and the multimodal
+    b12 x 20 step: the bytes the no-remat step keeps, the budget and the
+    choice; loss (PAR_LOSS_RTOL) and updated posterior (PAR_GRAD_REPEAT,
+    relative L2) against the explicitly chosen remat's step from the same
+    state and generator; exact launches (3 trial samplings + the step's).
+    (e) async checkpoints: ``save_train_state`` of (c)'s full-width state,
+    async then sync, each call's wall; the files equal, and a change made
+    after the async call not in its file. (f) non-MOPED init: a full-width
+    bundle from ``BNNPriorSpec(moped_enable=False)``: mu's and rho's means
+    at their init values within 4 x 0.1 / sqrt(n), standard deviations 0.1
+    within 1%; one b4 x 20 predict batch finite, exactly 10 split_sampler
+    launches.
+
+The kernels line's launches of #1-#3 add phases 13, 14, 15, 16, 17, 18 and
+19 to their paths' counts (phase 19's comparison runs not counted). Beside each sampler's bound the script prints the
 noise contract's Philox calls for that launch and their estimated INT32
 time, labelled as an estimate; it is not part of ``bound_ms``.
 
 ``--profile`` also writes profiler summaries of one inference batch, of
-one train step and of one DVP batch to chiprun_out/chip_smoke/. Launch
+one train step and of one DVP batch to the output directory (``OUT_DIR``),
+and measures phase 19's stream overlap. Launch
 counts are reset at the start of each counted run, and each phase expects
 exactly its own kernels.
 Before them it prints the script's own wall time. The line before the
@@ -286,9 +321,14 @@ PAR_FAULTS = {"data2_bf16": ("bn_local",),
 PAR_TIMEOUT = 600      # seconds for the ranks of phase 18
 UNI_MC, UNI_BATCH, UNI_CLASSES = 10, 4, 7      # BASELINE.json configs[0]
 UNI_TRAIN_MC, UNI_TRAIN_BATCH = 5, 8           # BASELINE.json configs[1]
+# phase 19: the b12 x 20 train step in chunks of 10 (per-draw remat), and
+# its gradients against remat off where remat off fits at full width (f32
+# activations): VAR_GRAD_BATCH x VAR_GRAD_MC draws in one chunk
+VAR_CHUNK = 10
+VAR_GRAD_BATCH, VAR_GRAD_MC = 2, 6
 
 
-# phases 17-18's results, printed again before the kernels line (the
+# phases 17-19's results, printed again before the kernels line (the
 # tool that runs this script keeps only the end of its output)
 SUMMARY = []
 
@@ -2676,6 +2716,431 @@ def phase_probe(smi: str, P_full: int) -> list:
     return entries
 
 
+def _overlap_share(fn):
+    """One profiled call of ``fn`` (after an unprofiled one): the share of
+    the sampler kernels' device time that overlaps another kernel, and
+    the number of sampler kernels seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    samplers = [(a, b) for a, b, n in kern if "sampler_kernel" in n]
+    merged = []
+    for a, b in sorted((a, b) for a, b, n in kern
+                       if "sampler_kernel" not in n):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = sum(b - a for a, b in samplers)
+    over = sum(max(0, min(b, hi) - max(a, lo))
+               for a, b in samplers for lo, hi in merged)
+    return (over / total if total else 0.0), len(samplers)
+
+
+def phase_variants(args, smi: str, bundle, work: str) -> dict:
+    """Phase 19: the MC variants and the rest of training at full width
+    (see the module docstring). Returns the launches of #1-#3 on its
+    paths (the comparisons' reference runs not counted)."""
+    from types import SimpleNamespace
+
+    from multimodal_auv_torch.bayes.packing import PackedPosterior, softplus
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.engine import checkpointing as ckpt
+    from multimodal_auv_torch.engine import mc as MC
+    from multimodal_auv_torch.engine.optim import (
+        BayesTrainState,
+        make_optimizer,
+    )
+    from multimodal_auv_torch.engine.predict import (
+        make_packed_logits_fn,
+        make_packed_predict_step,
+        make_predict_step,
+        multimodal_predict_and_save_packed,
+    )
+    from multimodal_auv_torch.engine.steps import make_train_step
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+        make_unimodal_bundle,
+        multimodal_module,
+    )
+    from multimodal_auv_torch.ops import sampling as S
+    from multimodal_auv_torch.ops.preprocess import normalize_multimodal
+    from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
+
+    t_phase = time.perf_counter()
+    bf16, spec, meta = torch.bfloat16, BNNPriorSpec(), bundle.meta
+    on_path = {"split_sampler": 0, "stacked_sampler": 0, "eps": 0}
+
+    def counted(label, want, fn, path=True):
+        """fn() with the launch counts set to 0 before and checked after
+        (``want``: a dict, or a function of fn's result giving one)."""
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = check_launches(f"phase 19 {label}",
+                             want(out) if callable(want) else want)
+        if path:
+            for k in on_path:
+                on_path[k] += got.get(k, 0)
+        return out
+
+    packed = os.path.join(work, "packed")  # phase 4's set
+    batches = [([torch.from_numpy(a).cuda() for a in b[:3]],
+                torch.from_numpy(b[3]).cuda().bool())
+               for b in _padded_batches(packed)[0]]
+    n_batches = len(batches)
+    u8, mask = batches[0]
+
+    # (a) pipelined: the split path's draws with chunk k + 1 sampled on a
+    # second stream
+    seeds = S.chunk_seed_words(torch.Generator().manual_seed(args.seed + 19),
+                               NUM_MC // 2).cuda()
+    with torch.inference_mode():
+        logits = [make_packed_logits_fn(bundle, mc_chunk=2, pipelined=p)(
+            bundle.post, bundle.batch_stats, u8, seeds, mask)
+            for p in (False, True)]
+    torch.cuda.synchronize()
+    if not torch.equal(logits[0], logits[1]):
+        raise AssertionError(
+            f"pipelined logits != split: max abs "
+            f"{float((logits[0].float() - logits[1].float()).abs().max())}")
+    del logits
+    steps = {p: make_packed_predict_step(bundle, NUM_MC, pipelined=p)
+             for p in (False, True)}
+    csvs = {p: os.path.join(work, f"pipelined{int(p)}.csv")
+            for p in (False, True)}
+
+    def run(p, csv_path):
+        multimodal_predict_and_save_packed(
+            bundle, packed, csv_path, num_mc_samples=NUM_MC,
+            batch_size=BATCH,
+            generator=torch.Generator().manual_seed(args.seed + 1),
+            step=steps[p], device="cuda")
+
+    run(True, csvs[True])  # warm-up of the side stream's path
+    counted("pipelined", {"split_sampler": n_batches * NUM_MC // 2},
+            lambda: run(True, csvs[True]))
+    run(False, csvs[False])
+    with open(csvs[True], "rb") as f1, open(csvs[False], "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("pipelined CSV != split CSV")
+    check_csv(csvs[True])
+    walls = {False: [], True: []}
+    for p in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(p, os.path.join(work, "pipelined_timed.csv"))
+        torch.cuda.synchronize()
+        walls[p].append(time.perf_counter() - t0)
+    rate = {p: [N_SAMPLES / w for w in ws] for p, ws in walls.items()}
+    log(f"pipelined: logits == split bit for bit (b{BATCH} x {NUM_MC}, "
+        f"chunk 2), CSV byte-equal, {n_batches * NUM_MC // 2} split "
+        f"launches; {min(rate[True]):.3f}-{max(rate[True]):.3f} patches/s "
+        f"against split {min(rate[False]):.3f}-{max(rate[False]):.3f} "
+        f"(timed pipelined, split, split, pipelined) [{smi}]", summary=True)
+    if args.profile:
+        share, n = _overlap_share(lambda: steps[True](
+            bundle.post, bundle.batch_stats, u8,
+            torch.Generator().manual_seed(args.seed), mask))
+        log(f"pipelined b{BATCH} batch: {n} split kernels, {share:.3f} of "
+            f"their device time overlaps a kernel of the current stream",
+            summary=True)
+    del steps
+
+    # (b) antithetic: each draw with its mirror, the stacked sampler (#2)
+    # bf16 in and out, one draw a chunk
+    anti = make_predict_step(bundle, NUM_MC, antithetic=True)
+
+    def run_anti():
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        with torch.inference_mode():
+            return [anti(bundle.post, bundle.batch_stats,
+                         normalize_multimodal(*b_u8), gen, b_mask)
+                    for b_u8, b_mask in batches]
+
+    run_anti()  # warm-up
+    t0 = time.perf_counter()
+    outs = counted("antithetic",
+                   {"stacked_sampler": n_batches * NUM_MC // 2}, run_anti)
+    wall = time.perf_counter() - t0
+    probs = torch.cat([o["mean_prob"][m].float()
+                       for o, (_, m) in zip(outs, batches)])
+    if not (torch.isfinite(probs).all() and torch.allclose(
+            probs.sum(1), torch.ones(len(probs), device="cuda"),
+            atol=1e-2)):
+        raise AssertionError(f"antithetic outputs: {probs}")
+    with torch.inference_mode():
+        capture = SimpleNamespace(unpack=lambda w, det: w)
+        rows = MC.mc_logits(lambda w, bs, *a, **k: w[None].float(), capture,
+                            bundle.post, None, [],
+                            torch.Generator().manual_seed(args.seed + 191),
+                            2, mc_chunk=1, remat=False, sample_dtype=bf16,
+                            antithetic=True)[:, 0]
+        (seed,) = S.chunk_seeds(torch.Generator().manual_seed(
+            args.seed + 191), 1)
+        mu = bundle.post.mu.detach().to(bf16)
+        sg = softplus(bundle.post.rho.detach().float()).to(bf16)
+        w = S.stacked_plain(mu, sg, seed, 1, bf16)[0]
+        mirror = (2.0 * mu.float() - w.float()).to(bf16)
+        if not (torch.equal(rows[0], w.float())
+                and torch.equal(rows[1], mirror.float())):
+            raise AssertionError("antithetic rows != [w; 2 mu - w] of the "
+                                 "plain sampler")
+    del rows, w, mirror
+    rng = np.random.default_rng(0)
+    x = [rng.standard_normal((3, 32, 32, c)).astype(np.float32)
+         for c in (3, 3, 1)]
+    cols = []
+    for dev in ("cuda", "cpu"):
+        b = make_multimodal_bundle(NUM_CLASSES, spec,
+                                   torch.Generator().manual_seed(0),
+                                   ArchConfig.micro(), device=dev)
+        out = make_predict_step(b, 4, antithetic=True)(
+            b.post, b.batch_stats, [torch.from_numpy(a).to(dev) for a in x],
+            torch.Generator().manual_seed(1),
+            torch.tensor([True, True, False], device=dev))
+        cols.append(out["csv_cols"].cpu().numpy()[:, :2])
+    err = float(np.abs(cols[0][1:] - cols[1][1:]).max())
+    if not (np.array_equal(cols[0][0], cols[1][0]) and err < 1e-4):
+        raise AssertionError(f"antithetic card vs CPU at micro(): {cols}")
+    P = mu.numel()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: S.gaussian_shift_scale(mu, sg, (1, 2), 1,
+                                                    out_dtype=bf16), 50)
+        plain_ms = cuda_ms(lambda: S.stacked_plain(mu, sg, (1, 2), 1, bf16),
+                           3)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        lib_ms = cuda_ms(lambda: torch.normal(
+            mu.expand(1, P), sg.expand(1, P), generator=gen), 50)
+    b_ms, b_by = bound_ms(6 * P, (P // 2) * SAMPLER_F32_OPS[False])
+    log(f"antithetic: {N_SAMPLES / wall:.3f} patches/s (b{BATCH} x {NUM_MC}"
+        f", {NUM_MC // 2} sampled draws + mirrors a batch), "
+        f"{n_batches * NUM_MC // 2} stacked launches; mirror rows == "
+        f"(2 mu - w) in f32 cast to bf16 bit for bit at P={P}; card == CPU "
+        f"at micro(): classes equal, uncertainty max abs err {err:.2e}; "
+        f"stacked_sampler bf16 in and out, 1 draw: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) [{smi}]", summary=True)
+    del anti, outs, mu, sg
+    free_cuda()
+
+    # (c) per-draw remat: b12 x 20 in chunks of 10, f32 posterior
+    rng = np.random.default_rng(args.seed + 19)
+    tin = [torch.from_numpy(rng.integers(
+        0, 256, (TRAIN_BATCH, IMAGE, IMAGE, c), dtype=np.uint8)).cuda()
+        for c in (3, 3, 1)]
+    tlab = torch.from_numpy(rng.integers(0, NUM_CLASSES, TRAIN_BATCH)).cuda()
+    tmask = torch.ones(TRAIN_BATCH, device="cuda")
+
+    def fresh(src=bundle):
+        p = src.post
+        post = PackedPosterior(p.mu.detach().clone(), p.rho.detach().clone(),
+                               _clone_tree(p.det))
+        return BayesTrainState(post, make_optimizer(PAR_LR, 1e-5).init(post),
+                               _clone_tree(src.batch_stats))
+
+    def train(step, state, inputs=tin, labels=tlab, m=tmask):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, met = step(state, inputs, labels, m,
+                          torch.Generator().manual_seed(args.seed + 19),
+                          PAR_KL_WEIGHT, float(len(labels)))
+        torch.cuda.synchronize()
+        return (state, met, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 2**30,
+                (torch.cuda.max_memory_allocated() - mem0) / 2**30)
+
+    state, met, wall, peak, above = counted(
+        "per-draw remat", {"stacked_sampler": NUM_MC // VAR_CHUNK,
+                           "eps": NUM_MC // VAR_CHUNK},
+        lambda: train(make_train_step(bundle.module, meta, spec, NUM_MC,
+                                      mc_chunk=VAR_CHUNK,
+                                      packed_inputs=True), fresh()))
+    if met["skipped"]:
+        raise AssertionError("per-draw remat step skipped (non-finite)")
+    log(f"per-draw remat: b{TRAIN_BATCH} x {NUM_MC} MC in chunks of "
+        f"{VAR_CHUNK}, f32 posterior: {wall:.3f} s, "
+        f"{NUM_MC // VAR_CHUNK} stacked + {NUM_MC // VAR_CHUNK} eps launches, "
+        f"peak {peak:.2f} GiB ({above:.2f} GiB above the start; phase 7 "
+        f"prints chunk 1's) [{smi}]", summary=True)
+
+    # its gradients against remat off where remat off fits at full width,
+    # and a control: remat off on the batch's rows swapped
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32mod = multimodal_module(NUM_CLASSES,
+                                   ArchConfig(dtype=torch.float32))
+        x2, y2, m2 = [a[:VAR_GRAD_BATCH] for a in tin], tlab[
+            :VAR_GRAD_BATCH], tmask[:VAR_GRAD_BATCH]
+        swap = torch.arange(VAR_GRAD_BATCH, device="cuda").flip(0)
+        one = {"stacked_sampler": 1, "eps": 1}
+
+        def grad_step(remat, perm=None):
+            step = make_train_step(f32mod, meta, spec, VAR_GRAD_MC,
+                                   mc_chunk=VAR_GRAD_MC, packed_inputs=True,
+                                   remat=remat)
+            xs, ys = x2, y2
+            if perm is not None:
+                xs, ys = [a[perm] for a in x2], y2[perm]
+            return counted(f"per-draw gradients ({remat})", one,
+                           lambda: train(step, fresh(), xs, ys, m2),
+                           path=False)[:2]
+
+        ref, on, ctl = (grad_step("off"), grad_step("on"),
+                        grad_step("off", swap))
+        rel = lambda a, r: max(_rel(getattr(a[0].post, k).grad,
+                                    getattr(r[0].post, k).grad)
+                               for k in ("mu", "rho"))
+        loss_rel = abs(float(on[1]["loss"]) - float(ref[1]["loss"])) / abs(
+            float(ref[1]["loss"]))
+        err, ctl_err = rel(on, ref), rel(ctl, ref)
+        gate = max(PAR_GRAD_CONTROL * ctl_err, PAR_GRAD_REPEAT)
+        log(f"per-draw remat gradients (b{VAR_GRAD_BATCH} x {VAR_GRAD_MC} in "
+            f"one chunk, f32 activations, cuDNN deterministic) against remat "
+            f"off: relative L2 {err:.3e} (gate {gate:.3e}: "
+            f"{PAR_GRAD_CONTROL:g} x the rows-swapped control {ctl_err:.3e}, "
+            f"at least {PAR_GRAD_REPEAT:g}), loss {loss_rel:.2e}, bit-equal "
+            f"{torch.equal(on[0].post.mu.grad, ref[0].post.mu.grad)}",
+            summary=True)
+        if not (err <= gate and loss_rel <= PAR_LOSS_RTOL):
+            raise AssertionError("per-draw remat off remat off's gradients")
+        del ref, on, ctl, f32mod
+        free_cuda()
+
+        # (d) remat="auto": the unimodal b8 x 5 step and the multimodal
+        # b12 x 20 step against the explicitly chosen remat
+        uni = make_unimodal_bundle(1, NUM_CLASSES, spec,
+                                   torch.Generator().manual_seed(args.seed),
+                                   ArchConfig(), device="cuda")
+        ux = [torch.from_numpy(rng.standard_normal(
+            (UNI_TRAIN_BATCH, IMAGE, IMAGE, 1)).astype(np.float32)).cuda()]
+        uy = torch.from_numpy(rng.integers(0, NUM_CLASSES,
+                                           UNI_TRAIN_BATCH)).cuda()
+        um = torch.ones(UNI_TRAIN_BATCH, device="cuda")
+        points = (("unimodal sss", uni, UNI_TRAIN_MC, ux, uy, um, False),
+                  ("multimodal", bundle, NUM_MC, tin, tlab, tmask, True))
+        for label, b, num_mc, xs, ys, ms_, packed_in in points:
+            auto = make_train_step(b.module, b.meta, spec, num_mc,
+                                   packed_inputs=packed_in, remat="auto")
+
+            def want(out, num_mc=num_mc, auto=auto):
+                # the trials sample 1 and 2 draws; remat on re-samples
+                fwd = num_mc * (2 if auto.remat_used else 1)
+                return {"stacked_sampler": 3 + fwd, "eps": num_mc}
+
+            got = counted(f"remat auto ({label})", want,
+                          lambda: train(auto, fresh(b), xs, ys, ms_))
+            chosen = "on" if auto.remat_used else "off"
+            exp = counted(f"remat {chosen} ({label})",
+                          {"stacked_sampler": num_mc * (
+                              2 if auto.remat_used else 1), "eps": num_mc},
+                          lambda: train(make_train_step(
+                              b.module, b.meta, spec, num_mc,
+                              packed_inputs=packed_in, remat=chosen),
+                              fresh(b), xs, ys, ms_), path=False)
+            loss_rel = abs(float(got[1]["loss"]) - float(exp[1]["loss"])) / \
+                abs(float(exp[1]["loss"]))
+            post_rel = max(_rel(getattr(got[0].post, k).detach(),
+                                getattr(exp[0].post, k).detach())
+                           for k in ("mu", "rho"))
+            need = auto.need_bytes
+            log(f"remat auto, {label} b{len(ys)} x {num_mc}: needs "
+                f"{'n/a' if need is None else f'{need / 2**30:.2f} GiB'} "
+                f"without remat, budget {auto.budget_bytes / 2**30:.2f} GiB "
+                f"-> remat {chosen}; {got[2]:.3f} s (trials included) "
+                f"against {exp[2]:.3f} s explicit; loss {loss_rel:.2e}, "
+                f"updated posterior relative L2 {post_rel:.2e}, bit-equal "
+                f"{torch.equal(got[0].post.mu, exp[0].post.mu)}; peak "
+                f"{got[3]:.2f} GiB [{smi}]", summary=True)
+            if not (loss_rel <= PAR_LOSS_RTOL and post_rel <= PAR_GRAD_REPEAT
+                    and need is not None):
+                raise AssertionError(f"remat auto ({label}) off the "
+                                     f"explicit remat {chosen}")
+            del got, exp, auto
+            free_cuda()
+        del uni
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (e) async checkpoints of the full-width train state
+    a_path, s_path = (os.path.join(work, f"{k}.pt") for k in ("async",
+                                                             "sync"))
+    mu_before = state.post.mu.detach().to("cpu", copy=True)
+    t0 = time.perf_counter()
+    ckpt.save_train_state(a_path, state, 1, {"multimodal": 1},
+                          async_save=True)
+    t_async = time.perf_counter() - t0
+    with torch.no_grad():
+        state.post.mu.add_(1.0)  # changed after the call: not in the file
+    t0 = time.perf_counter()
+    ckpt.wait_for_saves()
+    t_wait = time.perf_counter() - t0
+    with torch.no_grad():
+        state.post.mu.copy_(mu_before)
+    t0 = time.perf_counter()
+    ckpt.save_train_state(s_path, state, 1, {"multimodal": 1})
+    t_sync = time.perf_counter() - t0
+    fa, fs = (dict(_walk(torch.load(p, weights_only=True)))
+              for p in (a_path, s_path))
+    same = fa.keys() == fs.keys() and all(
+        torch.equal(v, fs[k]) if isinstance(v, torch.Tensor) else v == fs[k]
+        for k, v in fa.items())
+    if not (same and torch.equal(fa[("state", "post", "mu")], mu_before)):
+        raise AssertionError("async checkpoint != sync checkpoint, or the "
+                             "change after the call reached it")
+    log(f"async checkpoints: the full-width train state "
+        f"({os.path.getsize(a_path) / 1e9:.3f} GB): async call "
+        f"{t_async:.3f} s, wait_for_saves {t_wait:.3f} s, sync call "
+        f"{t_sync:.3f} s; files equal, the change after the async call not "
+        f"in its file [{smi}]", summary=True)
+    del state, fa, fs, mu_before
+    free_cuda()
+
+    # (f) non-MOPED init at full width
+    t0 = time.perf_counter()
+    nb = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(moped_enable=False),
+                                torch.Generator().manual_seed(args.seed + 19),
+                                ArchConfig(), device="cuda")
+    t_build = time.perf_counter() - t0
+    n = nb.meta.n_real
+    moments = {}
+    for name, x, init in (("mu", nb.post.mu, spec.posterior_mu_init),
+                          ("rho", nb.post.rho, spec.posterior_rho_init)):
+        x = x[:n].double()
+        moments[name] = (float(x.mean()), float(x.std()))
+        if not (abs(moments[name][0] - init) < 4 * 0.1 / math.sqrt(n)
+                and abs(moments[name][1] / 0.1 - 1.0) < 0.01):
+            raise AssertionError(f"non-MOPED {name} moments {moments[name]}")
+    out = counted("non-MOPED predict", {"split_sampler": NUM_MC // 2},
+                  lambda: make_packed_predict_step(nb, NUM_MC)(
+                      nb.post, nb.batch_stats, u8,
+                      torch.Generator().manual_seed(args.seed), mask))
+    if not (torch.isfinite(out["csv_cols"]).all()
+            and torch.isfinite(out["mean_prob"]).all()):
+        raise AssertionError("non-MOPED predict: non-finite outputs")
+    log(f"non-MOPED: full-width bundle in {t_build:.1f} s, mu mean / std "
+        f"{moments['mu'][0]:.3e} / {moments['mu'][1]:.6f}, rho "
+        f"{moments['rho'][0]:.6f} / {moments['rho'][1]:.6f} over {n} "
+        f"elements; one b{BATCH} x {NUM_MC} batch finite, classes "
+        f"{out['predicted'][mask].tolist()}", summary=True)
+    del nb, out
+    log(f"phase 19 (MC variants, training): {time.perf_counter() - t_phase:.1f}"
+        f" s; launches on its paths {on_path}", summary=True)
+    return on_path
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2717,6 +3182,10 @@ def main() -> int:
         parallel = phase_parallel(args, smi, bundle, work)
         for e in kernels_line:
             e["launches"] += parallel.get(e["name"], 0)
+        free_cuda()
+        variants = phase_variants(args, smi, bundle, work)
+        for e in kernels_line:
+            e["launches"] += variants[e["name"]]
         P_full = bundle.meta.n_padded
         del bundle
         free_cuda()
@@ -2742,7 +3211,7 @@ def main() -> int:
         for e in kernels_line:
             e["launches"] += retrain[e["name"]]
         kernels_line += phase_probe(smi, P_full)
-    log("summary of phases 17-18:\n  " + "\n  ".join(SUMMARY))
+    log("summary of phases 17-19:\n  " + "\n  ".join(SUMMARY))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,24 +151,35 @@ def build_meta(params: Params, pad_multiple: int = 1024) -> PackMeta:
 
 
 def bayesianize(params: Params, spec: BNNPriorSpec, *,
+                generator: Optional[torch.Generator] = None,
                 pad_multiple: int = 1024) -> Tuple[PackedPosterior, PackMeta]:
     """A deterministic param tree (JAX layout) -> PackedPosterior.
 
     MOPED: mu = w, sigma = moped_delta * |w| clamped to >= 1e-12 (so a zero
-    weight gets a finite rho), rho = softplus_inv(sigma). The pad holds
-    (prior_mu, softplus_inv(prior_sigma))."""
-    if not spec.moped_enable:
-        raise NotImplementedError(
-            "non-MOPED posterior init is not ported yet: ROADMAP.md, Open "
-            "items, 1 'Modules to port' item 5 (training)")
+    weight gets a finite rho), rho = softplus_inv(sigma). Without MOPED,
+    bayesian-torch's init: for each leaf in layout order, mu ~
+    N(posterior_mu_init, 0.1) and rho ~ N(posterior_rho_init, 0.1) in f32,
+    drawn from ``generator`` (a CPU generator; None: one seeded 0, as the
+    JAX package defaults to ``PRNGKey(0)``); the weights' values are not
+    read. The pad holds (prior_mu, softplus_inv(prior_sigma)) either
+    way."""
     meta = build_meta(params, pad_multiple)
+    if not spec.moped_enable and generator is None:
+        generator = torch.Generator().manual_seed(0)
     mu_parts: List[torch.Tensor] = []
     rho_parts: List[torch.Tensor] = []
     for e in meta.entries:
         flat = _get_path(params, e.path).to(torch.float32).reshape(-1)
-        mu_parts.append(flat)
-        sigma = torch.clamp_min(spec.moped_delta * flat.abs(), 1e-12)
-        rho_parts.append(torch.log(torch.expm1(sigma)))
+        if spec.moped_enable:
+            mu_parts.append(flat)
+            sigma = torch.clamp_min(spec.moped_delta * flat.abs(), 1e-12)
+            rho_parts.append(torch.log(torch.expm1(sigma)))
+            continue
+        for init, parts in ((spec.posterior_mu_init, mu_parts),
+                            (spec.posterior_rho_init, rho_parts)):
+            noise = torch.randn(flat.shape, generator=generator,
+                                dtype=torch.float32)
+            parts.append((init + 0.1 * noise).to(flat.device))
     pad = meta.n_padded - meta.n_real
     if pad:
         dev = mu_parts[0].device if mu_parts else None

@@ -83,17 +83,6 @@ def _dist_spec(args):
     return None  # the pipelines still read the AUV_* environment
 
 
-def _refuse_training_flags(args) -> None:
-    if args.async_checkpoints:
-        raise NotPorted("--async_checkpoints is not ported yet: ROADMAP.md, "
-                        "Open items, 1 'Modules to port' item 5 (training: "
-                        "async checkpoints)")
-    if args.remat == "auto":
-        raise NotPorted("--remat auto is not ported yet: ROADMAP.md, Open "
-                        "items, 1 'Modules to port' item 5 (training: "
-                        "remat='auto')")
-
-
 def inference_cli(argv=None):
     parser = argparse.ArgumentParser(
         description="Multimodal AUV BNN inference with MC uncertainty.")
@@ -167,8 +156,9 @@ def _add_training_flags(parser):
                              "reference's swallow-into-zero-metrics (the "
                              "crash-save still happens)")
     parser.add_argument("--async_checkpoints", action="store_true",
-                        help="background checkpoint commits (not ported "
-                             "yet)")
+                        help="background checkpoint commits (the copy to "
+                             "the host before the call returns, the write "
+                             "in a background thread)")
     parser.add_argument("--resume_checkpoint", type=str, default=None,
                         help="path for true resume: posterior + optimizer "
                              "+ epoch + scheduler state saved every epoch; "
@@ -180,8 +170,8 @@ def _add_training_flags(parser):
     parser.add_argument("--remat", choices=("on", "off", "auto"),
                         default="on",
                         help="MC-draw rematerialisation: on (memory flat in "
-                             "num_mc), off (store residuals), auto (not "
-                             "ported yet)")
+                             "num_mc), off (store residuals), auto (off when "
+                             "the no-remat step fits the card)")
     _add_mesh_flags(parser)
     _add_dist_flags(parser)
     _add_device_flag(parser)
@@ -209,7 +199,6 @@ def retraining_cli(argv=None):
                              "fine-tuning with frozen ResNet trunks).")
     _add_training_flags(parser)
     args = parser.parse_args(argv)
-    _refuse_training_flags(args)
     mesh_spec, dist_spec = _mesh_spec(args), _dist_spec(args)
 
     from multimodal_auv_torch.engine.preemption import (
@@ -271,7 +260,6 @@ def training_from_scratch_cli(argv=None):
                              "(offline stand-in for IMAGENET1K_V1)")
     _add_training_flags(parser)
     args = parser.parse_args(argv)
-    _refuse_training_flags(args)
     mesh_spec, dist_spec = _mesh_spec(args), _dist_spec(args)
 
     from multimodal_auv_torch.config import BNNPriorSpec

@@ -172,6 +172,7 @@ def train_multimodal_model(
     sss_patch_type: Optional[str] = None,
     strict_errors: bool = False,
     stop_check: Optional[Callable[[], bool]] = None,
+    async_checkpoints: bool = False,
 ) -> Tuple[BayesTrainState, float, float]:
     """One training epoch (the reference's multimodal.py:25-202). Returns
     (state, train_loss, train_accuracy).
@@ -180,7 +181,10 @@ def train_multimodal_model(
     mid-epoch crash-saves the posterior and returns zero metrics; ``True``
     crash-saves and re-raises. ``stop_check`` (engine/preemption.py) is
     polled each batch; when it turns true the loop stops at the batch
-    boundary without the epoch's CSV row or 5-epoch checkpoint."""
+    boundary without the epoch's CSV row or 5-epoch checkpoint.
+    ``async_checkpoints``: the 5-epoch checkpoint is written in the
+    background (``checkpointing.save_model(async_save=True)``); the
+    crash-save stays synchronous, so it drains the queue first."""
     csv_path = str(Path(csv_path))
     sss_size = _patch_size_str(sss_patch_type, "sss")
     bathy_size = _patch_size_str(bathy_patch_type, "bathy")
@@ -246,7 +250,8 @@ def train_multimodal_model(
                 writer.writerow([epoch, model_type, train_loss, train_accuracy,
                                  lr, last_kl, last_ce, sss_size, bathy_size])
         if epoch % 5 == 0 and not preempted:
-            ckpt.save_model(state.post, csv_path, name)
+            ckpt.save_model(state.post, csv_path, name,
+                            async_save=async_checkpoints)
         return state, train_loss, train_accuracy
     except Exception:
         # crash-save, as the reference's bare except (multimodal.py:194-200)
@@ -368,6 +373,7 @@ def train_and_evaluate_multimodal_model(
     double_scheduler_step: bool = True,
     checkpoint_resume_path: Optional[str] = None,
     strict_errors: bool = False,
+    async_checkpoints: bool = False,
     preemption_guard=None,
 ) -> BayesTrainState:
     """The reference's loop_utils.py:162-250: per epoch, train ->
@@ -380,7 +386,9 @@ def train_and_evaluate_multimodal_model(
     ``preemption_guard`` (engine/preemption.py): the train loop stops at
     the next batch boundary, and the orchestrator returns without eval or
     the epoch's save, so the resume point stays at the last completed
-    epoch."""
+    epoch. ``async_checkpoints``: the epoch and 5-epoch saves are written
+    in the background, and every write has committed when this returns
+    or raises (``checkpointing.wait_for_saves``)."""
     os.makedirs(csv_dir, exist_ok=True)
     train_csv = os.path.join(csv_dir, "multimodal_train_results.csv")
     eval_csv = os.path.join(csv_dir, "multimodal_eval_results.csv")
@@ -388,39 +396,50 @@ def train_and_evaluate_multimodal_model(
                                  scheduler, 0)
     stop_check = (preemption_guard.check if preemption_guard is not None
                   else None)
-    for epoch in range(start_epoch, num_epochs):
-        set_learning_rate(state.opt_state, scheduler.lr)
-        if hasattr(train_loader, "set_epoch"):
-            train_loader.set_epoch(epoch)
-        state, train_loss, _ = train_multimodal_model(
-            train_step, state, train_loader, epoch, num_epochs, train_csv,
-            model_type, sum_writer, epoch_generator(seed, 2 * epoch),
-            scheduler.lr, bathy_patch_type, sss_patch_type,
-            strict_errors=strict_errors, stop_check=stop_check)
-        if preemption_guard is not None and preemption_guard.triggered:
-            logger.warning(
-                "Preempted during epoch %d — stopping without its boundary "
-                "save; resume%s replays it from the last completed epoch",
-                epoch, f" ({checkpoint_resume_path})"
-                if checkpoint_resume_path else "")
-            break
-        scheduler.step()
-        test_acc = evaluate_multimodal_model(
-            eval_step, state, test_loader, epoch, num_epochs, eval_csv,
-            model_type, epoch_generator(seed, 2 * epoch + 1),
-            bathy_patch_type, sss_patch_type, class_names,
-            strict_errors=strict_errors)
-        if double_scheduler_step:
-            scheduler.step()  # the reference's loop_utils.py:246
-        sum_writer.add_scalar("Loss/train_epoch", train_loss, epoch)
-        sum_writer.add_scalar("Accuracy/val_epoch", test_acc, epoch)
-        if checkpoint_resume_path:
-            ckpt.save_train_state(checkpoint_resume_path, state, epoch + 1,
-                                  {model_type: scheduler.epoch_count})
-        if preemption_guard is not None and preemption_guard.triggered:
-            logger.warning("Preempted after completed epoch %d — stopping "
-                           "cleanly", epoch)
-            break
+    # finally: a strict_errors re-raise must not leave background writes
+    # in flight (the eval loop's crash-save is not the one that drains)
+    try:
+        for epoch in range(start_epoch, num_epochs):
+            set_learning_rate(state.opt_state, scheduler.lr)
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            state, train_loss, _ = train_multimodal_model(
+                train_step, state, train_loader, epoch, num_epochs,
+                train_csv, model_type, sum_writer,
+                epoch_generator(seed, 2 * epoch), scheduler.lr,
+                bathy_patch_type, sss_patch_type,
+                strict_errors=strict_errors, stop_check=stop_check,
+                async_checkpoints=async_checkpoints)
+            if preemption_guard is not None and preemption_guard.triggered:
+                logger.warning(
+                    "Preempted during epoch %d — stopping without its "
+                    "boundary save; resume%s replays it from the last "
+                    "completed epoch", epoch,
+                    f" ({checkpoint_resume_path})"
+                    if checkpoint_resume_path else "")
+                break
+            scheduler.step()
+            test_acc = evaluate_multimodal_model(
+                eval_step, state, test_loader, epoch, num_epochs, eval_csv,
+                model_type, epoch_generator(seed, 2 * epoch + 1),
+                bathy_patch_type, sss_patch_type, class_names,
+                strict_errors=strict_errors)
+            if double_scheduler_step:
+                scheduler.step()  # the reference's loop_utils.py:246
+            sum_writer.add_scalar("Loss/train_epoch", train_loss, epoch)
+            sum_writer.add_scalar("Accuracy/val_epoch", test_acc, epoch)
+            if checkpoint_resume_path:
+                ckpt.save_train_state(checkpoint_resume_path, state,
+                                      epoch + 1,
+                                      {model_type: scheduler.epoch_count},
+                                      async_save=async_checkpoints)
+            if preemption_guard is not None and preemption_guard.triggered:
+                logger.warning("Preempted after completed epoch %d — "
+                               "stopping cleanly", epoch)
+                break
+    finally:
+        if async_checkpoints:
+            ckpt.wait_for_saves()
     return state
 
 
@@ -429,6 +448,7 @@ def train_unimodal_model(
     total_num_epochs: int, csv_path: str, model_type: str, sum_writer,
     generator: torch.Generator, lr: float, strict_errors: bool = False,
     stop_check: Optional[Callable[[], bool]] = None,
+    async_checkpoints: bool = False,
 ) -> Tuple[BayesTrainState, float, float]:
     """One unimodal training epoch (the reference's unimodal.py:21-175);
     ledger columns ``UNIMODAL_TRAIN_CSV_HEADER``, the row logs epoch + 1.
@@ -438,8 +458,8 @@ def train_unimodal_model(
     Returns (state, ACCURACY, LOSS): the reverse of
     ``train_multimodal_model``'s order, which is the reference's own
     asymmetry (its unimodal.py:175 against multimodal.py:202). Bind the
-    outputs by name. ``strict_errors`` and ``stop_check``: as in
-    ``train_multimodal_model``."""
+    outputs by name. ``strict_errors``, ``stop_check`` and
+    ``async_checkpoints``: as in ``train_multimodal_model``."""
     csv_path = str(Path(csv_path))
     device = state.post.mu.device
     try:
@@ -487,7 +507,8 @@ def train_unimodal_model(
                 writer.writerow([epoch + 1, model_type, train_loss,
                                  train_accuracy, lr])
         if epoch % 5 == 0 and not preempted:
-            ckpt.save_model(state.post, csv_path, model_type)
+            ckpt.save_model(state.post, csv_path, model_type,
+                            async_save=async_checkpoints)
         return state, train_accuracy, train_loss
     except Exception:
         ckpt.save_model(state.post, csv_path, model_type)
@@ -568,15 +589,16 @@ def train_and_evaluate_unimodal_model(
     state: BayesTrainState, scheduler: StepLR, csv_dir: str, sum_writer,
     seed: int, model_type: str, class_names=None,
     skip_epoch_zero: bool = True, strict_errors: bool = False,
+    async_checkpoints: bool = False,
     checkpoint_resume_path: Optional[str] = None,
     preemption_guard=None,
 ) -> BayesTrainState:
     """The reference's loop_utils.py:65-159: per epoch train -> eval ->
     scheduler.step(). Its epoch loop is ``range(1, num_epochs)``, which
     skips epoch 0; kept by default, ``skip_epoch_zero=False`` runs it.
-    ``checkpoint_resume_path`` and ``preemption_guard``: as in
-    ``train_and_evaluate_multimodal_model``; a checkpoint of another
-    modality is refused."""
+    ``checkpoint_resume_path``, ``preemption_guard`` and
+    ``async_checkpoints``: as in ``train_and_evaluate_multimodal_model``;
+    a checkpoint of another modality is refused."""
     os.makedirs(csv_dir, exist_ok=True)
     train_csv = os.path.join(csv_dir,
                              f"unimodal_{model_type}_train_results.csv")
@@ -585,33 +607,44 @@ def train_and_evaluate_unimodal_model(
                            scheduler, 1 if skip_epoch_zero else 0)
     stop_check = (preemption_guard.check if preemption_guard is not None
                   else None)
-    for epoch in range(start, num_epochs):
-        set_learning_rate(state.opt_state, scheduler.lr)
-        if hasattr(train_loader, "set_epoch"):
-            train_loader.set_epoch(epoch)
-        state, _, train_loss = train_unimodal_model(
-            train_step, state, train_loader, epoch, num_epochs, train_csv,
-            model_type, sum_writer, epoch_generator(seed, 2 * epoch),
-            scheduler.lr, strict_errors=strict_errors, stop_check=stop_check)
-        if preemption_guard is not None and preemption_guard.triggered:
-            logger.warning(
-                "Preempted during epoch %d — stopping without its boundary "
-                "save; resume%s replays it from the last completed epoch",
-                epoch, f" ({checkpoint_resume_path})"
-                if checkpoint_resume_path else "")
-            break
-        test_acc = evaluate_unimodal_model(
-            eval_step, state, test_loader, epoch, num_epochs, eval_csv,
-            model_type, epoch_generator(seed, 2 * epoch + 1), class_names,
-            strict_errors=strict_errors)
-        scheduler.step()
-        sum_writer.add_scalar(f"Loss/train_{model_type}", train_loss, epoch)
-        sum_writer.add_scalar(f"Accuracy/val_{model_type}", test_acc, epoch)
-        if checkpoint_resume_path:
-            ckpt.save_train_state(checkpoint_resume_path, state, epoch + 1,
-                                  {model_type: scheduler.epoch_count})
-        if preemption_guard is not None and preemption_guard.triggered:
-            logger.warning("Preempted after completed epoch %d — stopping "
-                           "cleanly", epoch)
-            break
+    try:  # as in train_and_evaluate_multimodal_model
+        for epoch in range(start, num_epochs):
+            set_learning_rate(state.opt_state, scheduler.lr)
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            state, _, train_loss = train_unimodal_model(
+                train_step, state, train_loader, epoch, num_epochs,
+                train_csv, model_type, sum_writer,
+                epoch_generator(seed, 2 * epoch), scheduler.lr,
+                strict_errors=strict_errors, stop_check=stop_check,
+                async_checkpoints=async_checkpoints)
+            if preemption_guard is not None and preemption_guard.triggered:
+                logger.warning(
+                    "Preempted during epoch %d — stopping without its "
+                    "boundary save; resume%s replays it from the last "
+                    "completed epoch", epoch,
+                    f" ({checkpoint_resume_path})"
+                    if checkpoint_resume_path else "")
+                break
+            test_acc = evaluate_unimodal_model(
+                eval_step, state, test_loader, epoch, num_epochs, eval_csv,
+                model_type, epoch_generator(seed, 2 * epoch + 1),
+                class_names, strict_errors=strict_errors)
+            scheduler.step()
+            sum_writer.add_scalar(f"Loss/train_{model_type}", train_loss,
+                                  epoch)
+            sum_writer.add_scalar(f"Accuracy/val_{model_type}", test_acc,
+                                  epoch)
+            if checkpoint_resume_path:
+                ckpt.save_train_state(checkpoint_resume_path, state,
+                                      epoch + 1,
+                                      {model_type: scheduler.epoch_count},
+                                      async_save=async_checkpoints)
+            if preemption_guard is not None and preemption_guard.triggered:
+                logger.warning("Preempted after completed epoch %d — "
+                               "stopping cleanly", epoch)
+                break
+    finally:
+        if async_checkpoints:
+            ckpt.wait_for_saves()
     return state

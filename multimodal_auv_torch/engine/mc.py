@@ -5,20 +5,28 @@ sequential forward per draw. Each chunk takes its own seed pair from a
 ``torch.Generator``, as the JAX package takes one key per chunk; every path
 draws the seeds the same way and in the same order (``chunk_seed_words``).
 
-Two ways to consume a chunk:
+Three ways to consume a chunk:
 
 * split (inference, ``split_mc_logits``): one launch of the split sampler
   gives separate weight vectors (``gaussian_shift_scale_split``); not
   differentiable. The seeds go to the device as one (nchunks, 2) tensor,
   and the sampler reads chunk k's words from row k, so the path is a
   function of tensors alone: ``torch.export`` traces it (serving.py).
+* pipelined (inference): the split path's draws, seeds and order, with
+  chunk k + 1 sampled on a second CUDA stream while chunk k's forwards run
+  on the current one, so the logits equal the split path's bit for bit.
+  On the CPU the same order runs on one stream.
 * stacked (training): the differentiable ``gaussian_shift_scale``. With
-  ``remat`` and a chunk of at most 4 draws, sampling and the chunk's
+  ``remat`` and at most 4 forwards per chunk, sampling and the chunk's
   forwards run under one ``torch.utils.checkpoint``, so the backward
   samples the weights again from the chunk's seed and regenerates eps from
-  it: nothing but the seed pair is kept per chunk. The seeds are drawn from
-  the generator before any checkpoint, so the re-forward sees the same
-  weights.
+  it: nothing but the seed pair is kept per chunk. Larger chunks sample
+  once, outside any checkpoint, keep the (k, P) stack for the backward,
+  and checkpoint each draw's forward on its own (per-draw remat): one
+  sampler and one eps launch per chunk. The seeds are drawn from the
+  generator before any checkpoint, so the re-forward sees the same
+  weights. ``antithetic`` pairs each draw w with its mirror 2 mu - w on
+  this path.
 
 BatchNorm: the reference runs BN in train mode even at inference, so the
 forward normalises by the current batch's statistics (real rows only when
@@ -28,7 +36,7 @@ reference's training does; otherwise the running statistics are untouched.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,13 +51,9 @@ from multimodal_auv_torch.ops.sampling import (
 )
 from multimodal_auv_torch.parallel.collectives import LOCAL, gather_draws
 
-
-def not_ported(flag: str, item: str) -> NotImplementedError:
-    """The error of a flag whose path is not ported yet, naming its item
-    in ROADMAP.md."""
-    return NotImplementedError(
-        f"{flag} is not ported yet: ROADMAP.md, Open items, 1 'Modules to "
-        f"port' item {item}")
+# a chunk of at most this many forwards (on this rank) samples inside its
+# checkpoint; a larger one keeps its sampled stack (per-draw remat)
+SAMPLE_IN_REMAT_MAX = 4
 
 
 def _resolve_fast(fast_sampling: Optional[bool],
@@ -73,28 +77,88 @@ def _sampling_posterior(post: PackedPosterior,
     return mu, sigma.to(mu.dtype)
 
 
+def _pipelined(sample: Callable[[int], List[torch.Tensor]],
+               forward: Callable[[torch.Tensor], torch.Tensor],
+               nchunks: int, device: torch.device,
+               inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Chunk k's forwards, in order, with chunk k + 1 sampled first: on a
+    CUDA device on a side stream, so the sampler overlaps the forwards.
+    ``inputs``: the tensors ``sample`` reads, made on the current stream."""
+    if device.type != "cuda":
+        logits, ws = [], sample(0)
+        for k in range(nchunks):
+            nxt = sample(k + 1) if k + 1 < nchunks else None
+            logits += [forward(w) for w in ws]
+            ws = nxt
+        return logits
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device=device)  # raises where none can be made
+    # mu, sigma (cast here) and the seed words (copied non_blocking) are
+    # made on the current stream: the side stream waits for them
+    side.wait_stream(cur)
+    for t in inputs:
+        t.record_stream(side)
+
+    def on_side(k):
+        with torch.cuda.stream(side):
+            ws = sample(k)
+            done = torch.cuda.Event()
+            done.record(side)
+        return ws, done
+
+    logits, (ws, done) = [], on_side(0)
+    for k in range(nchunks):
+        nxt = on_side(k + 1) if k + 1 < nchunks else None
+        cur.wait_event(done)
+        for w in ws:
+            # allocated on the side stream, read on this one: the
+            # allocator must not hand its block out before these forwards
+            w.record_stream(cur)
+        logits += [forward(w) for w in ws]
+        if nxt is not None:
+            ws, done = nxt
+    return logits
+
+
 def split_mc_logits(module, meta: PackMeta, post: PackedPosterior,
                     batch_stats, inputs: Sequence[torch.Tensor],
                     seeds: torch.Tensor, *, mc_chunk: int, train: bool = True,
                     sample_dtype: Optional[torch.dtype] = None,
                     batch_mask=None,
-                    fast_sampling: Optional[bool] = None) -> torch.Tensor:
+                    fast_sampling: Optional[bool] = None,
+                    pipelined: bool = False) -> torch.Tensor:
     """The split path of ``mc_logits``: (nchunks * mc_chunk, batch,
     num_classes) logits, chunk k's draws from the seed words in row k of
     ``seeds``, an (nchunks, 2) int64 tensor on the posterior's device. A
     function of tensors alone (no generator, no host value), so
-    ``torch.export`` traces it; not differentiable."""
+    ``torch.export`` traces it; not differentiable. ``pipelined`` (two
+    chunks or more): chunk k + 1 is sampled on a second CUDA stream while
+    chunk k's forwards run, with the same draws in the same order, so the
+    logits are the same bit for bit (not for ``torch.export``)."""
     mu, sigma = _sampling_posterior(post, sample_dtype)
     fast = _resolve_fast(fast_sampling, sample_dtype)
-    logits = []
-    for k in range(seeds.shape[0]):
-        for w in gaussian_shift_scale_split(mu, sigma, seeds[k], mc_chunk,
-                                            out_dtype=sample_dtype,
-                                            fast_math=fast):
-            logits.append(module(meta.unpack(w, post.det), batch_stats,
-                                 *inputs, train=train,
-                                 batch_mask=batch_mask))
-    return torch.stack(logits)
+
+    def sample(k):
+        return gaussian_shift_scale_split(mu, sigma, seeds[k], mc_chunk,
+                                          out_dtype=sample_dtype,
+                                          fast_math=fast)
+
+    def forward(w):
+        return module(meta.unpack(w, post.det), batch_stats, *inputs,
+                      train=train, batch_mask=batch_mask)
+
+    nchunks = seeds.shape[0]
+    if pipelined and nchunks >= 2:
+        return torch.stack(_pipelined(sample, forward, nchunks, mu.device,
+                                      (mu, sigma, seeds)))
+    return torch.stack([forward(w) for k in range(nchunks)
+                        for w in sample(k)])
+
+
+def _mirror(mu: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """The antithetic rows of ``ws``: 2 mu - w, formed in f32 and cast to
+    the draws' dtype (mu: the sampling mu)."""
+    return (2.0 * mu.to(torch.float32) - ws.to(torch.float32)).to(ws.dtype)
 
 
 def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
@@ -113,44 +177,58 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
     ``cast_posterior``: with ``sample_dtype`` set, cast mu and sigma to it
     before sampling (inference); False keeps them f32 and casts only the
     sampler's output (training: f32 master posterior and f32 gradients).
-    ``split_sampling``: the split sampler; ignored (stacked) with
-    ``return_batch_stats`` or ``ws_sharding``. ``ws_sharding``: a mesh
-    (``parallel/mesh.py``) whose mc axis splits each chunk's draws:
-    rank m draws rows [m k, (m + 1) k) of every chunk, k = mc_chunk / mc,
-    from the chunk's seed with its draw offset folded in
-    (``draw_offset_seed``), so the rows equal the unsharded stack's, and
-    the logits are gathered over the mc axis (differentiably: each rank's
-    backward takes its own draws' gradient). ``fast_sampling``: the
-    bf16-budget noise on the split path (None = exactly when sampling to
-    bf16); the stacked path always uses the f32 noise its backward
-    regenerates. ``train``: BN from batch statistics (else running
-    statistics). ``remat``: checkpoint each chunk's sampling and forwards
-    when gradients are being recorded."""
-    if antithetic:
-        raise not_ported("antithetic", "5 (training: antithetic draws)")
-    if pipelined:
-        raise not_ported("pipelined", "4 (MC inference, pipelined variant)")
-    if num_mc % mc_chunk != 0:
+    ``split_sampling``: the split sampler, a hint: ignored (stacked) with
+    ``return_batch_stats``, ``antithetic`` or ``ws_sharding``.
+    ``antithetic``: each chunk runs 2 x mc_chunk draws, its mc_chunk
+    sampled rows ws and their mirrors 2 mu - ws (formed in f32 and cast;
+    mu the sampling mu, so the bf16 one under ``cast_posterior``), on the
+    stacked sampler; num_mc must divide by 2 x mc_chunk; refused with
+    ``return_batch_stats``. ``pipelined``: the split path with chunk k + 1
+    sampled on a second CUDA stream during chunk k's forwards (the same
+    logits); a hint, inactive under remat while gradients are recorded,
+    antithetic, an mc axis, chained BN or a single chunk. ``ws_sharding``:
+    a mesh (``parallel/mesh.py``) whose mc axis splits each chunk's rows:
+    rank m takes rows [m k, (m + 1) k) of every chunk, k = rows / mc, from
+    the chunk's seed with its draw offset folded in
+    (``draw_offset_seed``; a mirror row draws the row it mirrors), so the
+    rows equal the unsharded stack's, and the logits are gathered over the
+    mc axis (differentiably: each rank's backward takes its own draws'
+    gradient). ``fast_sampling``: the bf16-budget noise on the split path
+    (None = exactly when sampling to bf16); the stacked path always uses
+    the f32 noise its backward regenerates. ``train``: BN from batch
+    statistics (else running statistics). ``remat``: when gradients are
+    being recorded, checkpoint each chunk's sampling and forwards (at most
+    4 forwards per chunk on this rank), else each draw's forward with the
+    chunk's sampled stack kept."""
+    rows = mc_chunk * (2 if antithetic else 1)
+    if num_mc % rows != 0:
         raise ValueError(f"num_mc={num_mc} must be divisible by "
-                         f"mc_chunk={mc_chunk}")
+                         f"{'2*' if antithetic else ''}mc_chunk={mc_chunk}")
     if return_batch_stats and not train:
         raise ValueError("return_batch_stats requires train=True")
-    nchunks = num_mc // mc_chunk
+    nchunks = num_mc // rows
     axis = LOCAL if ws_sharding is None else ws_sharding.mc_axis
-    if mc_chunk % axis.size:
-        raise ValueError(f"mc_chunk={mc_chunk} must be divisible by the mc "
-                         f"axis ({axis.size})")
-    if return_batch_stats and axis.size > 1:
+    if rows % axis.size:
+        raise ValueError(f"{'2*' if antithetic else ''}mc_chunk={mc_chunk} "
+                         f"must be divisible by the mc axis ({axis.size})")
+    if return_batch_stats and (axis.size > 1 or antithetic):
         raise ValueError("return_batch_stats: chained BN updates are "
                          "sequential per draw, incompatible with mc-sharded "
-                         "draws (refresh_batch_stats instead)")
-    if split_sampling and not return_batch_stats and ws_sharding is None:
+                         "or antithetic draws (refresh_batch_stats instead)")
+    recording = torch.is_grad_enabled() and (post.mu.requires_grad
+                                             or post.rho.requires_grad)
+    # the chained-BN, antithetic and mc-sharded draws need the stacked
+    # layout: the split and pipelined hints give way to them
+    stacked = return_batch_stats or antithetic or ws_sharding is not None
+    pipe = (pipelined and not stacked and not (remat and recording)
+            and nchunks > 1)
+    if pipe or (split_sampling and not stacked):
         seeds = chunk_seed_words(generator, nchunks)
         return split_mc_logits(
             module, meta, post, batch_stats, inputs,
             seeds.to(post.mu.device, non_blocking=True), mc_chunk=mc_chunk,
             train=train, sample_dtype=sample_dtype, batch_mask=batch_mask,
-            fast_sampling=fast_sampling)
+            fast_sampling=fast_sampling, pipelined=pipe)
 
     mu, sigma = _sampling_posterior(post, sample_dtype, cast_posterior)
     P = mu.shape[0]
@@ -166,28 +244,47 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
         return module(params, batch_stats, *inputs, train=train,
                       batch_mask=batch_mask), bs
 
-    recording = torch.is_grad_enabled() and (mu.requires_grad
-                                             or sigma.requires_grad)
-    # under an mc axis this rank draws rows [d0, d0 + k) of every chunk
-    k = mc_chunk // axis.size
-    d0 = axis.index * k
-    if remat and recording and k > 4:
-        raise not_ported("remat with mc_chunk > 4 (per-draw checkpoints "
-                         "keeping the sampled weights)", "5 (training)")
+    # under an mc axis this rank takes rows [r0, r0 + k) of every chunk
+    k = rows // axis.size
+    r0 = axis.index * k
+    sample_in_remat = remat and recording and k <= SAMPLE_IN_REMAT_MAX
+    per_draw = remat and recording and not sample_in_remat
+
+    def draws(seed, d0, n):
+        return gaussian_shift_scale(mu, sigma, draw_offset_seed(seed, d0, P),
+                                    n, out_dtype=sample_dtype)
+
+    def sample(seed):
+        """This rank's k rows of the chunk of ``seed``: sampled rows below
+        mc_chunk, mirrors of rows [0, mc_chunk) above it."""
+        if not antithetic:
+            return draws(seed, r0, k)
+        parts = []
+        lo, hi = r0, r0 + k
+        if lo < mc_chunk:
+            parts.append(draws(seed, lo, min(hi, mc_chunk) - lo))
+        if hi > mc_chunk:
+            a, b = max(lo, mc_chunk) - mc_chunk, hi - mc_chunk
+            # from row 0 this rank sampled every row its mirrors need
+            ws = parts[0][a:b] if lo == 0 else draws(seed, a, b - a)
+            parts.append(_mirror(mu, ws))
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
 
     def chunk(seed, bs):
-        ws = gaussian_shift_scale(mu, sigma, draw_offset_seed(seed, d0, P),
-                                  k, out_dtype=sample_dtype)
         outs = []
-        for w in ws.unbind(0):
-            out, bs = fwd(w, bs)
+        for w in sample(seed).unbind(0):
+            if per_draw:
+                out, bs = checkpoint(fwd, w, bs, use_reentrant=False,
+                                     preserve_rng_state=False)
+            else:
+                out, bs = fwd(w, bs)
             outs.append(out)
         return torch.stack(outs), bs
 
     bs = batch_stats if return_batch_stats else None
     logits = []
     for seed in seeds:
-        if remat and recording:
+        if sample_in_remat:
             out, bs = checkpoint(chunk, seed, bs, use_reentrant=False,
                                  preserve_rng_state=False)
         else:
@@ -195,7 +292,7 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
         logits.append(out)
     logits = torch.cat(logits)
     if axis.size > 1:
-        # [rank 0's draws of every chunk | rank 1's | ...] -> chunk order
+        # [rank 0's rows of every chunk | rank 1's | ...] -> chunk order
         logits = gather_draws(logits, axis).view(
             (axis.size, nchunks, k) + tuple(logits.shape[1:]))
         logits = logits.transpose(0, 1).reshape((num_mc,)

@@ -106,19 +106,24 @@ def _module(bundle: ModelBundle, fused_trunks: bool):
     return fused_module_for(bundle.module)
 
 
-def _default_chunk(num_mc_samples: int, mc_chunk: Optional[int]) -> int:
-    # chunk 2 reads (mu, sigma) once for two draws
+def _default_chunk(num_mc_samples: int, mc_chunk: Optional[int],
+                   antithetic: bool = False) -> int:
+    # chunk 2 reads (mu, sigma) once for two draws; an antithetic chunk of
+    # 1 already runs two
     if mc_chunk is None:
-        return 2 if num_mc_samples % 2 == 0 else 1
+        return 2 if num_mc_samples % 2 == 0 and not antithetic else 1
     return mc_chunk
 
 
 def _mc_logits_of(bundle: ModelBundle, num_mc_samples: int, mc_chunk: int,
                   sample_dtype, fast_sampling, bn_mode: str,
-                  fused_trunks: bool, packed: bool, mesh=None) -> Callable:
+                  fused_trunks: bool, packed: bool, mesh=None,
+                  antithetic: bool = False,
+                  pipelined: bool = False) -> Callable:
     """(post, batch_stats, inputs, generator, mask) -> MC logits over
     normalised float inputs, or uint8 ones with ``packed``; under a mesh
-    with an mc axis the draws are split over it (the stacked sampler)."""
+    with an mc axis the draws are split over it (the stacked sampler).
+    ``antithetic`` and ``pipelined``: as in ``mc_logits``."""
     module, meta = _module(bundle, fused_trunks), bundle.meta
     ws = None if mesh is None or mesh.mc == 1 else mesh
 
@@ -130,7 +135,8 @@ def _mc_logits_of(bundle: ModelBundle, num_mc_samples: int, mc_chunk: int,
                          train=(bn_mode == "train"), remat=False,
                          sample_dtype=sample_dtype, batch_mask=mask,
                          split_sampling=True, fast_sampling=fast_sampling,
-                         ws_sharding=ws)
+                         ws_sharding=ws, antithetic=antithetic,
+                         pipelined=pipelined)
 
     return logits_of
 
@@ -140,6 +146,7 @@ def make_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
                       sample_dtype: Optional[torch.dtype] = torch.bfloat16,
                       fast_sampling: Optional[bool] = None,
                       bn_mode: str = "train", fused_trunks: bool = False,
+                      antithetic: bool = False, pipelined: bool = False,
                       mesh=None) -> Callable:
     """(post, batch_stats, inputs, generator, mask) -> outputs dict, over
     already-normalised float NHWC inputs.
@@ -150,14 +157,18 @@ def make_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
     ``fused_trunks``: the grouped-conv trunks (models/fused.py), train-mode
     BN only (with "eval" it raises). ``mesh``: rows over the data axis and
     draws over the mc axis (``mesh_predict_step``); the mc chunk defaults
-    to all draws then, so every chunk spans the mc axis."""
+    to all draws then, so every chunk spans the mc axis. ``antithetic``:
+    each draw paired with its mirror 2 mu - w (the stacked sampler; the
+    chunk defaults to 1, i.e. two draws). ``pipelined``: chunk k + 1
+    sampled on a second CUDA stream during chunk k's forwards, the same
+    logits (``engine/mc.py``)."""
     _check_bn_mode(bn_mode, fused_trunks)
     if mesh is not None and mesh.mc > 1 and mc_chunk is None:
-        mc_chunk = num_mc_samples
-    mc_chunk = _default_chunk(num_mc_samples, mc_chunk)
+        mc_chunk = num_mc_samples // (2 if antithetic else 1)
+    mc_chunk = _default_chunk(num_mc_samples, mc_chunk, antithetic)
     logits_of = _mc_logits_of(bundle, num_mc_samples, mc_chunk, sample_dtype,
                               fast_sampling, bn_mode, fused_trunks, False,
-                              mesh)
+                              mesh, antithetic, pipelined)
     if mesh is not None:
         return mesh_predict_step(logits_of, mesh)
 
@@ -173,13 +184,16 @@ def make_packed_logits_fn(bundle: ModelBundle, *, mc_chunk: int,
                           sample_dtype: Optional[torch.dtype] = torch.bfloat16,
                           fast_sampling: Optional[bool] = None,
                           bn_mode: str = "train",
-                          fused_trunks: bool = False) -> Callable:
+                          fused_trunks: bool = False,
+                          pipelined: bool = False) -> Callable:
     """(post, batch_stats, u8_inputs, seeds, mask) -> (nchunks * mc_chunk,
     batch, C) logits over uint8 NHWC batches, chunk k's draws from row k
     of ``seeds`` ((nchunks, 2) int64 on the device): the packed predict
     step as a function of tensors, which ``serving.py`` exports. The
     /255 + optical normalisation runs on the device (ops/preprocess.py).
-    ``fused_trunks``: the grouped-conv trunks (models/fused.py)."""
+    ``fused_trunks``: the grouped-conv trunks (models/fused.py).
+    ``pipelined``: the same logits with the sampling of chunk k + 1 on a
+    second CUDA stream (``split_mc_logits``; not for ``torch.export``)."""
     _check_bn_mode(bn_mode, fused_trunks)
     module, meta = _module(bundle, fused_trunks), bundle.meta
 
@@ -188,7 +202,8 @@ def make_packed_logits_fn(bundle: ModelBundle, *, mc_chunk: int,
                                normalize_multimodal(*u8_inputs), seeds,
                                mc_chunk=mc_chunk, train=(bn_mode == "train"),
                                sample_dtype=sample_dtype, batch_mask=mask,
-                               fast_sampling=fast_sampling)
+                               fast_sampling=fast_sampling,
+                               pipelined=pipelined)
 
     return logits_fn
 
@@ -199,14 +214,18 @@ def make_packed_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
                              fast_sampling: Optional[bool] = None,
                              bn_mode: str = "train",
                              fused_trunks: bool = False,
+                             pipelined: bool = False,
                              mesh=None) -> Callable:
     """Predict step over uint8 NHWC batches: the /255 + optical
     normalisation runs on the device (ops/preprocess.py). The chunks' seeds
     are drawn from the generator on the host and go to the device as one
     tensor (``make_packed_logits_fn``), with no wait on the device.
     ``fused_trunks``: the grouped-conv trunks (models/fused.py), train-mode
-    BN only; the split sampler (#1) still draws the weights. ``mesh``: as
-    in ``make_predict_step``."""
+    BN only; the split sampler (#1) still draws the weights. ``pipelined``:
+    chunk k + 1 sampled on a second CUDA stream during chunk k's forwards,
+    outputs equal to the split step's (the JAX package's packed step takes
+    the flag and drops it). ``mesh``: as in ``make_predict_step`` (the
+    pipelined hint is inactive under an mc axis)."""
     _check_bn_mode(bn_mode, fused_trunks)
     if mesh is not None and mesh.mc > 1 and mc_chunk is None:
         mc_chunk = num_mc_samples
@@ -217,12 +236,13 @@ def make_packed_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
     if mesh is not None:
         return mesh_predict_step(_mc_logits_of(
             bundle, num_mc_samples, mc_chunk, sample_dtype, fast_sampling,
-            bn_mode, fused_trunks, True, mesh), mesh)
+            bn_mode, fused_trunks, True, mesh, pipelined=pipelined), mesh)
     logits_fn = make_packed_logits_fn(bundle, mc_chunk=mc_chunk,
                                       sample_dtype=sample_dtype,
                                       fast_sampling=fast_sampling,
                                       bn_mode=bn_mode,
-                                      fused_trunks=fused_trunks)
+                                      fused_trunks=fused_trunks,
+                                      pipelined=pipelined)
     nchunks = num_mc_samples // mc_chunk
 
     @torch.inference_mode()

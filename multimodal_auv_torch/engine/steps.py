@@ -16,7 +16,8 @@ one program; here the guard costs one host sync per step.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+import logging
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,11 +26,7 @@ import torch.nn.functional as F
 from multimodal_auv_torch.bayes.packing import kl_divergence
 from multimodal_auv_torch.config import BNNPriorSpec
 from multimodal_auv_torch.engine import uncertainty as U
-from multimodal_auv_torch.engine.mc import (
-    mc_logits,
-    not_ported,
-    refresh_batch_stats,
-)
+from multimodal_auv_torch.engine.mc import mc_logits, refresh_batch_stats
 from multimodal_auv_torch.engine.optim import BayesTrainState, trainable_leaves
 from multimodal_auv_torch.ops.preprocess import normalize_multimodal
 from multimodal_auv_torch.parallel.collectives import (
@@ -38,6 +35,9 @@ from multimodal_auv_torch.parallel.collectives import (
     all_reduce_,
     bn_sync,
 )
+
+
+logger = logging.getLogger(__name__)
 
 
 def _masked_ce_sum(output: torch.Tensor, labels: torch.Tensor,
@@ -116,6 +116,134 @@ def _all_reduce_grads(post, mesh) -> None:
         p.grad.copy_(g.view_as(p.grad))
 
 
+def device_memory_budget(device) -> Optional[int]:
+    """Bytes a step may still allocate on ``device``: the card's total
+    memory x 0.95 less what this process has allocated; None off the card
+    (no budget)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    total = torch.cuda.mem_get_info(device)[1]
+    return int(total * 0.95) - torch.cuda.memory_allocated(device)
+
+
+def _is_oom(e: BaseException) -> bool:
+    return (isinstance(e, torch.OutOfMemoryError)
+            or "out of memory" in str(e).lower())
+
+
+def saved_bytes(fn: Callable[[], Any]) -> int:
+    """The bytes autograd keeps for the backward of ``fn()``'s graph: the
+    tensors saved for it, each storage counted once. ``fn`` runs with
+    gradients recorded; its graph is dropped before this returns."""
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[(st.device, st.data_ptr())] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    del out
+    return sum(seen.values())
+
+
+class AutoRematTrainStep:
+    """``remat="auto"``: per-draw remat keeps training memory flat in
+    num_mc but pays a re-forward in every backward; when the no-remat
+    step's residuals fit the card, keeping them is faster. Resolves on
+    the first call, with its real arguments:
+
+    * The measure: trial forwards of the no-remat loss over one and two
+      units of draws (a unit: 1 draw, or one per rank of the mesh's mc
+      axis); their saved tensors (``saved_bytes``) give the bytes of the
+      step's fixed part and of each unit, scaled to num_mc draws. The
+      trials consume no draw of the caller's generator (they draw from a
+      copy), set no ``.grad``, step no optimizer and keep no BN
+      statistics, so the step chosen computes what the explicitly chosen
+      remat computes.
+    * The budget: ``device_memory_budget`` (the card's total x 0.95 less
+      what is allocated). Without one (the CPU) the choice is remat on,
+      with no trial.
+    * The trial running out of memory falls back to remat on; any other
+      error is raised. Under a process group every rank takes the same
+      choice (remat off only if it fits on every rank).
+
+    ``remat_used``, ``need_bytes`` and ``budget_bytes`` tell the choice,
+    which is also logged."""
+
+    def __init__(self, build: Callable[[bool], Callable],
+                 trial_loss_fn: Callable[[int], Callable], num_mc: int,
+                 unit: int = 1, mesh=None):
+        self._build = build          # build(remat: bool) -> step
+        self._trial_loss_fn = trial_loss_fn  # (draws) -> no-remat loss_fn
+        self._unit = unit
+        self._units = num_mc // unit
+        self._mesh = mesh
+        self._step = None
+        self.remat_used: Optional[bool] = None
+        self.need_bytes: Optional[int] = None
+        self.budget_bytes: Optional[int] = None
+
+    def __call__(self, state, inputs, labels, mask, generator, kl_weight,
+                 batch_size_scale):
+        if self._step is None:
+            self.remat_used = not self._fits(state, inputs, labels, mask,
+                                             generator, kl_weight,
+                                             batch_size_scale)
+            self._step = self._build(self.remat_used)
+        return self._step(state, inputs, labels, mask, generator, kl_weight,
+                          batch_size_scale)
+
+    def _trial(self, state, inputs, labels, mask, generator, kl_weight,
+               bs_scale) -> int:
+        def kept(units):
+            loss_fn = self._trial_loss_fn(units * self._unit)
+            trial_gen = torch.Generator(device=generator.device)
+            trial_gen.set_state(generator.get_state())
+            return saved_bytes(lambda: loss_fn(
+                state.post, state.batch_stats, inputs, labels, mask,
+                trial_gen, kl_weight, bs_scale))
+
+        with torch.enable_grad(), bn_sync(_data_axis(self._mesh)):
+            one = kept(1)
+            if self._units == 1:
+                return one
+            return one + (self._units - 1) * (kept(2) - one)
+
+    def _fits(self, *args) -> bool:
+        state = args[0]
+        budget = device_memory_budget(state.post.mu.device)
+        self.budget_bytes = budget
+        if budget is None:
+            fits = False
+            logger.info("remat=auto: no memory budget on %s, remat on",
+                        state.post.mu.device)
+        else:
+            try:
+                self.need_bytes = self._trial(*args)
+                fits = self.need_bytes <= budget
+            except Exception as e:
+                if not _is_oom(e):
+                    raise
+                fits = False
+                logger.info("remat=auto: the no-remat trial ran out of "
+                            "memory (%s)", e)
+            logger.info(
+                "remat=auto: the no-remat step keeps %s GiB for its "
+                "backward, budget %.2f GiB -> remat %s",
+                "n/a" if self.need_bytes is None
+                else f"{self.need_bytes / 2**30:.2f}", budget / 2**30,
+                "off" if fits else "on")
+        if self._mesh is not None and self._mesh.world_axis.size > 1:
+            # the choice of every rank: off only if it fits on all
+            misfits = torch.tensor([float(not fits)],
+                                   device=state.post.mu.device)
+            fits = float(all_reduce_(misfits, self._mesh.world_axis)) == 0.0
+        return fits
+
+
 def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
                     mc_chunk: int = 1, sample_dtype=None,
                     packed_inputs: bool = False, remat="on", mesh=None):
@@ -132,7 +260,9 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
     ``sample_dtype``: dtype of the sampled weights fed to the forward
     (``torch.bfloat16``: mixed precision; mu, rho, gradients and Adam stay
     f32). ``remat``: "on" (checkpoint each chunk's sampling and forwards,
-    memory flat in num_mc) or "off".
+    or each draw's forward above 4 draws a chunk: memory flat in num_mc),
+    "off", or "auto" (an ``AutoRematTrainStep``: off when the no-remat
+    step fits the card's budget, ``device_memory_budget``).
 
     ``mesh`` (``parallel/mesh.py``): the step takes this rank's rows
     (``parallel.mesh.wrap_train_step`` slices them from the loops'
@@ -141,8 +271,17 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
     ranks before the update (one all_reduce), and the metrics' scalars are
     global; ``predicted`` holds this rank's rows."""
     if remat == "auto":
-        raise not_ported("remat='auto' (it rests on XLA's compiled memory "
-                         "analysis)", "5 (training: remat='auto')")
+        kw = dict(mc_chunk=mc_chunk, sample_dtype=sample_dtype,
+                  packed_inputs=packed_inputs, mesh=mesh)
+        unit = 1 if mesh is None else mesh.mc
+        return AutoRematTrainStep(
+            lambda r: make_train_step(module, meta, spec, num_mc, remat=r,
+                                      **kw),
+            lambda n: make_elbo_loss_fn(
+                module, meta, spec, n, mc_chunk=unit,
+                sample_dtype=sample_dtype, packed_inputs=packed_inputs,
+                remat=False, mesh=mesh),
+            num_mc, unit, mesh)
     remat = remat if isinstance(remat, bool) else {"on": True,
                                                    "off": False}[remat]
     loss_fn = make_elbo_loss_fn(module, meta, spec, num_mc,

@@ -5,7 +5,8 @@
 Weights are initialised on the CPU from a ``torch.Generator`` and then moved
 to the device, so one seed gives the same bundle on the CPU and the card.
 Without pretrained weights the trunks are random; MOPED then sets
-sigma = moped_delta * |w|. ``define_models(pretrained_paths=...)`` and
+sigma = moped_delta * |w|, and without MOPED the posterior is drawn from
+the same generator (``bayes.packing.bayesianize``). ``define_models(pretrained_paths=...)`` and
 ``load_models`` read torch state dicts (torchvision-named trunks, or
 bayesian-torch files) through ``interop/torch_import.py``; the JAX
 package's orbax checkpoint directories are not readable here.
@@ -118,8 +119,9 @@ def trunk_module(arch: ArchConfig) -> ResNet:
 
 
 def _bayesian_bundle(module: nn.Module, params, stats, spec: BNNPriorSpec,
-                     dev: torch.device) -> ModelBundle:
-    post, meta = bayesianize(params, spec)
+                     dev: torch.device,
+                     generator: torch.Generator) -> ModelBundle:
+    post, meta = bayesianize(params, spec, generator=generator)
     return ModelBundle(module=module, post=post.to(dev), meta=meta,
                        batch_stats=tree_to(stats, dev))
 
@@ -132,11 +134,13 @@ def make_multimodal_bundle(num_classes: int, spec: BNNPriorSpec,
                            generator: Optional[torch.Generator] = None,
                            arch: ArchConfig = ArchConfig(), *,
                            device: DeviceLike = None) -> ModelBundle:
-    """Random-init multimodal bundle, MOPED-bayesianized, on ``device``."""
+    """Random-init multimodal bundle, bayesianized (MOPED, or drawn from
+    ``generator`` after the init without it), on ``device``."""
     dev = resolve_device(device)
     module = multimodal_module(num_classes, arch)
-    params, stats = module.init(_generator(generator))
-    return _bayesian_bundle(module, params, stats, spec, dev)
+    generator = _generator(generator)
+    params, stats = module.init(generator)
+    return _bayesian_bundle(module, params, stats, spec, dev, generator)
 
 
 def make_unimodal_bundle(input_channels: int, num_classes: int,
@@ -145,11 +149,13 @@ def make_unimodal_bundle(input_channels: int, num_classes: int,
                          arch: ArchConfig = ArchConfig(), *,
                          device: DeviceLike = None) -> ModelBundle:
     """Random-init unimodal ``ResNet50Custom`` bundle over
-    ``input_channels`` (1 or 3), MOPED-bayesianized, on ``device``."""
+    ``input_channels`` (1 or 3), bayesianized as the multimodal bundle,
+    on ``device``."""
     dev = resolve_device(device)
     module = unimodal_module(num_classes, arch)
-    params, stats = module.init(_generator(generator), input_channels)
-    return _bayesian_bundle(module, params, stats, spec, dev)
+    generator = _generator(generator)
+    params, stats = module.init(generator, input_channels)
+    return _bayesian_bundle(module, params, stats, spec, dev, generator)
 
 
 def make_feature_trunk(input_channels: int, generator: torch.Generator,

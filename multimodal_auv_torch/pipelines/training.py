@@ -24,7 +24,6 @@ import torch
 from multimodal_auv_torch.config import BNNPriorSpec
 from multimodal_auv_torch.device import DeviceLike, resolve_device
 from multimodal_auv_torch.engine.loops import train_and_evaluate_multimodal_model
-from multimodal_auv_torch.engine.mc import not_ported
 from multimodal_auv_torch.engine.optim import (
     BayesTrainState,
     StepLR,
@@ -79,6 +78,7 @@ def _train_multimodal_common(
     use_packed_loader: bool = False,
     image_size: Optional[int] = None,
     strict_errors: bool = False,
+    async_checkpoints: bool = False,
     handle_preemption: bool = True,
     preemption_guard=None,
     remat: str = "on",
@@ -165,7 +165,8 @@ def _train_multimodal_common(
         "resume_checkpoint": resume_checkpoint,
         "freeze_backbone": freeze_backbone, "bf16_weights": bf16_weights,
         "use_packed_loader": use_packed_loader, "image_size": image_size,
-        "strict_errors": strict_errors, "remat": remat,
+        "strict_errors": strict_errors,
+        "async_checkpoints": async_checkpoints, "remat": remat,
         "class_names": class_names,
         "mesh": (dict(data=mesh.data, mc=mesh.mc, fsdp=fsdp)
                  if mesh is not None else None),
@@ -188,7 +189,8 @@ def _train_multimodal_common(
             class_names=class_names,
             double_scheduler_step=double_scheduler_step,
             checkpoint_resume_path=resume_checkpoint,
-            strict_errors=strict_errors, preemption_guard=guard)
+            strict_errors=strict_errors,
+            async_checkpoints=async_checkpoints, preemption_guard=guard)
     if guard.triggered:
         logger.warning(
             "Training preempted (SIGTERM). %s",
@@ -199,18 +201,6 @@ def _train_multimodal_common(
     bundle.post = state.post
     bundle.batch_stats = state.batch_stats
     return state
-
-
-def _refuse_unported(async_checkpoints, remat, mc_chunk) -> None:
-    """Raise, naming the ROADMAP item, for a flag whose path is not ported
-    yet."""
-    if async_checkpoints:
-        raise not_ported("async_checkpoints",
-                         "5 (training: async checkpoints)")
-    if remat == "auto":
-        raise not_ported("remat='auto'", "5 (training: remat='auto')")
-    if remat in ("on", True) and mc_chunk > 4:
-        raise not_ported("mc_chunk > 4 in training", "5 (training)")
 
 
 def _spec(const_bnn_prior_parameters) -> BNNPriorSpec:
@@ -256,13 +246,14 @@ def run_AUV_training_from_scratch(
     joins a process group first, one process per card; ``mesh_spec`` lays
     the ranks out (``parallel/mesh.py``): data x mc must equal the number
     of processes. Returns True when training finished, False
-    when it raised (logged), as the reference does. Flags of paths not
-    ported yet, and a missing card, raise before training starts.
+    when it raised (logged), as the reference does. A missing card raises
+    before training starts. ``async_checkpoints``: the epoch loops' saves
+    are written in the background (``engine/checkpointing.py``);
+    ``remat``: "on", "off" or "auto" (``engine/steps.py``).
 
     ``pretrained_trunks``: a torchvision-named ResNet-50 state dict that
     MOPED-initialises all three feature trunks, the offline stand-in for
     the reference's IMAGENET1K_V1 download."""
-    _refuse_unported(async_checkpoints, remat, mc_chunk)
     maybe_initialize_distributed(dist_spec)
     if mesh_spec is not None:
         M.mesh_shape(mesh_spec)  # a layout the processes cannot run raises
@@ -302,6 +293,7 @@ def run_AUV_training_from_scratch(
             spec=spec, mc_chunk=mc_chunk, seed=seed,
             resume_checkpoint=resume_checkpoint, bf16_weights=bf16_weights,
             use_packed_loader=use_packed_loader, strict_errors=strict_errors,
+            async_checkpoints=async_checkpoints,
             handle_preemption=handle_preemption,
             preemption_guard=preemption_guard, remat=remat,
             image_size=arch.image_size, mesh_spec=mesh_spec)
@@ -353,8 +345,8 @@ def run_auv_retraining(
     (attention_*, fc / fc1 / fc2), BASELINE configs[3]'s frozen-backbone
     workload. Without weights it raises unless ``allow_random_init``.
     Returns True when training finished, False when it raised (logged);
-    flags of paths not ported yet, and a missing card, raise before."""
-    _refuse_unported(async_checkpoints, remat, mc_chunk)
+    a missing card raises before. ``async_checkpoints`` and ``remat``: as
+    in ``run_AUV_training_from_scratch``."""
     maybe_initialize_distributed(dist_spec)
     if mesh_spec is not None:
         M.mesh_shape(mesh_spec)  # a layout the processes cannot run raises
@@ -377,6 +369,7 @@ def run_auv_retraining(
             resume_checkpoint=resume_checkpoint,
             freeze_backbone=freeze_backbone, bf16_weights=bf16_weights,
             use_packed_loader=use_packed_loader, strict_errors=strict_errors,
+            async_checkpoints=async_checkpoints,
             handle_preemption=handle_preemption,
             preemption_guard=preemption_guard, remat=remat,
             image_size=arch.image_size, mesh_spec=mesh_spec)

@@ -25,7 +25,7 @@ from multimodal_auv_torch.engine.loops import (
     train_and_evaluate_unimodal_model,
     unimodal_input,
 )
-from multimodal_auv_torch.engine.mc import mc_logits, not_ported
+from multimodal_auv_torch.engine.mc import mc_logits
 from multimodal_auv_torch.engine.optim import (
     BayesTrainState,
     StepLR,
@@ -175,13 +175,9 @@ def run_unimodal_training(
     (``handle_preemption``; ``resume_checkpoint`` makes a preempted run
     resumable). ``device``: the card unless ``"cpu"``. ``dist_spec`` (or
     the AUV_* environment) joins a process group, and ``mesh_spec`` lays
-    the ranks out, as in ``run_AUV_training_from_scratch``. Flags of paths
-    not ported yet (``async_checkpoints``) raise before anything runs."""
-    if async_checkpoints:
-        raise not_ported("async_checkpoints",
-                         "5 (training: async checkpoints)")
-    if mc_chunk > 4:
-        raise not_ported("mc_chunk > 4 in training", "5 (training)")
+    the ranks out, as in ``run_AUV_training_from_scratch``.
+    ``async_checkpoints``: the epoch loops' saves are written in the
+    background (``engine/checkpointing.py``)."""
     if model_type not in CHANNELS:
         raise ValueError(f"Unknown model_type: {model_type}")
     maybe_initialize_distributed(dist_spec)
@@ -227,6 +223,7 @@ def run_unimodal_training(
         "scheduler_gamma": scheduler_gamma, "num_classes": num_classes,
         "seed": seed, "mc_chunk": mc_chunk,
         "skip_epoch_zero": skip_epoch_zero, "strict_errors": strict_errors,
+        "async_checkpoints": async_checkpoints,
         "resume_checkpoint": resume_checkpoint,
         "mesh": (dict(data=mesh.data, mc=mesh.mc, fsdp=mesh.fsdp)
                  if mesh is not None else None),
@@ -248,6 +245,7 @@ def run_unimodal_training(
             sum_writer, seed + 1, model_type=model_type,
             class_names=[str(c) for c in dataset.label_encoder.classes_],
             skip_epoch_zero=skip_epoch_zero, strict_errors=strict_errors,
+            async_checkpoints=async_checkpoints,
             checkpoint_resume_path=resume_checkpoint, preemption_guard=guard)
     if guard.triggered:
         logger.warning(

@@ -146,7 +146,6 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     mode exported and the spread are recorded in meta.json.
     ``data_shards`` / ``mc_shards`` > 1 are not ported yet and raise,
     naming their ROADMAP item."""
-    from multimodal_auv_torch.engine.mc import not_ported
     from multimodal_auv_torch.engine.predict import (
         _default_chunk,
         fused_outputs,
@@ -159,8 +158,10 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
         raise ValueError("mc_shards > 1 requires mode='mc' (DVP's trunk "
                          "pass has no MC-draw axis to shard)")
     if data_shards > 1 or mc_shards > 1:
-        raise not_ported("data_shards / mc_shards > 1 (sharded artifacts)",
-                         "8 (parallel)")
+        raise NotImplementedError(
+            "data_shards / mc_shards > 1 (sharded artifacts) is not ported "
+            "yet: ROADMAP.md, Open items, 1 'Modules to port' item 8 "
+            "(parallel)")
     dev = bundle.device
     if platforms and list(platforms) != [dev.type]:
         raise ValueError(f"platforms {list(platforms)}: the program is traced "

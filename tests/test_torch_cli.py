@@ -54,6 +54,16 @@ SET_ALL = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Small graphs: one intra-op thread, so no idle OpenMP threads spin on
+    the cores the suite's other workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _record(monkeypatch, module, name):
     seen = {}
 
@@ -96,18 +106,20 @@ def test_same_argv_same_kwargs_as_jax(monkeypatch, command, flags):
 
 
 # item None: a parallel flag of item 8, ported since; it must reach the
-# pipeline as the spec the JAX CLI builds
+# pipeline as the spec the JAX CLI builds. RUNS: a training flag of item 5,
+# ported since; the CLI runs it on a micro() model.
+RUNS = "runs"
 NOT_PORTED = [
     ("retrain", ["--mesh_data", "2"], None),
     ("retrain", ["--mesh_mc", "2"], None),
     ("retrain", ["--fsdp"], None),
     ("retrain", ["--coordinator", "localhost:1"], None),
     ("retrain", ["--num_processes", "2"], None),
-    ("retrain", ["--async_checkpoints"], "item 5"),
-    ("retrain", ["--remat", "auto"], "item 5"),
+    ("retrain", ["--async_checkpoints"], RUNS),
+    ("retrain", ["--remat", "auto"], RUNS),
     ("train-scratch", ["--fsdp"], None),
-    ("train-scratch", ["--async_checkpoints"], "item 5"),
-    ("train-scratch", ["--remat", "auto"], "item 5"),
+    ("train-scratch", ["--async_checkpoints"], RUNS),
+    ("train-scratch", ["--remat", "auto"], RUNS),
     ("export-serving", ["--mc_shards", "2"], "item 8"),
     ("export-serving", ["--data_shards", "2"], "item 8"),
     ("data-prep", [], "item 9"),
@@ -116,14 +128,39 @@ NOT_PORTED = [
 
 @pytest.mark.parametrize("command,extra,item", NOT_PORTED,
                          ids=[f"{c}{''.join(e[:1])}" for c, e, _ in NOT_PORTED])
-def test_unported_flags_exit_non_zero(monkeypatch, capsys, command, extra,
-                                      item):
+def test_unported_flags_exit_non_zero(monkeypatch, capsys, tmp_path,
+                                      command, extra, item):
     """A flag or subcommand of a path not ported yet: a non-zero exit and a
     message naming its ROADMAP item; the pipeline never runs. The mesh and
     multi-process flags (item 8, ported) instead reach the pipeline as the
     ``MeshSpec`` / ``DistSpec`` the JAX CLI builds from the same argv (the
     port's DistSpec has one field more, ``backend``, left None); the
-    sharded-serving flags still exit naming item 8."""
+    sharded-serving flags still exit naming item 8. The training flags of
+    item 5, ported, run: one epoch of the subcommand on the CPU at
+    micro() size with a resume checkpoint, exit 0, the checkpoint
+    committed."""
+    if item == RUNS:
+        from multimodal_auv_torch.engine import checkpointing as ckpt
+        from multimodal_auv_torch.models.model_utils import ArchConfig
+        from tests.fixtures.make_tree import make_training_tree
+
+        monkeypatch.chdir(tmp_path)
+        monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+        monkeypatch.setattr(cli, "_arch", lambda args: ArchConfig.micro())
+        root = make_training_tree(str(tmp_path / "tree"), n_samples=6)
+        state = str(tmp_path / "state.pt")
+        common = ["--batch_size_multimodal", "2", "--bathy_patch_base", "10",
+                  "--sss_patch_base", "10", "--packed_loader",
+                  "--resume_checkpoint", state, "--device", "cpu"]
+        argv = {"retrain": ["--data_dir", root, "--num_epochs_multimodal",
+                            "1", "--num_mc_samples", "2",
+                            "--allow_random_init"],
+                "train-scratch": ["--root_dir", root, "--epochs_multimodal",
+                                  "1", "--num_mc", "2"]}[command]
+        assert cli.main([command] + argv + common + extra) == 0
+        assert not ckpt._PENDING
+        assert torch.load(state, weights_only=True)["epoch"] == 1
+        return
     if item is None:
         monkeypatch.setattr(jdevices, "enable_compilation_cache",
                             lambda: None)

@@ -48,7 +48,8 @@ def test_port_imports_no_jax():
                  "interop.torch_export", "interop.hf_manifest", "interop.hub",
                  "cli", "selfcheck", "serving", "serve_http",
                  "serve_client", "models.fused", "parallel.mesh",
-                 "parallel.distributed", "parallel.collectives"):
+                 "parallel.distributed", "parallel.collectives",
+                 "engine.mc", "bayes.packing"):
         assert f"multimodal_auv_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 

@@ -131,7 +131,9 @@ def test_run_auv_inference_cpu(tmp_path, packed):
 
 def test_mc_logits_seeds_and_unported_flags():
     """Same generator seed -> same logits, another seed -> other logits;
-    the flags of paths not ported yet raise, naming their ROADMAP item."""
+    the flags once refused run: ``pipelined`` gives the split path's logits
+    bit for bit, ``antithetic`` mirrored draws (finite, other logits than
+    the split path's)."""
     from multimodal_auv_torch.config import BNNPriorSpec
     from multimodal_auv_torch.models.model_utils import make_multimodal_bundle
 
@@ -143,19 +145,21 @@ def test_mc_logits_seeds_and_unported_flags():
 
     def run(seed, **kw):
         kw.setdefault("split_sampling", True)
+        kw.setdefault("mc_chunk", 2)
         return torch_mc.mc_logits(b.module, b.meta, b.post, b.batch_stats, x,
                                   torch.Generator().manual_seed(seed), 2,
-                                  mc_chunk=2, sample_dtype=torch.bfloat16,
-                                  **kw)
+                                  sample_dtype=torch.bfloat16, **kw)
 
     a = run(0)
     assert a.shape == (2, 2, 7)
     assert torch.equal(a, run(0))
     assert not torch.equal(a, run(1))
     assert not torch.equal(a[0], a[1])
-    for kw in ({"antithetic": True}, {"pipelined": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run(0, **kw)
+    assert torch.equal(run(0, pipelined=True, mc_chunk=1),
+                       run(0, mc_chunk=1))
+    anti = run(0, antithetic=True, mc_chunk=1)
+    assert anti.shape == a.shape and torch.isfinite(anti).all()
+    assert not torch.equal(anti, a)
     # ws_sharding (item 8, ported): on a one-rank mesh, the stacked path
     from multimodal_auv_torch.parallel.mesh import make_mesh
 

@@ -43,6 +43,16 @@ from tests.fixtures.make_tree import make_training_tree
 NUM_MC = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Small graphs: one intra-op thread, so no idle OpenMP threads spin on
+    the cores the suite's other workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -279,20 +289,29 @@ def test_resume_matches_uninterrupted(tmp_path, monkeypatch):
             assert v == fb[k], k
 
 
-def test_training_refusals(tmp_path):
-    """Flags of paths not ported yet raise, naming their ROADMAP item,
-    before anything runs; so does an unknown remat. The parallel specs
-    (item 8, ported) raise before anything runs when the processes cannot
-    run them: a 2x1 mesh over one process, two processes without a
-    coordinator."""
+def test_training_refusals(tmp_path, monkeypatch):
+    """The parallel specs (item 8) raise before anything runs when the
+    processes cannot run them: a 2x1 mesh over one process, two processes
+    without a coordinator. The flags once refused here run: one epoch
+    with ``async_checkpoints``, ``remat="auto"`` (remat on: no budget on
+    the CPU) and 5 draws in one chunk (per-draw remat) returns True with
+    its resume checkpoint committed and nothing in flight."""
     from multimodal_auv_torch.config import DistSpec, MeshSpec
 
     for kw, err, item in (
-            ({"async_checkpoints": True}, NotImplementedError, "async"),
             ({"mesh_spec": MeshSpec(2, 1)}, ValueError, "processes"),
             ({"dist_spec": DistSpec(num_processes=2)}, ValueError,
-             "coordinator"),
-            ({"remat": "auto"}, NotImplementedError, "remat"),
-            ({"mc_chunk": 5}, NotImplementedError, "training")):
+             "coordinator")):
         with pytest.raises(err, match=item):
             _train(str(tmp_path), None, **kw)
+    monkeypatch.chdir(tmp_path)
+    root = make_training_tree(str(tmp_path / "tree"), n_samples=6)
+    state_path = str(tmp_path / "state.pt")
+    assert run_AUV_training_from_scratch(
+        {}, 1e-3, 1, 5, 10, 10, 2, root, arch=ArchConfig.micro(),
+        use_packed_loader=True, resume_checkpoint=state_path,
+        handle_preemption=False, device="cpu", async_checkpoints=True,
+        remat="auto", mc_chunk=5)
+    assert not ckpt._PENDING
+    saved = torch.load(state_path, weights_only=True)
+    assert saved["epoch"] == 1 and saved["state"]["step"] == 2

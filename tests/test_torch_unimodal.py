@@ -474,9 +474,10 @@ def test_run_unimodal_training_cpu(tmp_path, monkeypatch):
     row each, epoch 2, finite numbers), the confusion-matrix CSV, the
     manifest, TensorBoard events and a resumable train state (2 steps).
     Resuming bathy, whose trunk has the image's shapes, from that state is
-    refused; flags of paths not ported yet raise, naming their ROADMAP
-    item, and parallel specs the processes cannot run raise before
-    anything runs."""
+    refused, and parallel specs the processes cannot run raise before
+    anything runs. The sss model then trains with the flags once refused
+    (``async_checkpoints``, 5 draws in one chunk: per-draw remat), and
+    returns with its resume checkpoint committed."""
     monkeypatch.chdir(tmp_path)
     root = make_training_tree(str(tmp_path / "tree"), n_samples=6)
     state_path = str(tmp_path / "state.pt")
@@ -518,13 +519,19 @@ def test_run_unimodal_training_cpu(tmp_path, monkeypatch):
     from multimodal_auv_torch.config import DistSpec, MeshSpec
 
     for flag, err, item in (
-            ({"async_checkpoints": True}, NotImplementedError, "async"),
             ({"mesh_spec": MeshSpec(2, 1)}, ValueError, "processes"),
             ({"dist_spec": DistSpec(num_processes=2)}, ValueError,
-             "coordinator"),
-            ({"mc_chunk": 5}, NotImplementedError, "training")):
+             "coordinator")):
         with pytest.raises(err, match=item):
             run_unimodal_training(root, "sss", device="cpu", **flag)
+    # once refused, now run: async saves and 5 draws in one chunk
+    # (per-draw remat), the sss model with its own resume path
+    sss_path = str(tmp_path / "sss.pt")
+    state = run_unimodal_training(
+        root, "sss", **dict(kw, resume_checkpoint=sss_path, num_mc=5),
+        mc_chunk=5, async_checkpoints=True)
+    assert state.step == 2 and not loops.ckpt._PENDING
+    assert torch.load(sss_path, weights_only=True)["epoch"] == 2
 
 
 def test_unimodal_predict_csv_equals_jax(tmp_path, monkeypatch):
