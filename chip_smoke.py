@@ -221,9 +221,31 @@ result line):
     at their init values within 4 x 0.1 / sqrt(n), standard deviations 0.1
     within 1%; one b4 x 20 predict batch finite, exactly 10 split_sampler
     launches.
+20. studies (ROADMAP item 9), after phase 16, at full width on a
+    STUDY_SAMPLES-folder tree: (a) ``run_noise_study``, turbidity centres
+    STUDY_CENTERS at depth 1.0, one degraded fine-tuning epoch each at
+    b4 x 5 MC, then a degraded evaluation with the extended metrics: the
+    exact launches (per centre 3 steps x 5 draws x 2 stacked, x 1 eps, 5
+    split), the CSV's columns (Turbidity, Depth, F1, ECE, Emax and the
+    AUROC, "nan" when every prediction errs, as sklearn 1.9 writes it),
+    one row per centre, a per-sample CSV per centre; s per train step and
+    per evaluation. (b) one batch degraded on the card against the CPU at
+    the same turbidity (f32, UIFM_RTOL of the terms the formula adds).
+    (c) one evaluation batch under ``utils.profiling.trace``: the Chrome
+    trace holds one ``sampler_kernel`` event per launch counted in the
+    block (5). (d) ``run_patch_size_sweep``, bathy (10, 30) m x SSS 30 m,
+    1 epoch at b8 x 5 MC: exact launches, the summary's 2 rows, each
+    combo's eval CSV; s per combo. (e) ``cli.main(["data-prep", ...])``
+    on PREP_FRAMES GAVIA JPEGs with telemetry in the COM segment and an
+    LZW bathymetry and a deflate SSS GeoTIFF written by the port: exit 0,
+    every sample folder's files, and the inference QA report finding main
+    and SSS everywhere (its one problem, "missing-bathy" in every folder,
+    is the JAX package's too: both name the combined bathy
+    combined_channels.png); s per frame.
 
-The kernels line's launches of #1-#3 add phases 13, 14, 15, 16, 17, 18 and
-19 to their paths' counts (phase 19's comparison runs not counted). Beside each sampler's bound the script prints the
+The kernels line's launches of #1-#3 add phases 13, 14, 15, 16, 17, 18,
+19 and 20 to their paths' counts (phase 19's comparison runs not
+counted). Beside each sampler's bound the script prints the
 noise contract's Philox calls for that launch and their estimated INT32
 time, labelled as an estimate; it is not part of ``bound_ms``.
 
@@ -326,9 +348,18 @@ UNI_TRAIN_MC, UNI_TRAIN_BATCH = 5, 8           # BASELINE.json configs[1]
 # activations): VAR_GRAD_BATCH x VAR_GRAD_MC draws in one chunk
 VAR_CHUNK = 10
 VAR_GRAD_BATCH, VAR_GRAD_MC = 2, 6
+# phase 20: the noise study (2 turbidity centres, 1 fine-tuning epoch
+# each) and the patch-size sweep (2 combos, 1 epoch, the sweep's default
+# batch) over a STUDY_SAMPLES-folder tree; data-prep over PREP_FRAMES
+# GAVIA frames. The degradation on the card against the CPU: f32, relative
+# to the magnitude of the two terms the formula adds
+STUDY_SAMPLES, STUDY_BATCH, STUDY_MC = 12, 4, 5
+STUDY_CENTERS, STUDY_DEPTH = (0.05, 2.05), 1.0
+SWEEP_BATCH, SWEEP_BATHY, SWEEP_SSS = 8, (10, 30), (30,)
+PREP_FRAMES, UIFM_RTOL = 6, 1e-6
 
 
-# phases 17-19's results, printed again before the kernels line (the
+# phases 17-20's results, printed again before the kernels line (the
 # tool that runs this script keeps only the end of its output)
 SUMMARY = []
 
@@ -3141,6 +3172,291 @@ def phase_variants(args, smi: str, bundle, work: str) -> dict:
     return on_path
 
 
+# the files of one data-prep sample folder (tests/test_etl_pipeline.py:81-90)
+PREP_FILES = ("row_data.csv", "unlabelled.txt", "output_channel_1.png",
+              "output_channel_2.png", "grid_a_b_SSS.png",
+              "combined_channels.png")
+
+
+def write_raw_survey(root: str, seed: int) -> tuple:
+    """A raw GAVIA dive of PREP_FRAMES random 512 x 384 JPEGs whose
+    telemetry sits in the JPEG comment (as tests/test_etl_pipeline.py
+    writes it), a few metres apart near 55.5 N 5.5 W, and a bathymetry
+    (2 bands, LZW, predictor 2) and an SSS (deflate) GeoTIFF of 200 x 200
+    px at 0.5 m covering them, written by the port's ``write_geotiff``.
+    Returns (raw folder, GeoTIFF folder)."""
+    from PIL import Image
+
+    from multimodal_auv_torch.dataprep.geodesy import latlon_to_utm
+    from multimodal_auv_torch.dataprep.geotiff import write_geotiff
+
+    rng = np.random.default_rng(seed + 200)
+    raw = os.path.join(root, "raw")
+    os.makedirs(os.path.join(raw, "dive1"))
+    for i in range(PREP_FRAMES):
+        com = (f"<telemetry><lat>5530.{i * 2:03d}N</lat>"
+               f"<lon>00530.{i:03d}W</lon><altitude>2.5</altitude>"
+               f"<depth>{30 + i}.0</depth><heading>180.0</heading>"
+               f"<pitch>1.0</pitch><roll>0.5</roll><surge>0.1</surge>"
+               f"<sway>0.2</sway></telemetry>")
+        Image.fromarray(rng.integers(30, 120, (384, 512, 3), dtype=np.uint8)
+                        ).save(os.path.join(raw, "dive1",
+                                            f"frame_{i:04d}.jpg"),
+                               comment=com.encode())
+    e, n, _, _ = latlon_to_utm(55.5, -5.5)
+    tr = (e - 50.0, 0.5, 0.0, n + 50.0, 0.0, -0.5)
+    tiffs = os.path.join(root, "tiffs")
+    os.makedirs(tiffs)
+    write_geotiff(os.path.join(tiffs, "site_a_b_Bathy.tif"),
+                  rng.integers(0, 256, (200, 200, 2)).astype(np.uint8), tr,
+                  compression="lzw", predictor=2, rows_per_strip=32)
+    write_geotiff(os.path.join(tiffs, "site_a_b_SSS.tif"),
+                  rng.integers(0, 256, (200, 200)).astype(np.uint8), tr,
+                  compression="deflate", rows_per_strip=64)
+    return raw, tiffs
+
+
+def _study_launches(n_train: int, n_eval: int, runs: int) -> dict:
+    """Launches of ``runs`` epochs of n_train train steps (chunk 1, remat
+    on: each draw sampled in the forward and again in the re-forward,
+    its eps regenerated in the backward) and n_eval eval batches."""
+    return {"stacked_sampler": runs * n_train * STUDY_MC * 2,
+            "eps": runs * n_train * STUDY_MC,
+            "split_sampler": runs * n_eval * STUDY_MC}
+
+
+def phase_studies(args, smi: str, work: str) -> dict:
+    """Phase 20 (ROADMAP item 9's studies) at full width: the UIFM noise
+    study and its metrics, one evaluation batch under
+    ``utils.profiling.trace``, the patch-size sweep and ``data-prep``.
+    Returns the phase's launches by kernel name."""
+    from multimodal_auv_torch import cli
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.data.loaders import (
+        prepare_datasets_and_loaders,
+        split_indices,
+    )
+    from multimodal_auv_torch.dataprep.qa import survey_tree_report
+    from multimodal_auv_torch.engine.optim import BayesTrainState
+    from multimodal_auv_torch.engine.steps import make_eval_step
+    from multimodal_auv_torch.engine.uifm import BETA_RGB, B_INF_RGB
+    from multimodal_auv_torch.engine.uifm import sample_turbidity
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+    from multimodal_auv_torch.ops import kernels
+    from multimodal_auv_torch.pipelines import noise_study as NS
+    from multimodal_auv_torch.pipelines import sweep as SW
+    from multimodal_auv_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    total = {"split_sampler": 0, "stacked_sampler": 0, "eps": 0}
+    root = write_training_tree(os.path.join(work, "study_tree"), args.seed,
+                               n_samples=STUDY_SAMPLES)
+    train_idx, test_idx = split_indices(STUDY_SAMPLES)
+    steps_of = lambda b: (-(-len(train_idx) // b), -(-len(test_idx) // b))
+
+    # (a) the noise study: per centre one degraded fine-tuning epoch from
+    # the initial weights, then a degraded evaluation with the extended
+    # metrics
+    csv_dir = os.path.join(work, "noise_study")
+    want = _study_launches(*steps_of(STUDY_BATCH), len(STUDY_CENTERS))
+    eval_times = []
+    real_eval = NS.evaluate_with_degradation
+
+    def timed_eval(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_eval(*a, **kw)
+        torch.cuda.synchronize()
+        eval_times.append(time.perf_counter() - t0)
+        return out
+
+    NS.evaluate_with_degradation = timed_eval
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with timed_train_steps(NS) as (times, _):
+            results = NS.run_noise_study(
+                root, csv_dir, turbidity_centers=STUDY_CENTERS,
+                depth_levels=(STUDY_DEPTH,), train_epochs_per_step=1,
+                num_mc=STUDY_MC, batch_size=STUDY_BATCH, arch=ArchConfig(),
+                seed=args.seed, strict_errors=True)
+        torch.cuda.synchronize()
+    finally:
+        NS.evaluate_with_degradation = real_eval
+    wall = time.perf_counter() - t0
+    got = check_launches("phase 20 noise study", want)
+    for k in total:
+        total[k] += got[k]
+    csv_path = os.path.join(csv_dir, f"noise_study_depth{STUDY_DEPTH}.csv")
+    with open(csv_path, newline="") as f:
+        rows = list(csv.DictReader(f))
+        header = rows and list(rows[0])
+    extra = ["F1_Score", "ECE", "Emax", "Turbidity", "Depth"]
+    if (header[:len(NS.EVAL_CSV_HEADER)] != NS.EVAL_CSV_HEADER
+            or not set(extra) <= set(header)
+            or [r["Turbidity"] for r in rows] != [
+                "%.3f" % c for c in STUDY_CENTERS]
+            or {r["Depth"] for r in rows} != {str(STUDY_DEPTH)}):
+        raise AssertionError(f"noise-study CSV {header}: {rows}")
+    vals = [float(rows[-1][k]) for k in ("Test Loss", "Test Accuracy",
+                                         "Predictive Uncertainty",
+                                         "F1_Score", "ECE", "Emax")]
+    if not np.isfinite(vals).all() or len(results) != len(STUDY_CENTERS):
+        raise AssertionError(f"noise-study values {rows[-1]} {results}")
+    per = sorted(os.listdir(os.path.join(csv_dir, "per_sample_metrics")))
+    if len(per) != len(STUDY_CENTERS):
+        raise AssertionError(f"per-sample CSVs {per}")
+    later = times[1:] or times
+    log(f"phase 20 noise study: {len(STUDY_CENTERS)} turbidity centres x 1 "
+        f"epoch over {STUDY_SAMPLES} folders ({len(train_idx)} train / "
+        f"{len(test_idx)} eval), b{STUDY_BATCH} x {STUDY_MC} MC, full width, "
+        f"in {wall:.2f} s [{smi}]: {sum(later) / len(later):.3f} s per train "
+        f"step after the first ({len(times)} steps: "
+        f"{', '.join(f'{t:.3f}' for t in times)}), "
+        f"{sum(eval_times) / len(eval_times):.3f} s per evaluation "
+        f"({', '.join(f'{t:.3f}' for t in eval_times)}); launches {got}, "
+        f"want {want}; CSV columns {header}; last row AUROC "
+        f"{rows[-1].get('uncertainty_error_auroc')} F1 {rows[-1]['F1_Score']}"
+        f" ECE {rows[-1]['ECE']} Emax {rows[-1]['Emax']}", summary=True)
+
+    # (b) one batch degraded on the card against the CPU, the turbidity
+    # drawn from the same seed on both
+    loader = prepare_datasets_and_loaders(
+        root, batch_size_multimodal=STUDY_BATCH, image_size=IMAGE)[3]
+    batch = next(iter(loader))
+    trange, seed = (1.0, 1.1), args.seed + 20
+    build = lambda dev: NS._build_inputs(
+        batch, torch.Generator().manual_seed(seed), trange, STUDY_DEPTH,
+        "multimodal", None, None, STUDY_BATCH, torch.device(dev))
+    card, cpu = build("cuda")[0][0].cpu(), build("cpu")[0][0]
+    if card.dtype != torch.float32 or cpu.dtype != torch.float32:
+        raise AssertionError(f"UIFM dtypes {card.dtype}, {cpu.dtype}")
+    card, cpu = card.double(), cpu.double()
+    turb = sample_turbidity(torch.Generator().manual_seed(seed), trange)
+    t = np.exp(-np.asarray(BETA_RGB) * turb * STUDY_DEPTH)
+    clean = np.asarray(batch["main_image"], np.float64)
+    clean = np.concatenate([clean, np.repeat(clean[-1:], STUDY_BATCH
+                                             - len(clean), 0)])
+    scale = np.abs(clean) * t + np.asarray(B_INF_RGB) * (1 - t)
+    err = (card - cpu).abs().numpy()
+    rel = float((err / scale).max())
+    if rel > UIFM_RTOL:
+        raise AssertionError(f"UIFM card vs CPU: {rel:.3e} of the terms")
+    log(f"UIFM degradation of one b{STUDY_BATCH} batch at turbidity "
+        f"{turb:.4f}: card vs CPU max |d| {float(err.max()):.3e}, "
+        f"{rel:.3e} of the terms (gate {UIFM_RTOL}), bit-equal "
+        f"{bool((err == 0).all())}")
+
+    # (c) one evaluation batch of the study under utils.profiling.trace:
+    # the Chrome trace holds a sampler_kernel event per launch counted
+    spec = BNNPriorSpec()
+    bundle = make_multimodal_bundle(
+        NUM_CLASSES, spec, torch.Generator().manual_seed(args.seed),
+        ArchConfig(), device="cuda")
+    estep = make_eval_step(bundle.module, bundle.meta, spec, STUDY_MC)
+    state = BayesTrainState(bundle.post, None, bundle.batch_stats)
+    if len(loader) != 1:
+        raise AssertionError(f"{len(loader)} eval batches, want 1")
+    ev = lambda name: real_eval(
+        estep, state, loader, 0, 1, os.path.join(work, name), "multimodal",
+        torch.Generator().manual_seed(seed), trange, STUDY_DEPTH,
+        strict_errors=True)
+    ev("warm.csv")  # cuDNN's algorithm choice outside the trace
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(work, "trace")
+    reset_launches()
+    t0 = time.perf_counter()
+    with trace(trace_dir, device="cuda") as d:
+        ev("traced.csv")
+    t_trace = time.perf_counter() - t0
+    inside = check_launches("phase 20 traced evaluation",
+                            {"split_sampler": STUDY_MC})
+    total["split_sampler"] += inside["split_sampler"]
+    (path,) = [os.path.join(d, f) for f in os.listdir(d)
+               if f.endswith(".pt.trace.json")]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    samp = [e for e in kern if "sampler_kernel" in e.get("name", "")]
+    if len(samp) != sum(inside.values()):
+        raise AssertionError(f"trace: {len(samp)} sampler_kernel events, "
+                             f"{inside} launches counted")
+    log(f"phase 20 trace: one evaluation batch (b{STUDY_BATCH} x "
+        f"{STUDY_MC} MC) under utils.profiling.trace in {t_trace:.2f} s: "
+        f"{len(kern)} kernel events, {len(samp)} sampler_kernel == "
+        f"{sum(inside.values())} launches counted; trace "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB", summary=True)
+    del bundle, state, estep, events, kern, samp
+    free_cuda()
+
+    # (d) the patch-size sweep: each combo one epoch from the same weights
+    sweep_dir = os.path.join(work, "sweep")
+    combos = len(SWEEP_BATHY) * len(SWEEP_SSS)
+    want = _study_launches(*steps_of(SWEEP_BATCH), combos)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(work):
+        res = SW.run_patch_size_sweep(
+            root, sweep_dir, bathy_sizes=SWEEP_BATHY, sss_sizes=SWEEP_SSS,
+            num_epochs=1, num_mc=STUDY_MC, batch_size=SWEEP_BATCH,
+            arch=ArchConfig(), seed=args.seed)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = check_launches("phase 20 sweep", want)
+    for k in total:
+        total[k] += got[k]
+    with open(os.path.join(sweep_dir, "patch_sweep_summary.csv"),
+              newline="") as f:
+        summary = list(csv.reader(f))
+    pairs = [[str(b), str(s)] for b in SWEEP_BATHY for s in SWEEP_SSS]
+    if (summary[0] != ["bathy_patch_m", "sss_patch_m", "final_eval_accuracy"]
+            or [r[:2] for r in summary[1:]] != pairs
+            or not all(0 <= float(r[2]) <= 1 for r in summary[1:])):
+        raise AssertionError(f"sweep summary {summary}")
+    for b, s_ in pairs:
+        if not os.path.exists(os.path.join(
+                sweep_dir, f"b{b}_s{s_}", "multimodal_eval_results.csv")):
+            raise AssertionError(f"sweep combo b{b}_s{s_}: no eval CSV")
+    log(f"phase 20 sweep: {combos} combos (bathy {SWEEP_BATHY} m x SSS "
+        f"{SWEEP_SSS} m) x 1 epoch, b{SWEEP_BATCH} x {STUDY_MC} MC, full "
+        f"width, in {wall:.2f} s = {wall / combos:.2f} s per combo [{smi}]; "
+        f"summary {summary[1:]}; launches {got}, want {want}", summary=True)
+
+    # (e) data-prep through the CLI: raw JPEGs + GeoTIFFs -> sample folders
+    raw, tiffs = write_raw_survey(os.path.join(work, "prep"), args.seed)
+    out = os.path.join(work, "prep", "out")
+    t0 = time.perf_counter()
+    rc = cli.main(["data-prep", "--raw_optical_images_folder", raw,
+                   "--geotiff_folder", tiffs, "--output_folder", out])
+    wall = time.perf_counter() - t0
+    samples = os.path.join(out, "samples")
+    names = [f"frame_{i:04d}" for i in range(PREP_FRAMES)]
+    if rc != 0 or sorted(os.listdir(samples)) != names:
+        raise AssertionError(f"data-prep rc {rc}: {os.listdir(out)}")
+    for name in names:
+        missing = set((f"{name}.jpg",) + PREP_FILES) - set(
+            os.listdir(os.path.join(samples, name)))
+        if missing:
+            raise AssertionError(f"data-prep {name}: missing {missing}")
+    # the JAX package's data-prep output gets the same verdict: its
+    # combined bathy is combined_channels.png, a name the inference scan
+    # does not take, so "missing-bathy" is every folder's only problem
+    rep = survey_tree_report(samples, kind="inference")
+    if rep.problem_histogram() != {"missing-bathy": PREP_FRAMES}:
+        raise AssertionError("data-prep QA: " + "; ".join(
+            rep.summary_lines()))
+    log(f"phase 20 data-prep: {PREP_FRAMES} frames (512 x 384) + LZW "
+        f"bathymetry and deflate SSS GeoTIFFs -> {PREP_FRAMES} sample "
+        f"folders in {wall:.2f} s = {wall / PREP_FRAMES:.3f} s per frame "
+        f"(host); QA: main and SSS found in every folder, "
+        f"{rep.problem_histogram()}", summary=True)
+    log(f"phase 20 (studies): {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {total}", summary=True)
+    return total
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3205,13 +3521,16 @@ def main() -> int:
         split_launches += phase_serving(args, smi, work, weights)
         free_cuda()
         split_launches += phase_dvp(args, smi, work, weights, mc_rate)
-        # each kernel's launches on the paths: add phases 13, 14, 15 and 16
-        # (17 and 18 were added above)
+        free_cuda()
+        studies = phase_studies(args, smi, work)
+        free_cuda()
+        # each kernel's launches on the paths: add phases 13, 14, 15, 16
+        # and 20 (17 and 18 were added above)
         retrain["split_sampler"] += split_launches
         for e in kernels_line:
-            e["launches"] += retrain[e["name"]]
+            e["launches"] += retrain[e["name"]] + studies.get(e["name"], 0)
         kernels_line += phase_probe(smi, P_full)
-    log("summary of phases 17-19:\n  " + "\n  ".join(SUMMARY))
+    log("summary of phases 17-20:\n  " + "\n  ".join(SUMMARY))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))

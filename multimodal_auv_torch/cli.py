@@ -1,12 +1,13 @@
 """Console entry points of the port (port of ``multimodal_auv_tpu/cli.py``):
 
-    python -m multimodal_auv_torch.cli {inference,retrain,train-scratch,export-serving,selfcheck} [args...]
+    python -m multimodal_auv_torch.cli {data-prep,inference,retrain,train-scratch,export-serving,selfcheck} [args...]
 
 Every flag of the JAX package's CLI, with its defaults; ``--devices`` is
 accepted and informational. One flag is added: ``--device`` (default
-``cuda``, the card; ``cpu`` runs every kernel's plain version). Flags of
-paths not ported yet, and the ``data-prep`` subcommand, exit non-zero
-with a message naming their ROADMAP item.
+``cuda``, the card; ``cpu`` runs every kernel's plain version);
+``data-prep`` is host work and takes none. The flags of the sharded
+serving artifacts, not ported yet, exit non-zero with a message naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -384,6 +385,45 @@ def export_serving_cli(argv=None):
     return 0
 
 
+def data_preparation_cli(argv=None):
+    """``run_auv_preprocessing`` with the JAX package's flags: host work,
+    no device."""
+    parser = argparse.ArgumentParser(
+        description="Prepare AUV survey data: optical preprocessing, "
+                    "GeoTIFF patch extraction, bathy channel combine.")
+    parser.add_argument("--raw_optical_images_folder", type=str, required=True,
+                        help="Folder of raw optical JPEGs (scanned recursively).")
+    parser.add_argument("--geotiff_folder", type=str, required=True,
+                        help="Folder containing bathymetry/SSS GeoTIFFs.")
+    parser.add_argument("--output_folder", type=str, required=True,
+                        help="Destination folder for per-sample directories.")
+    parser.add_argument("--exiftool_path", type=str, default="exiftool",
+                        help="Path to the exiftool binary (optional here; a "
+                             "built-in EXIF reader is the fallback).")
+    parser.add_argument("--window_size_meters", type=float, default=20.0,
+                        help="Patch window size in meters.")
+    parser.add_argument("--image_enhancement_method", type=str,
+                        default="AverageSubtraction",
+                        choices=["AverageSubtraction", "CLAHE"],
+                        help="Optical enhancement method.")
+    parser.add_argument("--skip_bathy_combine", action="store_true",
+                        help="Skip the bathy channel-combine step.")
+    args = parser.parse_args(argv)
+
+    from multimodal_auv_torch.pipelines import run_auv_preprocessing
+
+    run_auv_preprocessing(
+        raw_optical_images_folder=args.raw_optical_images_folder,
+        geotiff_folder=args.geotiff_folder,
+        output_folder=args.output_folder,
+        exiftool_path=args.exiftool_path,
+        window_size_meters=args.window_size_meters,
+        image_enhancement_method=args.image_enhancement_method,
+        skip_bathy_combine=args.skip_bathy_combine,
+    )
+    return 0
+
+
 def selfcheck_cli(argv=None):
     """The self-check on synthetic data (``selfcheck.py``)."""
     from multimodal_auv_torch.selfcheck import main as selfcheck_main
@@ -391,18 +431,8 @@ def selfcheck_cli(argv=None):
     return selfcheck_main(argv)
 
 
-def _not_ported_command(name: str, item: str):
-    def refuse(argv=None):
-        raise NotPorted(f"the {name} subcommand is not ported yet: "
-                        f"ROADMAP.md, Open items, 1 'Modules to port' item "
-                        f"{item}")
-
-    return refuse
-
-
 _COMMANDS = {
-    "data-prep": _not_ported_command(
-        "data-prep", "9 (studies: pipelines/preprocessing.py)"),
+    "data-prep": data_preparation_cli,
     "inference": inference_cli,
     "retrain": retraining_cli,
     "train-scratch": training_from_scratch_cli,

@@ -167,6 +167,24 @@ class BayesTrainState:
     step: int = 0
 
 
+def _detached_copy(tree):
+    if isinstance(tree, dict):
+        return {k: _detached_copy(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def fresh_train_state(post: PackedPosterior, batch_stats, tx) -> BayesTrainState:
+    """A train state at step 0 over copies of ``post`` and ``batch_stats``,
+    with a new optimizer of ``tx``. The train step updates its posterior
+    in place, so a study that restarts from the same weights (each noise
+    level, each sweep combo: the JAX package reuses its immutable arrays)
+    trains copies and leaves ``post`` as it was."""
+    copy = PackedPosterior(post.mu.detach().clone(), post.rho.detach().clone(),
+                           _detached_copy(post.det))
+    return BayesTrainState(post=copy, opt_state=tx.init(copy),
+                           batch_stats=_detached_copy(batch_stats))
+
+
 def set_learning_rate(opt_state: torch.optim.Optimizer, lr: float):
     """Set the learning rate of every parameter group."""
     for group in opt_state.param_groups:

@@ -1,7 +1,7 @@
 """The port's CLI against the JAX package's: the same argv passes the same
 keyword arguments to the pipelines (each monkeypatched to record them);
-flags and subcommands of paths not ported yet exit non-zero naming their
-ROADMAP item; the default ``--device cuda`` needs a card; the self-check
+flags of paths not ported yet exit non-zero naming their ROADMAP item
+(``data-prep``, ported, runs); the default ``--device cuda`` needs a card; the self-check
 is offline and reports a crashing pipeline as a FAIL line."""
 import dataclasses
 import io
@@ -107,8 +107,10 @@ def test_same_argv_same_kwargs_as_jax(monkeypatch, command, flags):
 
 # item None: a parallel flag of item 8, ported since; it must reach the
 # pipeline as the spec the JAX CLI builds. RUNS: a training flag of item 5,
-# ported since; the CLI runs it on a micro() model.
+# ported since; the CLI runs it on a micro() model. DATA_PREP: the
+# data-prep subcommand of item 9, ported since; it runs on a raw tree.
 RUNS = "runs"
+DATA_PREP = "data-prep runs"
 NOT_PORTED = [
     ("retrain", ["--mesh_data", "2"], None),
     ("retrain", ["--mesh_mc", "2"], None),
@@ -122,7 +124,7 @@ NOT_PORTED = [
     ("train-scratch", ["--remat", "auto"], RUNS),
     ("export-serving", ["--mc_shards", "2"], "item 8"),
     ("export-serving", ["--data_shards", "2"], "item 8"),
-    ("data-prep", [], "item 9"),
+    ("data-prep", [], DATA_PREP),
 ]
 
 
@@ -138,7 +140,30 @@ def test_unported_flags_exit_non_zero(monkeypatch, capsys, tmp_path,
     sharded-serving flags still exit naming item 8. The training flags of
     item 5, ported, run: one epoch of the subcommand on the CPU at
     micro() size with a resume checkpoint, exit 0, the checkpoint
-    committed."""
+    committed. The data-prep subcommand (item 9, ported) runs on a 3-frame
+    synthetic raw tree and a bathymetry and an SSS GeoTIFF: exit 0 and the
+    per-sample folders of tests/test_etl_pipeline.py."""
+    if item == DATA_PREP:
+        from tests.test_torch_dataprep import _write_rasters
+        from tests.test_etl_pipeline import _make_raw_tree
+
+        raw = _make_raw_tree(str(tmp_path / "raw"), n=3)
+        gdir = _write_rasters(str(tmp_path / "tiffs"))
+        out = str(tmp_path / "out")
+        assert cli.main([command, "--raw_optical_images_folder", raw,
+                         "--geotiff_folder", gdir, "--output_folder", out]
+                        + extra) == 0
+        samples = os.path.join(out, "samples")
+        assert sorted(os.listdir(samples)) == ["frame_0000", "frame_0001",
+                                               "frame_0002"]
+        for d in os.listdir(samples):
+            assert {f"{d}.jpg", "row_data.csv", "unlabelled.txt",
+                    "output_channel_1.png", "output_channel_2.png",
+                    "grid_a_b_SSS.png", "combined_channels.png"} <= set(
+                        os.listdir(os.path.join(samples, d)))
+        assert os.path.exists(os.path.join(out, "processed_optical",
+                                           "coords.csv"))
+        return
     if item == RUNS:
         from multimodal_auv_torch.engine import checkpointing as ckpt
         from multimodal_auv_torch.models.model_utils import ArchConfig

@@ -11,7 +11,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "multimodal_auv_tpu")
 # absent on the machine with the card: never imported at module level
-HOST_ONLY = ("sklearn", "PIL", "pandas", "matplotlib")
+HOST_ONLY = ("sklearn", "PIL", "pandas", "matplotlib", "cv2")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -49,7 +49,12 @@ def test_port_imports_no_jax():
                  "cli", "selfcheck", "serving", "serve_http",
                  "serve_client", "models.fused", "parallel.mesh",
                  "parallel.distributed", "parallel.collectives",
-                 "engine.mc", "bayes.packing"):
+                 "engine.mc", "bayes.packing", "engine.metrics",
+                 "engine.uifm", "pipelines.noise_study", "pipelines.sweep",
+                 "pipelines.preprocessing", "utils.profiling",
+                 "utils.devices", "dataprep.geodesy", "dataprep.exif",
+                 "dataprep.geotiff", "dataprep.optical", "dataprep.patches",
+                 "dataprep.combine", "dataprep.qa", "dataprep.utilities"):
         assert f"multimodal_auv_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 
@@ -65,13 +70,18 @@ def _imported_roots(path):
 
 def test_no_jax_import_anywhere_in_port_sources():
     """Imports inside functions too: every import statement of the port's
-    sources and of chip_smoke.py."""
+    sources and of chip_smoke.py. No sklearn or pandas anywhere, and cv2
+    only in dataprep/optical.py (the ``CLAHE_CV2`` path, lazily)."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "multimodal_auv_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     bad = {p: r for p in paths for r in _imported_roots(p) if r in FORBIDDEN
-           or r == "sklearn"}
+           or r in ("sklearn", "pandas", "torchvision")}
     assert bad == {}
+    cv2_users = sorted(os.path.relpath(p, REPO) for p in paths
+                       if "cv2" in set(_imported_roots(p)))
+    assert cv2_users == [os.path.join("multimodal_auv_torch", "dataprep",
+                                      "optical.py")]
     assert len(paths) > 25
 
 
