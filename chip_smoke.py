@@ -77,11 +77,16 @@ result line):
     samples per second, peak memory.
 
 12. the RNG-split probe (``python -m multimodal_auv_torch.ops.probe_rng_split``,
-    the port of scripts/probe_rng_split.py): every kernel it launches
+    the port of scripts/probe_rng_split.py): the device functions every
+    noise kernel draws through (``noise_parts``: the radius and the
+    angle's sin and cos of all 2^24 words, each polynomial set) against
+    their plain versions, bits compared; every kernel the probe launches
     (rng_bits, rng_bmlite, eps_fast, and the eps kernel in f32 and bf16)
-    against its plain version bit for bit at the small and quarter-ending
-    P's, the full P, and the probe's own shapes (72,941,568 elements x 20
-    draws bf16, and x 2 draws f32 for the fidelity check); then its run
+    against its plain version, bits compared, at the small and
+    quarter-ending P's, the full P, and the probe's own shapes (72,941,568
+    elements x 20 draws bf16, and x 2 draws f32 for the fidelity check);
+    the draw loop's SASS instructions per Box-Muller pair of each kernel
+    of the library, by class (``ops/sass.py``); then its run
     at that geometry (the TPU probe's): the marginal ms per draw of bits,
     bm (the eps kernel), bmlite and bmfast, the split into "PRNG +
     write" and "Box-Muller math", lite against the f32 polynomials on the
@@ -282,7 +287,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
+# f32 operations per second outside the tensor cores when every operation
+# is its own instruction: the kernels are built with --fmad=false, so no
+# multiply and add fuse, and the H100 SXM issues 128 f32 instructions per
+# SM per clock (CUDA C++ Programming Guide, arithmetic throughput, compute
+# capability 9.0): 132 SMs x 128 x 1.98 GHz boost. The data sheet's 67
+# TFLOP/s counts a fused multiply-add as two.
+F32_OPS_PER_S = 132 * 128 * 1.98e9
 NUM_CLASSES, NUM_MC, BATCH, N_SAMPLES, IMAGE = 7, 20, 4, 10, 256
 TRAIN_BATCH, TRAIN_SAMPLES = 12, 32  # the reference's b12 x 20 MC
 # phase 7's tree: two train steps (phase 14 runs the three-step epoch of
@@ -392,7 +403,7 @@ def check_launches(phase: str, want: dict) -> dict:
 def bound_ms(nbytes: float, ops: float):
     """(bound in ms, "bytes" or "operations") on an H100 SXM."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -432,6 +443,10 @@ def phase_device():
     return smi
 
 
+# each source's nvcc log from phase_build (ptxas registers and spills)
+BUILD_LOGS = {}
+
+
 def phase_build():
     from multimodal_auv_torch.ops import kernels
 
@@ -440,6 +455,7 @@ def phase_build():
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         results = dict(zip(names, pool.map(kernels.build, names)))
     for name, r in results.items():
+        BUILD_LOGS[name] = r.log
         ptxas = [ln.strip() for ln in r.log.splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"build {name}: {r.seconds:.1f} s -> {r.path.name}")
@@ -517,7 +533,7 @@ def check_sampler(post, n_padded: int):
     library_ms = cuda_ms(lambda: torch.normal(mu2, sg2, generator=gen), 50)
     nbytes = 2 * P * 2 + 2 * P * 2
     ops = (P // 2) * 2 * SAMPLER_F32_OPS[True]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     log(f"split_sampler chunk 2 at P={P} (seed from device memory): kernel "
         f"{ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, torch.normal {library_ms:.4f} ms, bound "
@@ -2680,6 +2696,7 @@ def check_probe_kernels(P_full: int) -> None:
     probe runs: its P at its 20 draws in bf16, and at the fidelity check's
     2 draws in f32. Raises on the first difference."""
     from multimodal_auv_torch.ops import probe_rng_split as PR
+    from multimodal_auv_torch.ops.sampler_times import same_bits
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(P, n, dt) for P in SMALL_PS for n in (1, 2, 3)
@@ -2694,13 +2711,40 @@ def check_probe_kernels(P_full: int) -> None:
             got = fn(P, seed, n, "cuda", dt)
             want = plain(P, seed, n, "cuda", dt)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not same_bits(got, want):
                 e = float((got.float() - want.float()).abs().max())
                 raise AssertionError(f"{name} != plain ({dt}, P={P}, "
                                      f"{n} draws): max abs err {e}")
             del got, want
     log(f"rng_bits, rng_bmlite, eps_fast, eps == plain bit for bit at "
         f"{', '.join(f'P={P} x {n} {str(dt)[6:]}' for P, n, dt in cases)}")
+
+
+def check_noise_parts() -> None:
+    """The device functions every noise kernel draws through (the radius
+    of b1, the angle's sin and cos of b2) on all 2^24 words, each
+    polynomial set, against the plain versions on the card, bits compared:
+    the exact forms of the Box-Muller (csrc/sampling.cu) and its division
+    and square root without range checks, over every input they meet."""
+    from multimodal_auv_torch.ops.sampler_times import check_parts
+
+    check_parts()
+    log("noise_parts (radius, sin, cos of all 2^24 words; f32, fast and "
+        "lite polynomials) == plain bit for bit")
+
+
+def log_sass_counts() -> None:
+    """Per kernel of the built library: its draw loop's SASS instructions
+    per Box-Muller pair, by class, and its registers (ops/sass.py)."""
+    from multimodal_auv_torch.ops import kernels, sass
+
+    counts = sass.library_counts(kernels.build("sampling").path,
+                                 BUILD_LOGS.get("sampling", ""))
+    for name, c in counts.items():
+        log(f"SASS {name}: {c['per_pair_total']:.2f} instructions per pair "
+            f"({c['instructions']} for {c['pairs']} pairs), "
+            f"{c.get('registers', '?')} registers; "
+            + ", ".join(f"{k} {v:.2f}" for k, v in c["per_pair"].items()))
 
 
 def phase_probe(smi: str, P_full: int) -> list:
@@ -2713,7 +2757,9 @@ def phase_probe(smi: str, P_full: int) -> list:
     from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
     from multimodal_auv_torch.ops import probe_rng_split as PR
 
+    check_noise_parts()
     check_probe_kernels(P_full)
+    log_sass_counts()
     iters = 10
     reset_launches()
     res = PR.run(iters=iters)

@@ -2,9 +2,15 @@
 
 Each source in ``multimodal_auv_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
-build runs at first use into ``multimodal_auv_torch/_build/`` (listed in
-``.gitignore``), keyed by a hash of the source and the flags, so a fresh
-checkout builds its kernels itself and an edited source is rebuilt.
+build runs at first use, keyed by a hash of the source and the flags, so a
+fresh checkout or install builds its kernels itself and an edited source is
+rebuilt. It goes into the directory that ``build_dir`` names: the
+environment variable ``MULTIMODAL_AUV_TORCH_BUILD_DIR`` when it is set,
+else ``multimodal_auv_torch/_build/`` (listed in ``.gitignore``) when the
+package directory is writable, else a per-user cache,
+``$XDG_CACHE_HOME/multimodal_auv_torch`` (``~/.cache`` when unset), as for
+a package installed read-only under site-packages. The sources are package
+data, so a wheel carries them.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine has neither ``nvcc`` nor a card.
@@ -27,7 +33,7 @@ from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR_ENV = "MULTIMODAL_AUV_TORCH_BUILD_DIR"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -35,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: Dict[str, int] = {"split_sampler": 0, "stacked_sampler": 0,
                             "eps": 0, "reparam_sampler": 0, "rng_bits": 0,
-                            "rng_bmlite": 0, "eps_fast": 0}
+                            "rng_bmlite": 0, "eps_fast": 0,
+                            "noise_parts": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -60,16 +67,39 @@ def nvcc() -> str:
     return found
 
 
-def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags is already in the build directory."""
-    src = CSRC / f"{name}.cu"
+def _writable(d: Path) -> bool:
+    """Whether a directory can be made or written at ``d``: its nearest
+    existing ancestor takes new entries."""
+    while not d.exists():
+        d = d.parent
+    return d.is_dir() and os.access(d, os.W_OK | os.X_OK)
+
+
+def build_dir() -> Path:
+    """Where the kernel libraries are built: ``$MULTIMODAL_AUV_TORCH_BUILD_DIR``,
+    else the package's ``_build/`` if writable, else the per-user cache."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    if env:
+        return Path(env)
+    local = _PKG / "_build"
+    if _writable(local):
+        return local
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "multimodal_auv_torch"
+
+
+def build(name: str, csrc: Path = CSRC) -> BuildResult:
+    """Compile ``<csrc>/<name>.cu`` (the package's ``csrc/`` by default)
+    unless a library of the same source and flags is already in the build
+    directory."""
+    src = Path(csrc) / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = build_dir() / f"lib{name}_{digest}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],

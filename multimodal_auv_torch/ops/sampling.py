@@ -468,6 +468,43 @@ def gaussian_noise(P: int, seed: Tuple[int, int], num_draws: int, device,
     return eps_plain(P, seed, num_draws, device).to(out_dtype)
 
 
+def noise_parts_plain(n: int, noise: str = "f32", device=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(r, sin t, cos t), each (n,) f32, of Box-Muller on words 0..n-1 as
+    b1 and as b2: r = sqrt(-2 ln u1) and ``fast_sincos_2pi(u2)``, the
+    pieces of ``box_muller``."""
+    _check_noise(noise)
+    w = torch.arange(n, dtype=torch.int64, device=device)
+    f1 = ((w & _M24) + 1).to(torch.float32)
+    r = torch.sqrt(-2.0 * (fast_ln(f1, noise) - 24.0 * _LN2))
+    u2 = (w & _M24).to(torch.float32) * (1.0 / 16777216.0)
+    sin_t, cos_t = fast_sincos_2pi(u2, noise)
+    return r, sin_t, cos_t
+
+
+def noise_parts(n: int, noise: str = "f32", device="cuda"
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``noise_parts_plain`` as the kernels compute it: on a CUDA device
+    one launch of ``noise_parts`` (the device functions every noise kernel
+    draws through, on all n <= 2^24 words), on the CPU the plain version.
+    A check of the kernels' exact forms, not a sampler."""
+    _check_noise(noise)
+    device = torch.device(device)
+    if not 0 < n <= 1 << 24:
+        raise ValueError(f"n={n}: 1 .. 2^24 words")
+    if device.type != "cuda":
+        return noise_parts_plain(n, noise, device)
+    out = torch.empty((3, n), dtype=torch.float32, device=device)
+    fn = _fn("noise_parts_launch", [ctypes.c_void_p] * 3
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    kernels.check(fn(out[0].data_ptr(), out[1].data_ptr(),
+                     out[2].data_ptr(), n, NOISE_MODES.index(noise),
+                     torch.cuda.current_stream(device).cuda_stream),
+                  "noise_parts")
+    kernels.LAUNCHES["noise_parts"] += 1
+    return out[0], out[1], out[2]
+
+
 class _GaussianShiftScale(torch.autograd.Function):
     """``_gss``: forward w = mu + sigma * eps (stacked kernel); backward
     dmu = sum_d g, dsigma = sum_d g * eps with eps regenerated from the

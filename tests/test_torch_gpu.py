@@ -369,3 +369,19 @@ def test_artifact_on_card_equals_in_process_step(tmp_path):
                                   ref["mean_prob"].cpu().numpy())
     with pytest.raises(ValueError, match="exported for"):
         load_predict_artifact(d, device="cpu")
+
+
+@pytest.mark.parametrize("noise", S.NOISE_MODES)
+def test_noise_parts_bit_equal_plain_all_words(noise):
+    """The device functions of every noise kernel (radius of b1, sin and
+    cos of b2) on all 2^24 words equal the plain versions bit by bit, -0
+    apart from +0: the exact forms and the division and square root
+    without range checks, over every input they meet. One launch."""
+    _cuda_or_skip()
+    n = 1 << 24
+    before = kernels.LAUNCHES["noise_parts"]
+    got = S.noise_parts(n, noise, "cuda")
+    assert kernels.LAUNCHES["noise_parts"] == before + 1
+    want = S.noise_parts_plain(n, noise, "cuda")
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
