@@ -132,7 +132,20 @@ result line):
     answered, the seeded one equal to ``predict`` with its seed,
     split_sampler launches == 10 x the device calls ``Metrics`` counted,
     and a shutdown inside a time limit. Prints export and load seconds, the
-    programs' sizes, patches/s and request latencies.
+    programs' sizes, patches/s and request latencies. Then the mc-sharded
+    artifact (``mc_shards=MC_SHARDS``, mc_chunk left at all 20 draws: one
+    stack of 10 stacked-sampler draws per shard) exported from the same
+    file and loaded with both shards on cuda:0 (the script needs one
+    card: this checks semantics, not scaling): ``predict_batches`` over phase
+    4's patches with exactly 2 x 3 = 6 stacked_sampler launches and no
+    other, each batch's logits bit-equal to the one-process stacked path
+    (``mc_logits`` through ``gaussian_shift_scale``, one chunk of 20, bf16
+    weights) at the same seeds and its CSV columns equal; kernel #2
+    through the op ``auv::stacked_sampler`` (seed words read from device
+    memory) == its plain version at the shard's shape (10 draws x the full
+    P, bf16 in and out), its time beside its bound, the plain version and
+    ``torch.normal``; export s, load s and patches/s beside the unsharded
+    artifact's.
 
 16. DVP (single-pass deterministic variance propagation, engine/moment.py)
     at full width: the DVP step over phase 4's packed set through
@@ -247,9 +260,21 @@ result line):
     and SSS everywhere (its one problem, "missing-bathy" in every folder,
     is the JAX package's too: both name the combined bathy
     combined_channels.png); s per frame.
+21. learning, after phase 20: tests/test_learning.py:64's recipe on the
+    card at micro() and 32 px (LEARN_*): ``run_AUV_training_from_scratch
+    (device=None)`` on a separable synthetic tree (tests/fixtures/
+    make_tree.py), 10 epochs at b6 x 2 MC, non-MOPED init; the
+    end-of-training state restored through ``restore_train_state``; an
+    unseen probe tree of clean and ambiguous samples predicted at 16 MC
+    (f32 weights). Gates: clean held-out accuracy >= 0.9, mean predictive
+    uncertainty on the ambiguous samples > 1.2 x the clean ones', a finite
+    clean-set ECE < 0.30, AUROC(uncertainty -> error) > 0.5 where the
+    probe has hits and errors; exact launches of #2 and #3 in training and
+    of #1 in its evaluations and the prediction. Prints s per epoch and
+    the accuracy.
 
 The kernels line's launches of #1-#3 add phases 13, 14, 15, 16, 17, 18,
-19 and 20 to their paths' counts (phase 19's comparison runs not
+19, 20 and 21 to their paths' counts (phase 19's comparison runs not
 counted). Beside each sampler's bound the script prints the
 noise contract's Philox calls for that launch and their estimated INT32
 time, labelled as an estimate; it is not part of ``bound_ms``.
@@ -368,10 +393,21 @@ STUDY_SAMPLES, STUDY_BATCH, STUDY_MC = 12, 4, 5
 STUDY_CENTERS, STUDY_DEPTH = (0.05, 2.05), 1.0
 SWEEP_BATCH, SWEEP_BATHY, SWEEP_SSS = 8, (10, 30), (30,)
 PREP_FRAMES, UIFM_RTOL = 6, 1e-6
+# phase 15's mc-sharded artifact: the shards, all on cuda:0
+MC_SHARDS = 2
+# phase 21: tests/test_learning.py:64's recipe on the card (micro(), 32 px:
+# learning to 90% is a property of the recipe, not of the width): a
+# separable tree of LEARN_CLASSES x LEARN_PER_CLASS samples, LEARN_EPOCHS
+# epochs at LEARN_BATCH x LEARN_MC draws, lr 3e-3, non-MOPED init; then
+# an unseen probe tree of LEARN_PROBE_PER_CLASS clean and as many
+# ambiguous samples per class at LEARN_PROBE_MC draws
+LEARN_CLASSES, LEARN_PER_CLASS, LEARN_EPOCHS = 3, 8, 10
+LEARN_BATCH, LEARN_MC, LEARN_LR = 6, 2, 3e-3
+LEARN_PROBE_PER_CLASS, LEARN_PROBE_MC = 6, 16
 
 
-# phases 17-20's results, printed again before the kernels line (the
-# tool that runs this script keeps only the end of its output)
+# phases 15 and 17-21's results, printed again before the kernels line
+# (the tool that runs this script keeps only the end of its output)
 SUMMARY = []
 
 
@@ -2274,11 +2310,12 @@ def _padded_batches(packed_dir: str):
     return out, valid
 
 
-def phase_serving(args, smi: str, work: str, weights: str) -> int:
+def phase_serving(args, smi: str, work: str, weights: str) -> dict:
     """Phase 15: the full-width serving artifact exported on the card from
     phase 13's file, loaded, streamed over phase 4's patches against the
-    in-process step, then served over HTTP. Returns the phase's
-    split_sampler launches."""
+    in-process step, then served over HTTP; then the mc-sharded artifact
+    (``phase_serving_mc_shards``). Returns the phase's launches of the
+    split and stacked samplers."""
     from multimodal_auv_torch.config import BNNPriorSpec
     from multimodal_auv_torch.engine.predict import make_packed_predict_step
     from multimodal_auv_torch.models.model_utils import ArchConfig
@@ -2351,9 +2388,10 @@ def phase_serving(args, smi: str, work: str, weights: str) -> int:
                              f"err {max(errs)}")
     del bundle, step
     free_cuda()
+    rate = N_SAMPLES / wall
     log(f"artifact predict_batches: {N_SAMPLES} patches in {len(batches)} "
         f"batches of {BATCH} x {NUM_MC} MC in {wall:.3f} s = "
-        f"{N_SAMPLES / wall:.3f} patches/s [{smi}]; against the in-process "
+        f"{rate:.3f} patches/s [{smi}]; against the in-process "
         f"step at the same seeds: predicted equal on every row, "
         f"uncertainties max abs err {max(errs):.3e}, bit-equal "
         f"{bit_equal}; launches {launches}")
@@ -2424,7 +2462,142 @@ def phase_serving(args, smi: str, work: str, weights: str) -> int:
         f"calls")
     del art
     free_cuda()
-    return n_launches
+    stacked = phase_serving_mc_shards(args, smi, work, weights, batches,
+                                      key, (t_export, t_load, rate))
+    return {"split_sampler": n_launches, "stacked_sampler": stacked}
+
+
+def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
+                            batches, key: int, unsharded) -> int:
+    """Phase 15's mc-sharded point at full width: ``export_auv_serving_
+    artifact(mc_shards=MC_SHARDS)`` from phase 13's file (mc_chunk left at
+    its default, all the draws: one stack of NUM_MC / MC_SHARDS draws per
+    shard), loaded with the shards all on cuda:0; ``predict_batches``
+    over phase 4's patches with exactly MC_SHARDS stacked_sampler launches
+    a batch and no other; each batch's logits bit-equal to the one-process
+    stacked path (``mc_logits`` through ``gaussian_shift_scale``, one
+    chunk, bf16 weights) at the same seeds, its CSV columns equal to that
+    path's; kernel #2 through the op ``auv::stacked_sampler`` (seed words
+    in device memory) at the shard's shape, NUM_MC / MC_SHARDS draws of
+    the full P with bf16 in and out, bit-equal to its plain version, its
+    time beside its bound, the plain version and ``torch.normal``. Prints
+    export s, load s and patches/s beside the unsharded artifact's
+    (``unsharded``). Returns the stacked_sampler launches of the served
+    run."""
+    from multimodal_auv_torch.bayes.packing import softplus
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.engine.mc import mc_logits
+    from multimodal_auv_torch.engine.predict import _mc_outputs
+    from multimodal_auv_torch.models.model_utils import ArchConfig
+    from multimodal_auv_torch.ops import sampling as S
+    from multimodal_auv_torch.ops.preprocess import normalize_multimodal
+    from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
+    from multimodal_auv_torch.pipelines import export_auv_serving_artifact
+    from multimodal_auv_torch.pipelines.inference import pretrained_bundle
+    from multimodal_auv_torch.serving import fold_seed, load_predict_artifact
+
+    rows = NUM_MC // MC_SHARDS
+    art_dir = os.path.join(work, "artifact_mc_shards")
+    reset_launches()
+    t0 = time.perf_counter()
+    export_auv_serving_artifact(art_dir, batch_size=BATCH,
+                                num_mc_samples=NUM_MC,
+                                num_classes=NUM_CLASSES,
+                                model_weights_path=weights,
+                                mc_shards=MC_SHARDS, seed=args.seed)
+    t_export = time.perf_counter() - t0
+    check_launches("mc-sharded export", {})
+    size = os.path.getsize(os.path.join(art_dir, "program.pt2")) / 1e6
+    free_cuda()
+    t0 = time.perf_counter()
+    art = load_predict_artifact(art_dir, devices=["cuda:0"] * MC_SHARDS)
+    t_load = time.perf_counter() - t0
+    if (art.meta["mc_shards"], art.shard_rows, art.nchunks) != (
+            MC_SHARDS, rows, 1):
+        raise AssertionError(f"mc-sharded artifact meta {art.meta}, "
+                             f"{art.shard_rows} rows x {art.nchunks} chunks")
+    list(art.predict_batches(batches, key=key))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = list(art.predict_batches(batches, key=key))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launches("mc-sharded artifact", {
+        "stacked_sampler": MC_SHARDS * len(batches)})
+
+    bundle = pretrained_bundle(NUM_CLASSES, BNNPriorSpec(), ArchConfig(),
+                               args.seed, weights, False,
+                               torch.device("cuda"))
+    for i, ((m, b, ss, mask), out) in enumerate(zip(batches, outs)):
+        seed = fold_seed(key, i)
+        cuda_mask = torch.from_numpy(mask).cuda()
+        got = art.predict_logits(m, b, ss, key=seed, mask=mask)
+        with torch.inference_mode():
+            ref = mc_logits(bundle.module, bundle.meta, bundle.post,
+                            bundle.batch_stats, normalize_multimodal(
+                                *(torch.from_numpy(a).cuda()
+                                  for a in (m, b, ss))),
+                            torch.Generator().manual_seed(seed), NUM_MC,
+                            mc_chunk=NUM_MC, train=True, remat=False,
+                            sample_dtype=torch.bfloat16,
+                            batch_mask=cuda_mask)
+        if got.shape != (NUM_MC, BATCH, NUM_CLASSES) or not torch.equal(
+                got, ref):
+            raise AssertionError(
+                f"mc-sharded batch {i}: logits differ from the one-process "
+                f"stacked path, max abs "
+                f"{float((got.float() - ref.float()).abs().max())}")
+        if not np.array_equal(out["csv_cols"],
+                              _mc_outputs(ref)["csv_cols"].cpu().numpy()):
+            raise AssertionError(f"mc-sharded batch {i}: CSV columns differ "
+                                 f"from the stacked path's")
+
+    # kernel #2 through the op at the shard's shape
+    with torch.no_grad():
+        mu = bundle.post.mu.detach().to(torch.bfloat16)
+        sg = softplus(bundle.post.rho.detach().float()).to(torch.bfloat16)
+    del bundle, art
+    free_cuda()
+    P = mu.numel()
+    words = (args.seed + 1515, 0xFFFFFF00)
+    seeds = S.seed_tensor(words, "cuda")
+    got = S.stacked_draws(mu, sg, seeds, rows, out_dtype=torch.bfloat16)
+    want = S.stacked_plain(mu, sg, words, rows, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"auv::stacked_sampler != plain at {rows} x "
+                             f"P={P} bf16")
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    ms = cuda_ms(lambda: S.stacked_draws(mu, sg, seeds, rows,
+                                         out_dtype=torch.bfloat16), 20)
+    plain_ms = cuda_ms(lambda: S.stacked_plain(mu, sg, words, rows,
+                                               torch.bfloat16), 2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mun, sgn = mu.expand(rows, P), sg.expand(rows, P)
+    lib_ms = cuda_ms(lambda: torch.normal(mun, sgn, generator=gen), 20)
+    b_ms, b_by = bound_ms(2 * P * 2 + 16 + rows * P * 2,
+                          (P // 2) * rows * SAMPLER_F32_OPS[False])
+    del mu, sg, mun, sgn
+    free_cuda()
+    e0, l0, r0 = unsharded
+    log(f"mc-sharded artifact (full width, b{BATCH} x {NUM_MC} MC as "
+        f"{MC_SHARDS} shards of {rows} stacked draws on cuda:0, bf16): "
+        f"export {t_export:.2f} s, load {t_load:.2f} s, program.pt2 "
+        f"{size:.1f} MB, predict_batches {N_SAMPLES} patches in "
+        f"{wall:.3f} s = {N_SAMPLES / wall:.3f} patches/s; unsharded "
+        f"(chunk 2): export {e0:.2f} s, load {l0:.2f} s, {r0:.3f} "
+        f"patches/s [{smi}]; logits bit-equal to the one-process stacked "
+        f"path on every batch, CSV columns equal; launches {launches}",
+        summary=True)
+    log(f"stacked_sampler via auv::stacked_sampler (device seed) at the "
+        f"shard's shape {rows} x P={P}, bf16 in and out: == plain bit for "
+        f"bit (max abs err {err}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) [{smi}]; {philox_note(P, rows)}",
+        summary=True)
+    return launches["stacked_sampler"]
 
 
 def check_dvp_kernel(mean, scale, seed, smi: str) -> None:
@@ -3503,6 +3676,147 @@ def phase_studies(args, smi: str, work: str) -> dict:
     return total
 
 
+def learning_gates(pred, prob, unc, labels, is_ambig) -> dict:
+    """tests/test_learning.py:64's four gates on a probe set's outputs:
+    clean accuracy >= 0.9; mean predictive uncertainty on the ambiguous
+    samples > 1.2x the clean ones'; a finite clean-set ECE < 0.30;
+    AUROC(uncertainty -> error) > 0.5 where the set has hits and errors.
+    Returns what they measured."""
+    from multimodal_auv_torch.engine.metrics import (
+        calibration_metrics,
+        uncertainty_error_auroc,
+    )
+
+    clean_acc = float((pred[~is_ambig] == labels[~is_ambig]).mean())
+    if clean_acc < 0.9:
+        raise AssertionError(f"learning: clean held-out accuracy {clean_acc}")
+    u_ambig = float(unc[is_ambig].mean())
+    u_clean = float(unc[~is_ambig].mean())
+    if not u_ambig > 1.2 * u_clean:
+        raise AssertionError(f"learning: uncertainty ambiguous {u_ambig} "
+                             f"not > 1.2 x clean {u_clean}")
+    ece, emax = calibration_metrics(prob[~is_ambig], labels[~is_ambig])
+    if not (np.isfinite(ece) and np.isfinite(emax) and ece < 0.30):
+        raise AssertionError(f"learning: clean-set ECE {ece}, Emax {emax}")
+    auroc = None
+    if (pred != labels).any() and (pred == labels).any():
+        auroc = float(uncertainty_error_auroc(pred, labels, unc))
+        if not auroc > 0.5:
+            raise AssertionError(f"learning: uncertainty-error AUROC {auroc}")
+    return {"clean_acc": clean_acc, "unc_ambig": u_ambig,
+            "unc_clean": u_clean, "ece": float(ece), "auroc": auroc}
+
+
+def phase_learning(args, smi: str, work: str) -> dict:
+    """Phase 21 ("learning"): tests/test_learning.py:64's recipe on the
+    card. ``run_AUV_training_from_scratch(device=None)`` on a separable
+    synthetic tree (tests/fixtures/make_tree.py) at micro(), 32 px, then
+    the end-of-training state restored through ``restore_train_state``
+    and an unseen probe tree predicted (``make_predict_step``, f32
+    weights). The four gates of ``learning_gates``; exact launches of #2
+    and #3 in training (remat on, chunk 1: 2 stacked and 1 eps per draw of
+    each step) and of #1 in its evaluations and the prediction (one split
+    launch per draw of an eval batch, one per chunk of 2 draws). Returns
+    the phase's launches."""
+    from tests.fixtures.make_tree import make_separable_training_tree
+
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.data.datasets import MultimodalFolderDataset
+    from multimodal_auv_torch.data.loaders import DataLoader, split_indices
+    from multimodal_auv_torch.engine.checkpointing import restore_train_state
+    from multimodal_auv_torch.engine.loops import select_patch
+    from multimodal_auv_torch.engine.optim import (
+        BayesTrainState,
+        make_optimizer,
+    )
+    from multimodal_auv_torch.engine.predict import make_predict_step
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+    from multimodal_auv_torch.pipelines import training as pipeline
+
+    t_phase = time.perf_counter()
+    spec = BNNPriorSpec(moped_enable=False)
+    arch = ArchConfig.micro(image_size=32)
+    root = make_separable_training_tree(
+        os.path.join(work, "learn_train"), n_per_class=LEARN_PER_CLASS,
+        seed=args.seed)
+    state_path = os.path.join(work, "learn_state.pt")
+    reset_launches()
+    t0 = time.perf_counter()
+    with timed_train_steps(pipeline) as (times, _), contextlib.chdir(work):
+        ok = pipeline.run_AUV_training_from_scratch(
+            spec.to_dict(), LEARN_LR, LEARN_EPOCHS, LEARN_MC, 10, 10,
+            LEARN_BATCH, root, num_classes=0, arch=arch, seed=args.seed,
+            strict_errors=True, handle_preemption=False,
+            resume_checkpoint=state_path)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ok is not True:
+        raise AssertionError(f"learning: run_AUV_training_from_scratch "
+                             f"returned {ok}")
+    train_idx, test_idx = split_indices(LEARN_CLASSES * LEARN_PER_CLASS)
+    n_steps = -(-len(train_idx) // LEARN_BATCH)
+    n_evals = -(-len(test_idx) // LEARN_BATCH)
+    trained = check_launches("learning: training", {
+        "stacked_sampler": LEARN_EPOCHS * n_steps * LEARN_MC * 2,
+        "eps": LEARN_EPOCHS * n_steps * LEARN_MC,
+        "split_sampler": LEARN_EPOCHS * n_evals * LEARN_MC})
+
+    bundle = make_multimodal_bundle(
+        LEARN_CLASSES, spec, torch.Generator().manual_seed(args.seed), arch,
+        device="cuda")
+    template = BayesTrainState(
+        post=bundle.post,
+        opt_state=make_optimizer(LEARN_LR, 1e-5).init(bundle.post),
+        batch_stats=bundle.batch_stats)
+    state, epoch, _ = restore_train_state(state_path, template)
+    if epoch != LEARN_EPOCHS:
+        raise AssertionError(f"learning: restored epoch {epoch}")
+    bundle.post, bundle.batch_stats = state.post, state.batch_stats
+
+    probe = make_separable_training_tree(
+        os.path.join(work, "learn_probe"), n_per_class=LEARN_PROBE_PER_CLASS,
+        ambiguous_per_class=LEARN_PROBE_PER_CLASS, seed=args.seed + 1)
+    ds = MultimodalFolderDataset(probe, image_size=32)
+    batch = next(iter(DataLoader(ds, batch_size=len(ds), shuffle=False)))
+    names = [os.path.basename(os.path.dirname(p["main_image"]))
+             for p in ds.data_paths]
+    is_ambig = np.asarray([n.startswith("ambig") for n in names])
+    inputs = tuple(torch.from_numpy(np.asarray(a, np.float32)).cuda()
+                   for a in (batch["main_image"],
+                             select_patch(batch, "patch_10_bathy", "bathy"),
+                             select_patch(batch, "patch_10_sss", "sss")))
+    labels = np.asarray(batch["label"], np.int64)
+    step = make_predict_step(bundle, LEARN_PROBE_MC, sample_dtype=None)
+    reset_launches()
+    out = step(bundle.post, bundle.batch_stats, inputs,
+               torch.Generator().manual_seed(args.seed + 3))
+    torch.cuda.synchronize()
+    probed = check_launches("learning: probe",
+                            {"split_sampler": LEARN_PROBE_MC // 2})
+    report = learning_gates(out["predicted"].cpu().numpy(),
+                            out["mean_prob"].float().cpu().numpy(),
+                            out["predictive_uncertainty"].float().cpu()
+                            .numpy(), labels, is_ambig)
+    del bundle, template, state, out
+    later = times[1:]
+    log(f"phase 21 (learning): run_AUV_training_from_scratch at micro(), "
+        f"32 px, {LEARN_EPOCHS} epochs of {n_steps} steps of {LEARN_BATCH} "
+        f"x {LEARN_MC} MC and {n_evals} eval batch(es) in {wall:.2f} s = "
+        f"{wall / LEARN_EPOCHS:.3f} s per epoch (scan, decode, evals and "
+        f"checkpoints included), {sum(later) / len(later):.4f} s per train "
+        f"step after the first [{smi}]; unseen probe of {len(ds)} "
+        f"({int(is_ambig.sum())} ambiguous) at {LEARN_PROBE_MC} MC: clean "
+        f"held-out accuracy {report['clean_acc']:.4f}, predictive "
+        f"uncertainty ambiguous {report['unc_ambig']:.6g} vs clean "
+        f"{report['unc_clean']:.6g}, ECE {report['ece']:.4f}, AUROC "
+        f"{report['auroc']}; launches training {trained}, probe {probed}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s", summary=True)
+    return {k: trained[k] + probed[k] for k in trained}
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3564,19 +3878,24 @@ def main() -> int:
         free_cuda()
         retrain = phase_retraining(args, smi, work, weights)
         free_cuda()
-        split_launches += phase_serving(args, smi, work, weights)
+        serving = phase_serving(args, smi, work, weights)
+        split_launches += serving["split_sampler"]
         free_cuda()
         split_launches += phase_dvp(args, smi, work, weights, mc_rate)
         free_cuda()
         studies = phase_studies(args, smi, work)
         free_cuda()
-        # each kernel's launches on the paths: add phases 13, 14, 15, 16
-        # and 20 (17 and 18 were added above)
+        learning = phase_learning(args, smi, work)
+        free_cuda()
+        # each kernel's launches on the paths: add phases 13, 14, 15, 16,
+        # 20 and 21 (17 and 18 were added above)
         retrain["split_sampler"] += split_launches
+        retrain["stacked_sampler"] += serving["stacked_sampler"]
         for e in kernels_line:
-            e["launches"] += retrain[e["name"]] + studies.get(e["name"], 0)
+            e["launches"] += (retrain[e["name"]] + studies.get(e["name"], 0)
+                              + learning.get(e["name"], 0))
         kernels_line += phase_probe(smi, P_full)
-    log("summary of phases 17-20:\n  " + "\n  ".join(SUMMARY))
+    log("summary of phases 15 and 17-21:\n  " + "\n  ".join(SUMMARY))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -326,8 +326,11 @@ def export_serving_cli(argv=None):
                              "program (guardrailed at export time, see "
                              "--dvp_on_excess).")
     parser.add_argument("--mc_shards", type=int, default=1,
-                        help="MC ensemble over an M-device mesh axis (not "
-                             "ported yet)")
+                        help="MC ensemble over M devices: each runs "
+                             "num_mc/M draws of every batch (exact MC "
+                             "only, static --batch_size); the loader runs "
+                             "the shards on the first M cards or on the "
+                             "devices it is given.")
     parser.add_argument("--data_shards", type=int, default=1,
                         help="batch sharded over N devices (not ported yet)")
     parser.add_argument("--dvp_on_excess", choices=("warn", "mc"),
@@ -355,10 +358,10 @@ def export_serving_cli(argv=None):
     _add_device_flag(parser)
     parser.add_argument("--tiny", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.mc_shards > 1 or args.data_shards > 1:
-        raise NotPorted("--mc_shards / --data_shards are not ported yet: "
-                        "ROADMAP.md, Open items, 1 'Modules to port' item 8 "
-                        "(parallel)")
+    if args.data_shards > 1:
+        raise NotPorted("--data_shards is not ported yet: ROADMAP.md, Open "
+                        "items, 1 'Modules to port' item 8b (data_shards "
+                        "serving artifacts)")
 
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
 

@@ -1,10 +1,13 @@
-"""Configuration constants of the port (copied from
-``multimodal_auv_tpu/config.py``; the port imports nothing of that package).
+"""Configuration of the port (copied from ``multimodal_auv_tpu/config.py``;
+the port imports nothing of that package): the reference's param-dict
+knobs, under the same names, in dataclasses that ``load_yaml`` reads from
+a YAML file such as the repo's ``config.yaml``.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import logging
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 
@@ -30,6 +33,35 @@ class BNNPriorSpec:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+@dataclass(frozen=True)
+class OptimizerSpec:
+    """Adam hyperparameters per model (the reference's loop_utils.py)."""
+
+    lr: float = 1e-5
+    weight_decay: float = 1e-5
+
+
+@dataclass(frozen=True)
+class SchedulerSpec:
+    """StepLR hyperparameters (the reference's loop_utils.py)."""
+
+    step_size: int = 7
+    gamma: float = 0.752
+
+
+@dataclass(frozen=True)
+class TrainingSpec:
+    num_epochs: int = 20
+    num_mc: int = 12
+    batch_size: int = 12
+    # draws sampled per chunk: a memory knob; the results do not depend on
+    # it
+    mc_chunk: int = 1
+    # the reference steps the LR scheduler twice per multimodal epoch
+    # (loop_utils.py); kept for parity, switchable
+    double_scheduler_step: bool = True
 
 
 # The 7 benthic habitat classes of the pretrained model.
@@ -89,3 +121,46 @@ class DistSpec:
             return None
         return cls(coordinator=coord, num_processes=int(nproc),
                    process_id=int(pid) if pid is not None else None)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    num_classes: int = 7
+    bnn: BNNPriorSpec = field(default_factory=BNNPriorSpec)
+    training: TrainingSpec = field(default_factory=TrainingSpec)
+    optimizer: OptimizerSpec = field(default_factory=OptimizerSpec)
+    scheduler: SchedulerSpec = field(default_factory=SchedulerSpec)
+    mesh: MeshSpec = field(default_factory=MeshSpec)
+    bathy_patch_type: Optional[str] = "patch_30_bathy"
+    sss_patch_type: Optional[str] = "patch_30_sss"
+
+
+_SECTIONS = {"bnn": BNNPriorSpec, "training": TrainingSpec,
+             "optimizer": OptimizerSpec, "scheduler": SchedulerSpec,
+             "mesh": MeshSpec}
+
+
+def load_yaml(path: str) -> RunConfig:
+    """The ``RunConfig`` of a YAML file (sections ``bnn``, ``training``,
+    ``optimizer``, ``scheduler``, ``mesh`` and the top-level knobs); an
+    unknown key is logged as a warning and ignored, so that a misspelt
+    knob does not pass for a default. Needs PyYAML, imported here."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+
+    def build(cls, d):
+        names = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for k, v in (d or {}).items():
+            if k not in names:
+                logging.getLogger(__name__).warning(
+                    "config %s: unknown key %r (not a %s field) — ignored",
+                    path, k, cls.__name__)
+                continue
+            sub = _SECTIONS.get(k)
+            kwargs[k] = build(sub, v) if sub else v
+        return cls(**kwargs)
+
+    return build(RunConfig, raw)

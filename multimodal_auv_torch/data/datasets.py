@@ -69,6 +69,9 @@ class LabelEncoder:
         self.classes_ = np.unique(np.asarray(labels))
         return self
 
+    def fit_transform(self, labels: Sequence[str]) -> np.ndarray:
+        return self.fit(labels).transform(labels)
+
     def transform(self, labels: Sequence[str]) -> np.ndarray:
         labels = np.asarray(labels)
         codes = np.searchsorted(self.classes_, labels)

@@ -25,6 +25,7 @@ from multimodal_auv_torch.parallel.distributed import barrier, is_coordinator
 from multimodal_auv_torch.data.datasets import (
     ConcatDataset,
     InferenceFolderDataset,
+    LabelEncoder,
     MultimodalFolderDataset,
 )
 
@@ -310,6 +311,14 @@ def prepare_packed_train_loaders(
                                seed=seed)
     test = PackedTrainBatches(packed, batch_size, test_idx)
     return train, test, dataset.num_classes, dataset
+
+
+def encode_labels(labels: Sequence[str]):
+    """The reference's stray LabelEncoder helper: (codes, encoder) of
+    ``labels``, by the port's sklearn-free ``LabelEncoder`` (sklearn's
+    rule: codes index the sorted unique labels)."""
+    enc = LabelEncoder()
+    return enc.fit_transform(labels), enc
 
 
 def prepare_inference_datasets_and_loaders(

@@ -32,6 +32,10 @@ and raises the first error of a background write.
 ``load_and_fix_state_dict`` is the tolerant restore of a ``save_model``
 file: leaves whose name is unknown or whose shape differs keep the
 caller's values, with a warning that names them.
+
+Not ported on purpose: the JAX package's ``save_pytree`` /
+``restore_pytree``, orbax directories of a pytree. The port's files are
+``torch.save`` files of its own trees, written by the functions above.
 """
 from __future__ import annotations
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence
 
 import torch
+from torch._higher_order_ops.map import map as draw_map
 from torch.utils.checkpoint import checkpoint
 
 from multimodal_auv_torch.bayes.packing import PackedPosterior, PackMeta, softplus
@@ -48,6 +49,7 @@ from multimodal_auv_torch.ops.sampling import (
     draw_offset_seed,
     gaussian_shift_scale,
     gaussian_shift_scale_split,
+    stacked_draws,
 )
 from multimodal_auv_torch.parallel.collectives import LOCAL, gather_draws
 
@@ -153,6 +155,36 @@ def split_mc_logits(module, meta: PackMeta, post: PackedPosterior,
                                       (mu, sigma, seeds)))
     return torch.stack([forward(w) for k in range(nchunks)
                         for w in sample(k)])
+
+
+def stacked_mc_logits(module, meta: PackMeta, post: PackedPosterior,
+                      batch_stats, inputs: Sequence[torch.Tensor],
+                      seeds: torch.Tensor, *, rows: int, train: bool = True,
+                      sample_dtype: Optional[torch.dtype] = None,
+                      batch_mask=None) -> torch.Tensor:
+    """The stacked path as a function of tensors: (nchunks * rows, batch,
+    num_classes) logits, ``rows`` draws with the f32 noise from the seed
+    words in row k of ``seeds`` ((nchunks, 2) int64 on the posterior's
+    device), through the op ``auv::stacked_sampler`` (``stacked_draws``),
+    so ``torch.export`` traces it; not differentiable. Given an mc rank's
+    words (``draw_offset_seed`` of the chunk's seed at the rank's first
+    row), the logits are that rank's rows of ``mc_logits``' stacked path
+    bit for bit: what an mc-sharded serving program runs. A chunk's
+    forwards are one ``map`` over its draws (torch's higher-order op, the
+    same forward per row), so an exported program holds one draw's
+    forward, not ``rows`` copies of it: its export, save and load cost
+    one draw's graph."""
+    mu, sigma = _sampling_posterior(post, sample_dtype)
+
+    def forward(w, det, stats, inputs, mask):
+        return module(meta.unpack(w, det), stats, *inputs, train=train,
+                      batch_mask=mask)
+
+    return torch.cat([
+        draw_map(forward, stacked_draws(mu, sigma, seeds[k], rows,
+                                        out_dtype=sample_dtype),
+                 post.det, batch_stats, tuple(inputs), batch_mask)
+        for k in range(seeds.shape[0])])
 
 
 def _mirror(mu: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,12 @@ elementwise gate between the decay and Adam, in the JAX chain's order
 (``add_decayed_weights -> freeze_transform -> scale_by_adam -> scale``):
 frozen elements neither decay nor build up moments, so they stay bit for
 bit unchanged.
+
+``define_optimizers_and_schedulers`` builds an Adam and a ``StepLR`` per
+model from the reference's param dicts (``lr``, ``weight_decay``,
+``step_size``, ``gamma``). Not ported on purpose: the JAX package's
+``freeze_transform``, an optax gradient transform; the port's gate is
+``GatedAdam``.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from multimodal_auv_torch.bayes.packing import PackedPosterior, PackMeta
+from multimodal_auv_torch.config import OptimizerSpec, SchedulerSpec
 
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -153,6 +160,38 @@ class StepLR:
 
     def load_state_dict(self, d):
         self.epoch_count = d["epoch_count"]
+
+
+@dataclass
+class OptimizerBundle:
+    """One model's optimizer definition (``tx.init(post)`` builds the Adam)
+    and its learning-rate schedule."""
+
+    tx: AdamDef
+    scheduler: StepLR
+
+
+def define_optimizers_and_schedulers(
+    model_names,
+    optimizer_params: Dict[str, Dict[str, float]],
+    scheduler_params: Dict[str, Dict[str, float]],
+) -> Dict[str, OptimizerBundle]:
+    """An Adam + StepLR pair per model name from the reference's param
+    dicts, keyed by model name: ``lr`` and ``weight_decay`` (default
+    ``OptimizerSpec``'s), ``step_size`` and ``gamma`` (default
+    ``SchedulerSpec``'s)."""
+    out = {}
+    for name in model_names:
+        op = optimizer_params.get(name, {})
+        sp = scheduler_params.get(name, {})
+        lr = float(op.get("lr", OptimizerSpec.lr))
+        wd = float(op.get("weight_decay", OptimizerSpec.weight_decay))
+        out[name] = OptimizerBundle(
+            tx=make_optimizer(lr, wd),
+            scheduler=StepLR(lr, int(sp.get("step_size",
+                                            SchedulerSpec.step_size)),
+                             float(sp.get("gamma", SchedulerSpec.gamma))))
+    return out
 
 
 @dataclass

@@ -359,12 +359,17 @@ def multimodal_predict_and_save(
     generator: Optional[torch.Generator] = None,
     mc_chunk: Optional[int] = None, fast_sampling: Optional[bool] = None,
     bn_mode: str = "train", step=None, device: DeviceLike = None,
-    mesh=None,
+    mesh=None, sss_patch_type: Optional[str] = "",
+    channel_patch_type: Optional[str] = "", model_type: str = "multimodal",
 ) -> None:
     """Iterate an inference loader of (main, bathy, sss, names) batches of
     normalised float NHWC arrays and write the reference-schema CSV.
     ``mesh``: as in ``multimodal_predict_and_save_packed`` (the loader's
-    batch size must divide by the data axis)."""
+    batch size must divide by the data axis). ``sss_patch_type``,
+    ``channel_patch_type`` and ``model_type`` are the reference's
+    signature, accepted and unused, as in the JAX package: the loader's
+    batches already hold the patches."""
+    del sss_patch_type, channel_patch_type, model_type
     place = _placer(bundle, device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

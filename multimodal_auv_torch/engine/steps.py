@@ -56,7 +56,7 @@ def _data_axis(mesh) -> Axis:
 def make_elbo_loss_fn(module, meta, spec: BNNPriorSpec, num_mc: int, *,
                       mc_chunk: int = 1, sample_dtype=None,
                       packed_inputs: bool = False, remat: bool = True,
-                      mesh=None):
+                      mesh=None, update_batch_stats: bool = True):
     """The training ELBO that ``make_train_step`` differentiates.
 
     Returns loss_fn(post, batch_stats, inputs, labels, mask, generator,
@@ -73,8 +73,10 @@ def make_elbo_loss_fn(module, meta, spec: BNNPriorSpec, num_mc: int, *,
     global ELBO's. Under an mc axis the draws are split over it
     (``ws_sharding``), and the chained BN update, sequential in the draws,
     gives way to one posterior-mean refresh (``refresh_batch_stats``), as
-    in the JAX package."""
-    chained = mesh is None or mesh.mc == 1
+    in the JAX package. ``update_batch_stats=False``: the running
+    statistics are returned as they came in (neither chained nor
+    refreshed)."""
+    chained = update_batch_stats and (mesh is None or mesh.mc == 1)
     world = 1 if mesh is None else mesh.world_axis.size
 
     def loss_fn(post, batch_stats, inputs, labels, mask, generator,
@@ -91,8 +93,9 @@ def make_elbo_loss_fn(module, meta, spec: BNNPriorSpec, num_mc: int, *,
         else:
             logits = mc_logits(module, meta, post, batch_stats, inputs,
                                generator, num_mc, ws_sharding=mesh, **kw)
-            new_bs = refresh_batch_stats(module, meta, post, batch_stats,
-                                         inputs, batch_mask=mask)
+            new_bs = (refresh_batch_stats(module, meta, post, batch_stats,
+                                          inputs, batch_mask=mask)
+                      if update_batch_stats else batch_stats)
         output = logits.to(torch.float32).mean(dim=0)
         # this rank's share of the CE over the global count of real rows
         count = all_reduce_(mask.sum().reshape(1), _data_axis(mesh))[0]
@@ -246,7 +249,8 @@ class AutoRematTrainStep:
 
 def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
                     mc_chunk: int = 1, sample_dtype=None,
-                    packed_inputs: bool = False, remat="on", mesh=None):
+                    packed_inputs: bool = False, remat="on", mesh=None,
+                    update_batch_stats: bool = True):
     """Returns (state, inputs, labels, mask, generator, kl_weight,
     batch_size_scale) -> (state, metrics). ``mask`` is f32[batch]
     (1.0 = real row, 0.0 = ragged-tail padding) and sits BEFORE the
@@ -255,7 +259,9 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
 
     BN running statistics are chained through the MC loop (one momentum
     update per stochastic forward, the reference's semantics) at no extra
-    forward.
+    forward; ``update_batch_stats=False`` leaves them unchanged (frozen
+    fine-tuning), and under a mesh with an mc axis it decides whether the
+    one posterior-mean refresh runs.
 
     ``sample_dtype``: dtype of the sampled weights fed to the forward
     (``torch.bfloat16``: mixed precision; mu, rho, gradients and Adam stay
@@ -272,7 +278,8 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
     global; ``predicted`` holds this rank's rows."""
     if remat == "auto":
         kw = dict(mc_chunk=mc_chunk, sample_dtype=sample_dtype,
-                  packed_inputs=packed_inputs, mesh=mesh)
+                  packed_inputs=packed_inputs, mesh=mesh,
+                  update_batch_stats=update_batch_stats)
         unit = 1 if mesh is None else mesh.mc
         return AutoRematTrainStep(
             lambda r: make_train_step(module, meta, spec, num_mc, remat=r,
@@ -280,14 +287,16 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
             lambda n: make_elbo_loss_fn(
                 module, meta, spec, n, mc_chunk=unit,
                 sample_dtype=sample_dtype, packed_inputs=packed_inputs,
-                remat=False, mesh=mesh),
+                remat=False, mesh=mesh,
+                update_batch_stats=update_batch_stats),
             num_mc, unit, mesh)
     remat = remat if isinstance(remat, bool) else {"on": True,
                                                    "off": False}[remat]
     loss_fn = make_elbo_loss_fn(module, meta, spec, num_mc,
                                 mc_chunk=mc_chunk, sample_dtype=sample_dtype,
                                 packed_inputs=packed_inputs, remat=remat,
-                                mesh=mesh)
+                                mesh=mesh,
+                                update_batch_stats=update_batch_stats)
 
     def step(state: BayesTrainState, inputs, labels, mask, generator,
              kl_weight, batch_size_scale) -> Tuple[BayesTrainState, Any]:

@@ -21,7 +21,8 @@ The inventory is generated from a bundle's ``PackMeta``, ``post.det`` and
 ResNet-50 geometry, 7 classes, published form) is byte-equal to the JAX
 package's file of that name, and ``build_flagship_manifest`` regenerates
 it from parameter shapes alone (``torch.device("meta")``: no weights are
-drawn).
+drawn). ``main`` audits a checkpoint file against it, or rewrites it
+(``--write-manifest``).
 """
 from __future__ import annotations
 
@@ -238,3 +239,45 @@ def build_flagship_manifest() -> Dict[str, Dict[str, Any]]:
         meta=meta, post=SimpleNamespace(det=deterministic_part(params, meta)),
         batch_stats=stats)
     return expected_checkpoint_keys(bundle, published=True)
+
+
+def main(argv=None) -> int:
+    """Audit a checkpoint against the shipped inventory, or regenerate it:
+
+    python -m multimodal_auv_torch.interop.hf_manifest <pytorch_model.bin>
+    python -m multimodal_auv_torch.interop.hf_manifest --write-manifest
+
+    Exit 0 when no loadable key is missing or of another shape, 1 when
+    one is, 2 with nothing to do."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("checkpoint", nargs="?", default=None,
+                    help="path to a torch state-dict checkpoint to audit")
+    ap.add_argument("--write-manifest", action="store_true",
+                    help=f"regenerate {MANIFEST_PATH}")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    if args.write_manifest:
+        man = build_flagship_manifest()
+        with open(MANIFEST_PATH, "w") as f:
+            json.dump(man, f, indent=0, sort_keys=True)
+        print(f"wrote {len(man)} keys to {MANIFEST_PATH}")
+        return 0
+    if not args.checkpoint:
+        print("nothing to do (pass a checkpoint path or --write-manifest)")
+        return 2
+    import torch
+
+    # the raw keys: the inventory is in the published form
+    raw = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
+    audit = audit_coverage(raw, load_manifest())
+    log_coverage(audit, name=os.path.basename(args.checkpoint))
+    ok = not audit["missing"] and not audit["shape_mismatch"]
+    print("COVERAGE OK" if ok else "COVERAGE INCOMPLETE")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -226,6 +226,19 @@ class ResNet(nn.Module):
         return (x, new_s) if mutable else x
 
 
+def resnet50(num_classes: Optional[int] = None,
+             dtype: torch.dtype = torch.float32,
+             param_dtype: torch.dtype = torch.float32, width: int = 64,
+             stage_sizes: Sequence[int] = (3, 4, 6, 3)) -> ResNet:
+    """The ResNet trunk (a classifier with ``num_classes``), the JAX
+    package's ``resnet50`` signature. ``param_dtype``: f32 only, the
+    port's parameters are f32 (``dtype`` is the activations')."""
+    if param_dtype != torch.float32:
+        raise ValueError(f"param_dtype {param_dtype}: the port's "
+                         f"parameters are f32")
+    return ResNet(stage_sizes, width, num_classes, dtype)
+
+
 def forward_layout(params: Tree) -> Tree:
     """A parameter tree in the JAX layout (what ``init`` returns) in the
     layout ``forward`` takes: 4-D HWIO conv kernels permuted to OIHW."""

@@ -44,9 +44,14 @@ memory, as the TPU kernel reads its ``seed_ref`` operand: it is the custom
 op ``torch.ops.auv.split_sampler``, which ``torch.export`` traces (a fake
 implementation gives the output's shape) and which dispatches by the
 tensors' device, to the kernel on CUDA and to ``split_plain`` on the CPU.
+The stacked sampler's forward is the op ``torch.ops.auv.stacked_sampler``
+the same way (``stacked_draws``: the mc-sharded serving program draws a
+shard's rows through it); the training path (``gaussian_shift_scale``)
+launches the same kernel with its seed words by value.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -107,8 +112,9 @@ def draw_offset_seed(seed: Tuple[int, int], draw0: int, P: int
     sampler of P elements: stream (draw, blk) is keyed (seed0, seed1 +
     draw * nblk + blk), so an offset of ``draw0`` draws folds into seed1 as
     ``seed1 + draw0 * nblk`` mod 2^32. How an mc rank draws its own rows of
-    a chunk with no kernel change (kernels #2 and #3 take seeds by value;
-    the backward regenerates eps from the same folded seed)."""
+    a chunk with no kernel change (the backward regenerates eps from the
+    same folded seed; an mc-sharded serving artifact's loader folds each
+    shard's offset into the seed words it hands the program)."""
     nblk = -(-P // BLOCK_ELEMS)
     return (int(seed[0]) & _M32, (int(seed[1]) + draw0 * nblk) & _M32)
 
@@ -300,6 +306,15 @@ def _fn(name: str, argtypes):
     return fn
 
 
+@contextlib.contextmanager
+def _current(device):
+    """``device`` made the current card while a launch runs, and its
+    current stream's handle: a launch on another card's stream fails, and
+    the ctypes calls set no device of their own."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
 def _check_vector_loads(mu, scale) -> None:
     if not (mu.is_contiguous() and scale.is_contiguous()):
         raise ValueError("mu and sigma must be contiguous")
@@ -312,27 +327,34 @@ def _launch(name: str, mu, scale, seed, num_draws, out_dtype,
             extra=()) -> torch.Tensor:
     """One launch of sampler ``name`` into a (num_draws, P) buffer;
     ``scale`` is sigma, or rho for the reparam sampler; ``seed``: the
-    (seed0, seed1) words by value, or for the split sampler a (2,) int64
-    tensor on the device that the kernel reads; ``extra``: trailing int
+    (seed0, seed1) words by value, or for the split and stacked samplers
+    a (2,) int64 tensor on the device that the kernel reads (the split
+    sampler takes only that; the stacked sampler's entry takes a device
+    pointer, null for the words by value); ``extra``: trailing int
     arguments."""
     _check_vector_loads(mu, scale)
     P = mu.shape[0]
-    out = torch.empty((num_draws, P), dtype=out_dtype, device=mu.device)
-    if isinstance(seed, torch.Tensor):
+    out = mu.new_empty((num_draws, P), dtype=out_dtype)
+    on_device = isinstance(seed, torch.Tensor)
+    if name == "split_sampler":
         seed_args = [seed.data_ptr()]
         seed_types = [ctypes.c_void_p]
     else:
-        seed_args = [int(seed[0]) & _M32, int(seed[1]) & _M32]
+        words = (0, 0) if on_device else seed
+        seed_args = [int(words[0]) & _M32, int(words[1]) & _M32]
         seed_types = [ctypes.c_uint, ctypes.c_uint]
+        if name == "stacked_sampler":
+            seed_args.insert(0, seed.data_ptr() if on_device else None)
+            seed_types.insert(0, ctypes.c_void_p)
     args = [mu.data_ptr(), scale.data_ptr(), out.data_ptr(), P, num_draws,
             *seed_args, int(mu.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), *extra]
     types = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, *seed_types,
              ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * len(extra)
-    stream = torch.cuda.current_stream(mu.device).cuda_stream
     fn = _fn(f"{name}_launch", types + [ctypes.c_void_p])
-    kernels.check(fn(*args, stream), name)
+    with _current(mu.device) as stream:
+        kernels.check(fn(*args, stream), name)
     kernels.LAUNCHES[name] += 1
     return out
 
@@ -373,6 +395,34 @@ def _split_sampler_fake(mu, sigma, seeds, num_draws, out_dtype, fast_math):
     return mu.new_empty((num_draws, mu.shape[0]), dtype=out_dtype)
 
 
+@torch.library.custom_op("auv::stacked_sampler", mutates_args=(),
+                         device_types="cpu")
+def stacked_sampler(mu: torch.Tensor, sigma: torch.Tensor,
+                    seeds: torch.Tensor, num_draws: int,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel #2 as a forward-only op: (num_draws, P) draws mu + sigma *
+    eps with the f32 noise, the seed words read from ``seeds``; the same
+    values as the forward of ``gaussian_shift_scale`` at those words. This
+    body is the CPU implementation, the plain version."""
+    return stacked_plain(mu, sigma, tuple(seeds.tolist()), num_draws,
+                         out_dtype)
+
+
+@stacked_sampler.register_kernel("cuda")
+def _stacked_sampler_cuda(mu, sigma, seeds, num_draws, out_dtype):
+    """The CUDA implementation: one launch of the kernel, which reads the
+    seed words from device memory."""
+    _check_seeds(seeds, mu.device)
+    if not seeds.is_contiguous():
+        raise ValueError("seeds must be contiguous")
+    return _launch("stacked_sampler", mu, sigma, seeds, num_draws, out_dtype)
+
+
+@stacked_sampler.register_fake
+def _stacked_sampler_fake(mu, sigma, seeds, num_draws, out_dtype):
+    return mu.new_empty((num_draws, mu.shape[0]), dtype=out_dtype)
+
+
 def launch_noise(name: str, P: int, seed, num_draws: int, device,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One launch of noise kernel ``name`` (eps, or one of the RNG-split
@@ -381,10 +431,10 @@ def launch_noise(name: str, P: int, seed, num_draws: int, device,
     fn = _fn(f"{name}_launch", [ctypes.c_void_p, ctypes.c_longlong,
                                 ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
                                 ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    kernels.check(fn(out.data_ptr(), P, num_draws, int(seed[0]) & _M32,
-                     int(seed[1]) & _M32, int(out_dtype == torch.bfloat16),
-                     stream), name)
+    with _current(device) as stream:
+        kernels.check(fn(out.data_ptr(), P, num_draws, int(seed[0]) & _M32,
+                         int(seed[1]) & _M32,
+                         int(out_dtype == torch.bfloat16), stream), name)
     kernels.LAUNCHES[name] += 1
     return out
 
@@ -429,6 +479,26 @@ def split_draws(mu: torch.Tensor, sigma: torch.Tensor, seed, num_draws: int,
     _check_seeds(seeds, mu.device)
     return torch.ops.auv.split_sampler(mu, sigma, seeds, num_draws,
                                        out_dtype, fast_math)
+
+
+def stacked_draws(mu: torch.Tensor, sigma: torch.Tensor, seed,
+                  num_draws: int, *,
+                  out_dtype: torch.dtype = None) -> torch.Tensor:
+    """``num_draws`` posterior draws mu + sigma * eps with the f32 noise, as
+    one (num_draws, P) tensor: the forward of ``gaussian_shift_scale``,
+    not differentiable. ``seed``: a (2,) int64 tensor on mu's device, or a
+    (seed0, seed1) pair, copied to the device first. One call of the op
+    ``auv::stacked_sampler`` (what an exported mc-sharded program calls):
+    on a CUDA tensor it launches the kernel, which reads the seed words
+    from device memory, or raises; on a CPU tensor it runs the plain
+    version."""
+    out_dtype = out_dtype or mu.dtype
+    _check_args(mu, sigma, num_draws, out_dtype)
+    seeds = (seed if isinstance(seed, torch.Tensor)
+             else seed_tensor(seed, mu.device))
+    _check_seeds(seeds, mu.device)
+    return torch.ops.auv.stacked_sampler(mu, sigma, seeds, num_draws,
+                                         out_dtype)
 
 
 def gaussian_shift_scale_split(mu: torch.Tensor, sigma: torch.Tensor,
@@ -497,10 +567,10 @@ def noise_parts(n: int, noise: str = "f32", device="cuda"
     out = torch.empty((3, n), dtype=torch.float32, device=device)
     fn = _fn("noise_parts_launch", [ctypes.c_void_p] * 3
              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    kernels.check(fn(out[0].data_ptr(), out[1].data_ptr(),
-                     out[2].data_ptr(), n, NOISE_MODES.index(noise),
-                     torch.cuda.current_stream(device).cuda_stream),
-                  "noise_parts")
+    with _current(device) as stream:
+        kernels.check(fn(out[0].data_ptr(), out[1].data_ptr(),
+                         out[2].data_ptr(), n, NOISE_MODES.index(noise),
+                         stream), "noise_parts")
     kernels.LAUNCHES["noise_parts"] += 1
     return out[0], out[1], out[2]
 

@@ -13,6 +13,12 @@ analogue of torch's DistributedSampler.
 The step wrappers keep the epoch loops' single-process view: the loops
 hand over global-shaped batches, the wrapper takes this rank's rows, runs
 the step and gathers its per-sample outputs back to the global batch.
+
+Not ported on purpose: the JAX package's ``make_global_batch`` (a global
+``jax.Array`` assembled from per-host slices) and
+``check_multihost_mesh`` (a check of a ``jax.sharding`` mesh over hosts);
+here a rank takes its rows itself and ``parallel/mesh.py::mesh_shape``
+checks the layout against the process group.
 """
 from __future__ import annotations
 

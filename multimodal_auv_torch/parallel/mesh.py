@@ -22,6 +22,11 @@ the BatchNorm statistics and every other leaf stay replicated. Without a process
 ``make_mesh(MeshSpec(1, 1))`` is a mesh of one rank on which every
 collective is a no-op, as JAX's one-device mesh is. Unlike JAX, which can
 leave devices idle, a mesh must use every rank: data x mc == world size.
+
+Not ported on purpose: the JAX package's ``batch_sharding``,
+``replicated``, ``shard_batch``, ``state_shardings`` and ``mc_sharding``,
+which build ``jax.sharding`` objects for the partitioner. The port passes
+the ``Mesh`` itself to the steps, loops and pipelines.
 """
 from __future__ import annotations
 

@@ -211,15 +211,17 @@ def export_auv_serving_artifact(
 
     ``use_dvp`` exports the single-pass DVP program instead (same ABI;
     guardrailed at export time by ``dvp_on_excess``, see serving.py).
-    ``data_shards`` / ``mc_shards`` > 1 are not ported yet and raise,
-    naming their ROADMAP item, before anything is built: the reference's
-    train-mode BN needs a reduction over the data shards inside every BN
-    layer, which JAX's SPMD puts into its exported program and a
-    ``torch.export`` program does not hold."""
-    if data_shards > 1 or mc_shards > 1:
-        raise NotImplementedError(
-            "data_shards / mc_shards > 1 are not ported yet: ROADMAP.md, "
-            "Open items, 1 'Modules to port' item 8 (parallel)")
+    ``mc_shards`` > 1 exports an mc-sharded artifact (serving.py: one
+    shard's program of the stacked sampler, run by the loader on
+    ``mc_shards`` devices). ``data_shards`` > 1 is not ported yet and
+    raises, naming its ROADMAP item, before anything is built: the
+    reference's train-mode BN needs a reduction over the data shards
+    inside every BN layer, which JAX's SPMD puts into its exported program
+    and a ``torch.export`` program does not hold."""
+    if data_shards > 1:
+        from multimodal_auv_torch.serving import _DATA_SHARDS_NOT_PORTED
+
+        raise NotImplementedError(_DATA_SHARDS_NOT_PORTED)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     dev = resolve_device(device)

@@ -29,9 +29,27 @@ program per chunk, not one for all draws: the step unrolls every draw's
 three ResNet-50 forwards (~5,600 graph nodes a draw), and the export, save
 and load times grow with the nodes.
 
+``mc_shards=M`` (the JAX package's MC-ensemble sharding): M devices each
+run mc_chunk / M draws of every chunk of the same batch, on the stacked
+sampler (f32 noise), and the estimators are reduced over all the draws.
+Train-mode BN normalises within each draw over the whole batch, so a
+shard's program holds no collective: the program is one shard's, the
+same for every shard, drawing its rows through ``auv::stacked_sampler``
+from its seeds input and running their forwards as one ``map`` over the
+rows (``engine/mc.py::stacked_mc_logits``: one draw's graph, not one per
+row). The loader hands shard m of chunk k the chunk's words with the
+shard's first row folded in (``draw_offset_seed``), runs the program once
+per shard and chunk on the shard's device, gathers the logits on the
+first device in chunk and shard order, and runs the reduction once: the
+draws and their order are the one-process stacked path's, so the logits
+equal it bit for bit. ``data_shards`` > 1 is not
+ported (ROADMAP item 8b): its BN needs a reduction over the shards inside
+every layer, which a ``torch.export`` program does not hold.
+
 The program is traced on the device that will serve it: ops that build
 tensors bake that device into the graph, so the loader refuses a device
-other than the one in ``meta["platforms"]``.
+other than the one in ``meta["platforms"]``, and moves the program to
+each other card an mc-sharded artifact is loaded on.
 """
 from __future__ import annotations
 
@@ -45,8 +63,12 @@ import numpy as np
 import torch
 
 from multimodal_auv_torch.device import DeviceLike, resolve_device
-# also registers torch.ops.auv.split_sampler, which the program calls
-from multimodal_auv_torch.ops.sampling import chunk_seed_words
+# also registers torch.ops.auv.split_sampler and auv::stacked_sampler,
+# which the programs call
+from multimodal_auv_torch.ops.sampling import (
+    chunk_seed_words,
+    draw_offset_seed,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -144,8 +166,14 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     posterior spread exceeds the validated regime, ``dvp_on_excess``
     decides (default "mc": the artifact holds the exact MC program). The
     mode exported and the spread are recorded in meta.json.
-    ``data_shards`` / ``mc_shards`` > 1 are not ported yet and raise,
-    naming their ROADMAP item."""
+
+    ``mc_shards=M`` exports one shard's program: mc_chunk / M draws of the
+    stacked sampler (f32 noise, ``fast_sampling`` does not reach it), the
+    loader running it on M devices (module docstring). Exact MC only, a
+    static ``batch_size``; ``mc_chunk`` defaults to all the draws (one
+    stack, split over the shards) and must divide by M, as must
+    ``num_mc_samples``. ``data_shards`` > 1 is not ported yet and raises,
+    naming its ROADMAP item."""
     from multimodal_auv_torch.engine.predict import (
         _default_chunk,
         fused_outputs,
@@ -157,11 +185,20 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     if mc_shards > 1 and mode != "mc":
         raise ValueError("mc_shards > 1 requires mode='mc' (DVP's trunk "
                          "pass has no MC-draw axis to shard)")
-    if data_shards > 1 or mc_shards > 1:
-        raise NotImplementedError(
-            "data_shards / mc_shards > 1 (sharded artifacts) is not ported "
-            "yet: ROADMAP.md, Open items, 1 'Modules to port' item 8 "
-            "(parallel)")
+    if mc_shards > 1 and num_mc_samples % mc_shards:
+        raise ValueError(f"num_mc_samples {num_mc_samples} must be "
+                         f"divisible by mc_shards {mc_shards}")
+    if mc_shards > 1:
+        if mc_chunk is None:
+            mc_chunk = num_mc_samples  # one stack of all draws, sharded
+        if mc_chunk % mc_shards:
+            raise ValueError(f"mc_chunk {mc_chunk} must be divisible by "
+                             f"mc_shards {mc_shards}")
+        if batch_size == "poly":
+            raise ValueError("sharded export requires a static batch_size "
+                             "(the per-device shard shape must be static)")
+    if data_shards > 1:
+        raise NotImplementedError(_DATA_SHARDS_NOT_PORTED)
     dev = bundle.device
     if platforms and list(platforms) != [dev.type]:
         raise ValueError(f"platforms {list(platforms)}: the program is traced "
@@ -190,9 +227,14 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
         if num_mc_samples % mc_chunk:
             raise ValueError(f"num_mc_samples {num_mc_samples} must be "
                              f"divisible by mc_chunk {mc_chunk}")
-        logits_fn = make_packed_logits_fn(bundle, mc_chunk=mc_chunk,
-                                          fast_sampling=fast_sampling,
-                                          bn_mode=bn_mode)
+        if mc_shards > 1:
+            logits_fn = _shard_logits_fn(bundle, mc_chunk // mc_shards,
+                                         bn_mode)
+            fast_sampling = False  # the stacked sampler's f32 noise
+        else:
+            logits_fn = make_packed_logits_fn(bundle, mc_chunk=mc_chunk,
+                                              fast_sampling=fast_sampling,
+                                              bn_mode=bn_mode)
         logits_dtype = bundle.module.dtype
 
     class ChunkProgram(torch.nn.Module):
@@ -228,6 +270,7 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     # torch.export.save would write the example inputs into the file: the
     # whole state, on the export device, loaded back with the program
     program.example_inputs = reduce.example_inputs = None
+    _drop_stack_traces(program)
 
     os.makedirs(out_dir, exist_ok=True)
     torch.export.save(program, os.path.join(out_dir, _PROGRAM))
@@ -258,14 +301,93 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
         "data_shards": int(data_shards),
         "mc_shards": int(mc_shards),
         "sha256": digests,
+        # the programs are torch.export's serialisation, which another
+        # torch release may not read alike (the loader refuses it)
+        "torch_version": torch.__version__,
     }
     with open(os.path.join(out_dir, _META), "w") as f:
         json.dump(meta, f, indent=1)
     logger.info("Exported serving artifact to %s (mode=%s, platforms=%s, "
-                "batch=%s, mc=%d in chunks of %d, %d state leaves)", out_dir,
-                exported_mode, meta["platforms"], batch_size, num_mc_samples,
-                mc_chunk, len(leaves))
+                "batch=%s, mc=%d in chunks of %d over %d mc shards, %d state "
+                "leaves)", out_dir, exported_mode, meta["platforms"],
+                batch_size, num_mc_samples, mc_chunk, mc_shards, len(leaves))
     return out_dir
+
+
+def _shard_logits_fn(bundle, rows: int, bn_mode: str):
+    """One mc shard's logits function over uint8 NHWC batches: ``rows``
+    draws of the stacked sampler (f32 noise) per row of ``seeds``
+    (``engine/mc.py::stacked_mc_logits``), bf16 weights as the packed
+    predict step samples them."""
+    from multimodal_auv_torch.engine.mc import stacked_mc_logits
+    from multimodal_auv_torch.engine.predict import _check_bn_mode
+    from multimodal_auv_torch.ops.preprocess import normalize_multimodal
+
+    _check_bn_mode(bn_mode, False)
+
+    def logits_fn(post, batch_stats, u8_inputs, seeds, mask):
+        return stacked_mc_logits(
+            bundle.module, bundle.meta, post, batch_stats,
+            normalize_multimodal(*u8_inputs), seeds, rows=rows,
+            train=(bn_mode == "train"), sample_dtype=torch.bfloat16,
+            batch_mask=mask)
+
+    return logits_fn
+
+
+def _drop_stack_traces(program) -> None:
+    """Drop each node's source stack trace, which the serialised program
+    would keep: a ``map`` body's nodes each quote the whole ``map`` call
+    with its hundreds of state operands, most of an mc-sharded program's
+    file."""
+    for gm in program.graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in gm.graph.nodes:
+                node.meta.pop("stack_trace", None)
+
+
+def _release(version: str) -> str:
+    """A torch version without its local build tag ("2.5.1+cu124")."""
+    return version.split("+")[0]
+
+
+_DATA_SHARDS_NOT_PORTED = (
+    "data_shards > 1 (batch-sharded artifacts) is not ported yet: "
+    "ROADMAP.md, Open items, 1 'Modules to port' item 8b (data_shards "
+    "serving artifacts)")
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its index: a bare "cuda" is the current card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _shard_devices(device: DeviceLike, devices, mc_shards: int):
+    """The mc shards' devices: ``devices`` as given (one per shard; one
+    device may serve several shards), else ``mc_shards`` consecutive
+    cards from ``device``'s (ValueError when fewer are visible; an
+    unsharded artifact: ``device`` alone)."""
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass device= or devices=, not both")
+        devs = [_indexed(resolve_device(d)) for d in devices]
+        if len(devs) != mc_shards:
+            raise ValueError(f"devices: one per mc shard ({mc_shards}), got "
+                             f"{len(devs)}")
+        return devs
+    dev = _indexed(resolve_device(device))
+    if mc_shards == 1:
+        return [dev]
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+    first = dev.index or 0
+    if visible - first < mc_shards:
+        raise ValueError(f"mc_shards={mc_shards} but only {visible - first} "
+                         f"{dev.type} devices are visible from {dev} (pass "
+                         f"devices=, which may repeat one)")
+    return [torch.device(dev.type, first + i) if dev.type == "cuda" else dev
+            for i in range(mc_shards)]
 
 
 def _to_device(a, dtype, dev: torch.device) -> torch.Tensor:
@@ -281,47 +403,67 @@ class ServingArtifact:
     """A loaded serving artifact: ``predict`` runs the exported programs.
 
     Needs only torch, numpy and the port's ops at load time: the model is
-    in the exported graphs."""
+    in the exported graphs. ``devices``: the mc shards' devices (one, the
+    artifact's ``device``, when it is not mc-sharded); ``programs`` and
+    ``state_leaves`` map each of them to the chunk program and the state
+    there."""
 
-    def __init__(self, program, reduce, state_leaves, meta: dict,
-                 device: torch.device):
-        self._program = program.module()
+    def __init__(self, programs: dict, reduce, state_leaves: dict,
+                 meta: dict, devices):
+        self.devices = list(devices)
+        self.device = self.devices[0]
+        self._programs = {d: p.module() for d, p in programs.items()}
         self._reduce = reduce.module()
-        self._leaves = state_leaves
+        self._state = state_leaves
+        self._leaves = state_leaves[self.device]
         self.meta = meta
-        self.device = device
         b = meta["batch_size"]
         self.batch_size = b if b == "poly" else int(b)
         self.image_size = int(meta["image_size"])
         self.mode = meta.get("mode", "mc")
-        # the chunk program's draws per call: its output's first dimension
+        self.mc_shards = int(meta.get("mc_shards", 1))
+        # the chunk program's draws per call (one shard's): its output's
+        # first dimension
+        program = programs[self.device]
         out = next(n for n in program.graph.nodes if n.op == "output")
-        self.mc_chunk = int(out.args[0][0].meta["val"].shape[0])
+        self.shard_rows = int(out.args[0][0].meta["val"].shape[0])
+        self.mc_chunk = self.shard_rows * self.mc_shards
         self.nchunks = int(meta["num_mc_samples"]) // self.mc_chunk
         self._num_calls = 0  # fresh-draw counter for key=None predict()
 
     @classmethod
     def load(cls, artifact_dir: str, *, device: DeviceLike = None,
-             verify_integrity: bool = True) -> "ServingArtifact":
+             devices=None, verify_integrity: bool = True
+             ) -> "ServingArtifact":
         """``device``: None = the card; it must be of the type the artifact
-        was exported on (``meta["platforms"]``)."""
-        dev = resolve_device(device)
+        was exported on (``meta["platforms"]``). An mc-sharded artifact
+        runs its shards on ``mc_shards`` consecutive cards from
+        ``device``'s, or on ``devices`` instead (one per shard, repeats
+        allowed). The torch release must be the exporter's."""
+        # a missing card raises before anything is read
+        resolve_device(device if devices is None else devices[0])
         with open(os.path.join(artifact_dir, _META)) as f:
             meta = json.load(f)
         if meta.get("version") != ARTIFACT_VERSION:
             raise ValueError(
                 f"serving artifact version {meta.get('version')} != "
                 f"supported {ARTIFACT_VERSION}")
-        if (int(meta.get("data_shards", 1)) > 1
-                or int(meta.get("mc_shards", 1)) > 1):
-            raise NotImplementedError(
-                "sharded artifacts are not ported yet: ROADMAP.md, Open "
-                "items, 1 'Modules to port' item 8 (parallel)")
-        if [dev.type] != list(meta.get("platforms") or []):
+        if int(meta.get("data_shards", 1)) > 1:
+            raise NotImplementedError(_DATA_SHARDS_NOT_PORTED)
+        exported = meta.get("torch_version", "(not recorded)")
+        if _release(exported) != _release(torch.__version__):
             raise ValueError(
-                f"artifact exported for {meta.get('platforms')}, asked to "
-                f"load on {dev}: its program was traced on that device "
-                f"(pass device=...)")
+                f"serving artifact exported with torch {exported}, loading "
+                f"with torch {torch.__version__}: its programs are "
+                f"torch.export's serialisation, read only by the release "
+                f"that wrote it (re-export with this torch)")
+        devs = _shard_devices(device, devices, int(meta.get("mc_shards", 1)))
+        for dev in devs:
+            if [dev.type] != list(meta.get("platforms") or []):
+                raise ValueError(
+                    f"artifact exported for {meta.get('platforms')}, asked "
+                    f"to load on {dev}: its program was traced on that "
+                    f"device (pass device=...)")
         if verify_integrity and meta.get("sha256"):
             # a truncated copy or a bit-rotted state file would otherwise
             # serve wrong predictions without an error
@@ -333,12 +475,22 @@ class ServingArtifact:
                         f"sha256 {got[:16]}... != recorded {want[:16]}... "
                         f"(re-export, or load with verify_integrity=False "
                         f"to debug)")
-        program = torch.export.load(os.path.join(artifact_dir, _PROGRAM))
-        reduce = torch.export.load(os.path.join(artifact_dir, _REDUCE))
+        programs, state = {}, {}
         npz = np.load(os.path.join(artifact_dir, _STATE))
-        leaves = [torch.from_numpy(npz[f"leaf_{i:05d}"]).to(dev)
-                  for i in range(int(meta["num_state_leaves"]))]
-        return cls(program, reduce, leaves, meta, dev)
+        host = [torch.from_numpy(npz[f"leaf_{i:05d}"])
+                for i in range(int(meta["num_state_leaves"]))]
+        for dev in dict.fromkeys(devs):
+            program = torch.export.load(os.path.join(artifact_dir, _PROGRAM))
+            if programs:
+                # traced on the first device: another card's copy makes
+                # its tensors there
+                from torch.export.passes import move_to_device_pass
+
+                program = move_to_device_pass(program, dev)
+            programs[dev] = program
+            state[dev] = [t.to(dev) for t in host]
+        reduce = torch.export.load(os.path.join(artifact_dir, _REDUCE))
+        return cls(programs, reduce, state, meta, devs)
 
     def _validate(self, main_u8, bathy_u8, sss_u8):
         b = (np.shape(main_u8)[0] if self.batch_size == "poly"
@@ -354,31 +506,68 @@ class ServingArtifact:
                 raise ValueError(f"{name} batch must be uint8, got {a.dtype}")
 
     def seeds_for(self, key) -> torch.Tensor:
-        """The (nchunks, 2) seed words of a call, on the host: ``key`` an
-        int (the seed of a ``torch.Generator``) or a ``torch.Generator``
-        (drawn from, as the in-process step draws)."""
+        """The seed words of a call, on the host: ``key`` an int (the seed
+        of a ``torch.Generator``) or a ``torch.Generator`` (drawn from, as
+        the in-process step draws). (nchunks, 2) chunk words; for an
+        mc-sharded artifact the rows the program takes, (nchunks *
+        mc_shards, 2), chunk k's shard m in row k * mc_shards + m
+        (``shard_seeds``)."""
         if isinstance(key, (int, np.integer)):
             key = torch.Generator().manual_seed(int(key))
         if not isinstance(key, torch.Generator):
             raise ValueError(f"key: an int seed or a torch.Generator, got "
                              f"{type(key).__name__}")
-        return chunk_seed_words(key, self.nchunks)
+        return self.shard_seeds(chunk_seed_words(key, self.nchunks))
+
+    def shard_seeds(self, words: torch.Tensor) -> torch.Tensor:
+        """The program's seed rows of (nchunks, 2) chunk words: shard m of
+        chunk k draws rows [m k', (m + 1) k') of the chunk (k' the
+        program's draws), so its words are the chunk's with m k' draws
+        folded in (``draw_offset_seed`` over the packed size). Unsharded:
+        ``words`` as they are."""
+        if self.mc_shards == 1:
+            return words
+        P = int(self._leaves[0].shape[0])
+        return torch.tensor(
+            [draw_offset_seed(w, m * self.shard_rows, P)
+             for w in words.tolist() for m in range(self.mc_shards)],
+            dtype=torch.int64)
+
+    @torch.inference_mode()
+    def logits(self, state_leaves, u8_inputs, seeds: torch.Tensor,
+               mask) -> torch.Tensor:
+        """The (num_mc, batch, C) logits on the first device: the chunk
+        program once per row of ``seeds`` (``seeds_for``'s rows, on the
+        first device), row i on shard i % mc_shards's device (with its
+        copy of the state and of the inputs, ``state_leaves`` standing for
+        the first device's), gathered in row order."""
+        placed = {self.device: (state_leaves, u8_inputs, seeds, mask)}
+        out = []
+        for i in range(seeds.shape[0]):
+            dev = self.devices[i % self.mc_shards]
+            if dev not in placed:
+                placed[dev] = (self._state[dev],
+                               tuple(a.to(dev) for a in u8_inputs),
+                               seeds.to(dev), mask.to(dev))
+            leaves, u8, sd, m = placed[dev]
+            out.append(self._programs[dev](leaves, u8, sd[i:i + 1], m)
+                       .to(self.device))
+        return torch.cat(out)
 
     @torch.inference_mode()
     def call(self, state_leaves, u8_inputs, seeds: torch.Tensor,
              mask) -> torch.Tensor:
         """The artifact's ABI, ``(state_leaves, (main_u8, bathy_u8,
         sss_u8), seeds, mask) -> (3 + C, batch)`` f32, on device tensors
-        (``seeds``: the (nchunks, 2) words): the chunk program once per row
-        of ``seeds``, then the reduction. Returns without waiting for the
-        device."""
-        logits = [self._program(state_leaves, u8_inputs, seeds[k:k + 1], mask)
-                  for k in range(seeds.shape[0])]
-        return self._reduce(torch.cat(logits))
+        (``seeds``: the (nchunks, 2) words, an mc-sharded artifact's rows
+        per shard, ``seeds_for``): ``logits``, then the reduction. Returns
+        without waiting for the device."""
+        return self._reduce(self.logits(state_leaves, u8_inputs, seeds,
+                                        mask))
 
-    def _dispatch(self, main_u8, bathy_u8, sss_u8, key, mask):
-        """Run one batch, returning the device-resident fused output
-        (3 + C, batch): no host fetch."""
+    def _inputs(self, main_u8, bathy_u8, sss_u8, key, mask):
+        """One batch's device tensors: (u8 inputs, seeds, mask) on the
+        first device."""
         self._validate(main_u8, bathy_u8, sss_u8)
         if key is None:
             # fresh MC draws per call: a per-artifact call counter folded
@@ -392,9 +581,21 @@ class ServingArtifact:
         dev = self.device
         u8 = tuple(_to_device(a, np.uint8, dev)
                    for a in (main_u8, bathy_u8, sss_u8))
-        return self.call(self._leaves, u8,
-                         _to_device(self.seeds_for(key), np.int64, dev),
-                         _to_device(mask, np.float32, dev))
+        return (u8, _to_device(self.seeds_for(key), np.int64, dev),
+                _to_device(mask, np.float32, dev))
+
+    def _dispatch(self, main_u8, bathy_u8, sss_u8, key, mask):
+        """Run one batch, returning the device-resident fused output
+        (3 + C, batch): no host fetch."""
+        return self.call(self._leaves, *self._inputs(main_u8, bathy_u8,
+                                                     sss_u8, key, mask))
+
+    def predict_logits(self, main_u8, bathy_u8, sss_u8, *, key=None,
+                       mask=None) -> torch.Tensor:
+        """One batch's (num_mc, batch, C) logits on the first device, the
+        draws of ``predict`` with the same key (no reduction)."""
+        return self.logits(self._leaves, *self._inputs(main_u8, bathy_u8,
+                                                       sss_u8, key, mask))
 
     @staticmethod
     def _unpack(fused) -> dict:
@@ -456,6 +657,6 @@ class ServingArtifact:
             yield self._unpack(prev)
 
 
-def load_predict_artifact(artifact_dir: str, *,
-                          device: DeviceLike = None) -> ServingArtifact:
-    return ServingArtifact.load(artifact_dir, device=device)
+def load_predict_artifact(artifact_dir: str, *, device: DeviceLike = None,
+                          devices=None) -> ServingArtifact:
+    return ServingArtifact.load(artifact_dir, device=device, devices=devices)

@@ -5,6 +5,7 @@ flags of paths not ported yet exit non-zero naming their ROADMAP item
 is offline and reports a crashing pipeline as a FAIL line."""
 import dataclasses
 import io
+import json
 import os
 from contextlib import redirect_stdout
 
@@ -109,8 +110,11 @@ def test_same_argv_same_kwargs_as_jax(monkeypatch, command, flags):
 # pipeline as the spec the JAX CLI builds. RUNS: a training flag of item 5,
 # ported since; the CLI runs it on a micro() model. DATA_PREP: the
 # data-prep subcommand of item 9, ported since; it runs on a raw tree.
+# MC_SHARDS: the mc-sharded export of item 8a, ported since; it writes an
+# mc-sharded artifact.
 RUNS = "runs"
 DATA_PREP = "data-prep runs"
+MC_SHARDS = "mc-sharded export runs"
 NOT_PORTED = [
     ("retrain", ["--mesh_data", "2"], None),
     ("retrain", ["--mesh_mc", "2"], None),
@@ -122,8 +126,8 @@ NOT_PORTED = [
     ("train-scratch", ["--fsdp"], None),
     ("train-scratch", ["--async_checkpoints"], RUNS),
     ("train-scratch", ["--remat", "auto"], RUNS),
-    ("export-serving", ["--mc_shards", "2"], "item 8"),
-    ("export-serving", ["--data_shards", "2"], "item 8"),
+    ("export-serving", ["--mc_shards", "2"], MC_SHARDS),
+    ("export-serving", ["--data_shards", "2"], "item 8b"),
     ("data-prep", [], DATA_PREP),
 ]
 
@@ -136,13 +140,31 @@ def test_unported_flags_exit_non_zero(monkeypatch, capsys, tmp_path,
     message naming its ROADMAP item; the pipeline never runs. The mesh and
     multi-process flags (item 8, ported) instead reach the pipeline as the
     ``MeshSpec`` / ``DistSpec`` the JAX CLI builds from the same argv (the
-    port's DistSpec has one field more, ``backend``, left None); the
-    sharded-serving flags still exit naming item 8. The training flags of
-    item 5, ported, run: one epoch of the subcommand on the CPU at
-    micro() size with a resume checkpoint, exit 0, the checkpoint
-    committed. The data-prep subcommand (item 9, ported) runs on a 3-frame
+    port's DistSpec has one field more, ``backend``, left None). The
+    training flags of item 5, ported, run: one epoch of the subcommand on
+    the CPU at micro() size with a resume checkpoint, exit 0, the
+    checkpoint committed. The data-prep subcommand (item 9, ported) runs on a 3-frame
     synthetic raw tree and a bathymetry and an SSS GeoTIFF: exit 0 and the
-    per-sample folders of tests/test_etl_pipeline.py."""
+    per-sample folders of tests/test_etl_pipeline.py. ``export-serving
+    --mc_shards 2`` (item 8a, ported) writes an mc-sharded artifact on the
+    CPU at micro() size that loads on two CPU shards; ``--data_shards``
+    still exits naming item 8b."""
+    if item == MC_SHARDS:
+        from multimodal_auv_torch.models.model_utils import ArchConfig
+        from multimodal_auv_torch.serving import load_predict_artifact
+
+        monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+        monkeypatch.setattr(cli, "_arch", lambda args: ArchConfig.micro())
+        out = str(tmp_path / "art")
+        assert cli.main([command, "--output_dir", out, "--allow_random_init",
+                         "--num_mc_samples", "4", "--num_classes", "3",
+                         "--device", "cpu"] + extra) == 0
+        meta = json.load(open(os.path.join(out, "meta.json")))
+        assert (meta["mc_shards"], meta["data_shards"], meta["mode"]) == (
+            2, 1, "mc")
+        art = load_predict_artifact(out, devices=["cpu", "cpu"])
+        assert (art.mc_shards, art.shard_rows, art.nchunks) == (2, 2, 1)
+        return
     if item == DATA_PREP:
         from tests.test_torch_dataprep import _write_rasters
         from tests.test_etl_pipeline import _make_raw_tree

@@ -371,6 +371,49 @@ def test_artifact_on_card_equals_in_process_step(tmp_path):
         load_predict_artifact(d, device="cpu")
 
 
+def test_mc_sharded_artifact_on_two_cards(tmp_path):
+    """An mc-sharded micro() artifact exported on cuda:0 and loaded with
+    its default devices runs shard 1 on cuda:1 (the program moved there,
+    kernel #2 launched with cuda:1 current): the gathered logits equal the
+    one-process stacked path on cuda:0 bit for bit, one stacked launch per
+    shard."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from multimodal_auv_torch.engine.mc import mc_logits
+    from multimodal_auv_torch.ops.preprocess import normalize_multimodal
+    from multimodal_auv_torch.serving import (
+        export_predict_artifact,
+        load_predict_artifact,
+    )
+
+    bundle = make_multimodal_bundle(3, BNNPriorSpec(),
+                                    torch.Generator().manual_seed(0),
+                                    ArchConfig.micro(), device="cuda:0")
+    d = str(tmp_path / "art")
+    export_predict_artifact(bundle, d, batch_size=4, num_mc_samples=4,
+                            image_size=32, mc_shards=2)
+    art = load_predict_artifact(d)
+    assert art.devices == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    rng = np.random.default_rng(0)
+    u8 = [rng.integers(0, 256, (4, 32, 32, c), dtype=np.uint8)
+          for c in (3, 3, 1)]
+    before = kernels.LAUNCHES["stacked_sampler"]
+    got = art.predict_logits(*u8, key=7)
+    torch.cuda.synchronize(1)
+    assert kernels.LAUNCHES["stacked_sampler"] == before + 2
+    assert got.device == torch.device("cuda", 0)
+    with torch.inference_mode():
+        ref = mc_logits(bundle.module, bundle.meta, bundle.post,
+                        bundle.batch_stats,
+                        normalize_multimodal(*(torch.from_numpy(a).cuda(0)
+                                               for a in u8)),
+                        torch.Generator().manual_seed(7), 4, mc_chunk=4,
+                        train=True, remat=False,
+                        sample_dtype=torch.bfloat16,
+                        batch_mask=torch.ones(4, device="cuda:0"))
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("noise", S.NOISE_MODES)
 def test_noise_parts_bit_equal_plain_all_words(noise):
     """The device functions of every noise kernel (radius of b1, sin and

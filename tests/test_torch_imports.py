@@ -54,9 +54,50 @@ def test_port_imports_no_jax():
                  "pipelines.preprocessing", "utils.profiling",
                  "utils.devices", "dataprep.geodesy", "dataprep.exif",
                  "dataprep.geotiff", "dataprep.optical", "dataprep.patches",
-                 "dataprep.combine", "dataprep.qa", "dataprep.utilities"):
+                 "dataprep.combine", "dataprep.qa", "dataprep.utilities",
+                 "_lazy"):
         assert f"multimodal_auv_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
+
+
+_EXPORTS_PROBE = r"""
+import importlib, json, sys
+sys.path.insert(0, {repo!r})
+import multimodal_auv_torch
+light = sorted(m for m in sys.modules if m.startswith("multimodal_auv_torch"))
+names = []
+for sub in ("", ".engine", ".bayes", ".ops", ".utils", ".parallel"):
+    mod = importlib.import_module("multimodal_auv_torch" + sub)
+    for name in mod.__all__:
+        getattr(mod, name)
+        names.append(sub + ":" + name)
+from multimodal_auv_torch.ops import kernels
+print(json.dumps({{"light": light, "names": names, "built": list(kernels._LIBS),
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in {forbidden!r})}}))
+"""
+
+
+def test_package_exports_are_lazy_and_jax_free():
+    """``import multimodal_auv_torch`` loads the package and its lazy-name
+    helper alone (no model code, no kernel build); resolving every export
+    of the package and of its engine, bayes, ops, utils and parallel
+    subpackages then loads no JAX and nothing of the JAX package, and
+    builds no kernel."""
+    import json
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXPORTS_PROBE.format(
+            repo=REPO, forbidden=set(FORBIDDEN + HOST_ONLY))],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["light"] == ["multimodal_auv_torch",
+                            "multimodal_auv_torch._lazy"]
+    assert ":run_auv_inference" in out["names"]
+    assert ".engine:make_train_step" in out["names"] and len(out["names"]) > 35
+    assert out["built"] == [] and out["loaded"] == []
 
 
 def _imported_roots(path):

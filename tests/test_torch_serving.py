@@ -236,28 +236,28 @@ def test_polymorphic_batch_artifact(artifact, tmp_path):
 
 
 def test_refusals_name_their_items(artifact, tmp_path):
-    """Sharded exports are not ported yet and raise naming ROADMAP item 8;
-    so do a sharded artifact's load and the pipeline's shard flags;
-    platforms other than the bundle's device and an unknown mode are
-    refused; an artifact refuses a device of another type than it was
-    exported on."""
+    """Batch-sharded exports are not ported yet and raise naming ROADMAP
+    item 8b; so do a batch-sharded artifact's load and the pipeline's
+    shard flag (mc-sharded artifacts are ported:
+    tests/test_torch_serving_mc_shards.py); platforms other than the
+    bundle's device and an unknown mode are refused; an artifact refuses a
+    device of another type than it was exported on."""
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
 
     d, bundle, _ = artifact
     kw = dict(batch_size=B, num_mc_samples=MC, image_size=S)
-    for shards in ({"data_shards": 2}, {"mc_shards": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            export_predict_artifact(bundle, str(tmp_path / "x"), **shards,
-                                    **kw)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            export_auv_serving_artifact(str(tmp_path / "x"), **shards)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        export_predict_artifact(bundle, str(tmp_path / "x"), data_shards=2,
+                                **kw)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        export_auv_serving_artifact(str(tmp_path / "x"), data_shards=2)
     with pytest.raises(ValueError, match="mode"):
         export_predict_artifact(bundle, str(tmp_path / "x"), mode="x", **kw)
     with pytest.raises(ValueError, match="platforms"):
         export_predict_artifact(bundle, str(tmp_path / "x"),
                                 platforms=["cuda"], **kw)
     for change, err, match in (({"data_shards": 2}, NotImplementedError,
-                                "item 8"),
+                                "item 8b"),
                                ({"platforms": ["cuda"]}, ValueError,
                                 "exported for")):
         bad = tmp_path / f"meta_{next(iter(change))}"
@@ -319,12 +319,14 @@ def jax_artifact(tmp_path_factory):
 
 
 def test_meta_keys_equal_jax(artifact, jax_artifact):
-    """meta.json has the JAX artifact's keys; only the digests' file names
-    differ (two programs and the state)."""
+    """meta.json has the JAX artifact's keys and ``torch_version`` (the
+    port's programs are torch.export's serialisation, which the loader
+    reads only under the release that wrote it); only the digests' file
+    names differ (two programs and the state)."""
     (d, _, _), (jd, _) = artifact, jax_artifact
     ours = json.loads(open(os.path.join(d, "meta.json")).read())
     theirs = json.loads(open(os.path.join(jd, "meta.json")).read())
-    assert set(ours) == set(theirs)
+    assert set(ours) == set(theirs) | {"torch_version"}
     assert set(ours["sha256"]) == {"program.pt2", "reduce.pt2", "state.npz"}
 
 
