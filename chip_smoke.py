@@ -145,7 +145,24 @@ result line):
     memory) == its plain version at the shard's shape (10 draws x the full
     P, bf16 in and out), its time beside its bound, the plain version and
     ``torch.normal``; export s, load s and patches/s beside the unsharded
-    artifact's.
+    artifact's. Then the data-sharded artifact (``data_shards=
+    DATA_SHARDS``, chunk 2) exported from the same file and loaded with
+    both shards on cuda:0 (semantics, not scaling): on the first batch the
+    two shards' draws bit-equal chunk by chunk and the logits bit-equal to
+    the data=2 mesh step (the unfused packed step on two gloo ranks, this
+    script with --rank --job serving, from the same file at the same
+    seed), and a planted fault (``auv::shard_sum`` returning each shard's
+    local sums) not; the distance from the unsharded artifact's logits
+    printed beside its reduction-order control (the batch halves swapped)
+    and the unsharded step with its convolutions run per shard's rows
+    (cuDNN's kernels at the shards' batch shape, which set that distance
+    in bf16);
+    then ``predict_batches`` over phase 4's patches with exactly 2 x 30 =
+    60 split_sampler launches and no other, the BN rendezvous per batch
+    counted; export s, load s, program size and patches/s beside the other
+    two artifacts'. Then a (2 data x 2 mc)-sharded micro() artifact on the
+    card against the same export on the CPU: predicted classes equal,
+    logits within DS_MICRO_RTOL of the largest.
 
 16. DVP (single-pass deterministic variance propagation, engine/moment.py)
     at full width: the DVP step over phase 4's packed set through
@@ -179,7 +196,9 @@ result line):
     device events and busy share of one fused and one unfused b4 batch.
 18. parallel: two ranks on the card with ``backend="gloo"`` (one process
     each, this script with --rank; a free port on 127.0.0.1), at full
-    width: one b12 x 20 MC train step (chunk 1, remat on, lr 1e-3,
+    width and 256 px with one bottleneck per stage (PAR_STAGES: a
+    semantics check, cut in depth for the smoke's time limit): one b12 x
+    20 MC train step (chunk 1, remat on, lr 1e-3,
     kl_weight 0, so the loss is the CE alone) on a data=2 mesh against
     the same step in one process (rank 0, same seeds and batch) and
     against a control, the one-process step on the batch with its halves
@@ -259,14 +278,20 @@ result line):
     every sample folder's files, and the inference QA report finding main
     and SSS everywhere (its one problem, "missing-bathy" in every folder,
     is the JAX package's too: both name the combined bathy
-    combined_channels.png); s per frame.
+    combined_channels.png); s per frame. (f) the C++ host runtime
+    (``native/``), which must build here: ``load_image_u8`` on (e)'s frames
+    through the native decode and resize byte-equal to its fallback (PIL's
+    decode, the native resize), RGB and L, the LZW bathymetry's strips
+    decoded natively byte-equal to the Python decoder; ms per image of
+    each path (and PIL alone) and each LZW decoder's MB/s.
 21. learning, after phase 20: tests/test_learning.py:64's recipe on the
     card at micro() and 32 px (LEARN_*): ``run_AUV_training_from_scratch
     (device=None)`` on a separable synthetic tree (tests/fixtures/
     make_tree.py), 10 epochs at b6 x 2 MC, non-MOPED init; the
     end-of-training state restored through ``restore_train_state``; an
     unseen probe tree of clean and ambiguous samples predicted at 16 MC
-    (f32 weights). Gates: clean held-out accuracy >= 0.9, mean predictive
+    (f32 weights), all with cuDNN's deterministic algorithms (the run is
+    then reproducible). Gates: clean held-out accuracy >= 0.9, mean predictive
     uncertainty on the ambiguous samples > 1.2 x the clean ones', a finite
     clean-set ECE < 0.30, AUROC(uncertainty -> error) > 0.5 where the
     probe has hits and errors; exact launches of #2 and #3 in training and
@@ -377,6 +402,11 @@ PAR_GRAD_CONTROL, PAR_GRAD_CAP, PAR_GRAD_REPEAT = 2.0, 5e-2, 1e-4
 PAR_FAULTS = {"data2_bf16": ("bn_local",),
               "data2": ("bn_local", "bn_no_bwd")}
 PAR_TIMEOUT = 600      # seconds for the ranks of phase 18
+# phase 18's depth: ResNet-50's widths and 256 px with one bottleneck per
+# stage (a semantics check of the parallel layer: the data=2, fsdp, mc=2
+# and NCCL steps against one process); at ResNet-50's depth (3, 4, 6, 3)
+# it took 208-336 s of the smoke's 1200 s limit
+PAR_STAGES = (1, 1, 1, 1)
 UNI_MC, UNI_BATCH, UNI_CLASSES = 10, 4, 7      # BASELINE.json configs[0]
 UNI_TRAIN_MC, UNI_TRAIN_BATCH = 5, 8           # BASELINE.json configs[1]
 # phase 19: the b12 x 20 train step in chunks of 10 (per-draw remat), and
@@ -393,8 +423,17 @@ STUDY_SAMPLES, STUDY_BATCH, STUDY_MC = 12, 4, 5
 STUDY_CENTERS, STUDY_DEPTH = (0.05, 2.05), 1.0
 SWEEP_BATCH, SWEEP_BATHY, SWEEP_SSS = 8, (10, 30), (30,)
 PREP_FRAMES, UIFM_RTOL = 6, 1e-6
+# phase 20 (f): passes over the frames and the LZW strips per timed path
+NATIVE_REPEATS = 5
 # phase 15's mc-sharded artifact: the shards, all on cuda:0
 MC_SHARDS = 2
+# phase 15's data-sharded artifact: the shards, both on cuda:0, held bit for
+# bit against the data=2 mesh step (in bf16 its distance from the
+# unsharded artifact is set by cuDNN's kernels at the shards' batch shape,
+# ~6e-2 of the largest logit on an H100, against a reduction-order control
+# of 0-5e-2: no tolerance from the control bounds it); the composed micro()
+# artifact, card against CPU (f32, TF32 off: summation order only)
+DATA_SHARDS, DS_MICRO_RTOL = 2, 1e-4
 # phase 21: tests/test_learning.py:64's recipe on the card (micro(), 32 px:
 # learning to 90% is a property of the recipe, not of the width): a
 # separable tree of LEARN_CLASSES x LEARN_PER_CLASS samples, LEARN_EPOCHS
@@ -935,12 +974,13 @@ def parallel_rank(args) -> int:
             raise AssertionError(f"NCCL all_reduce of 1 over 1 rank: {one}")
     try:
         dev = resolve_device(None)
+        arch = ArchConfig(stage_sizes=PAR_STAGES)
         base = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
                                       torch.Generator().manual_seed(args.seed),
-                                      ArchConfig(), device=dev)
+                                      arch, device=dev)
         modules = {torch.bfloat16: base.module,
                    torch.float32: multimodal_module(NUM_CLASSES, ArchConfig(
-                       dtype=torch.float32))}
+                       stage_sizes=PAR_STAGES, dtype=torch.float32))}
         rng = np.random.default_rng(args.seed + 18)
         inputs = [torch.from_numpy(rng.integers(
             0, 256, (TRAIN_BATCH, IMAGE, IMAGE, c), dtype=np.uint8)).to(dev)
@@ -993,7 +1033,8 @@ def parallel_rank(args) -> int:
             mu = state.post.mu.detach().double()
             emit(label=label, loss=float(m["loss"]), skipped=m["skipped"],
                  mu_sum=float(mu.sum()), mu_sq=float((mu * mu).sum()),
-                 launches=launches, collectives=coll, seconds=wall, **mem)
+                 launches=launches, collectives=coll, seconds=wall,
+                 P=mu.numel(), **mem)
 
         @contextlib.contextmanager
         def planted(fault):
@@ -1097,6 +1138,53 @@ def parallel_rank(args) -> int:
         dist.destroy_process_group()
 
 
+def serving_rank(args) -> int:
+    """One rank of phase 15's data=2 mesh step (this script with --rank
+    --job serving): the unfused packed step (chunk 2, bf16) on a data=2
+    mesh of two gloo ranks, from phase 13's file (``--weights``), on phase
+    4's first batch at the data-sharded artifact's seed; prints this rank's
+    rows of the logits as one ``PHASE15 {json}`` line."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import multimodal_auv_torch.engine.predict as P
+    from multimodal_auv_torch.config import BNNPriorSpec, DistSpec, MeshSpec
+    from multimodal_auv_torch.device import resolve_device
+    from multimodal_auv_torch.models.model_utils import ArchConfig
+    from multimodal_auv_torch.parallel import mesh as M
+    from multimodal_auv_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from multimodal_auv_torch.pipelines.inference import pretrained_bundle
+    from multimodal_auv_torch.serving import fold_seed
+
+    maybe_initialize_distributed(DistSpec(
+        coordinator=f"127.0.0.1:{args.port}", num_processes=2,
+        process_id=args.rank, initialization_timeout=300, backend="gloo"))
+    try:
+        dev = resolve_device(None)
+        bundle = pretrained_bundle(NUM_CLASSES, BNNPriorSpec(), ArchConfig(),
+                                   args.seed, args.weights, False, dev)
+        m, b, ss, mask = _padded_batches(os.path.join(args.work,
+                                                      "packed"))[0][0]
+        seen, fused = [], P.fused_outputs
+        P.fused_outputs = lambda logits: (seen.append(logits),
+                                          fused(logits))[1]
+        step = P.make_packed_predict_step(bundle, NUM_MC, mc_chunk=2,
+                                          mesh=M.make_mesh(MeshSpec(2, 1)))
+        step(bundle.post, bundle.batch_stats,
+             [torch.from_numpy(a).to(dev) for a in (m, b, ss)],
+             torch.Generator().manual_seed(fold_seed(args.seed + 15, 0)),
+             torch.from_numpy(mask > 0).to(dev))
+        P.fused_outputs = fused
+        print("PHASE15 " + json.dumps({
+            "rank": args.rank, "logits": seen[0].float().cpu().tolist()}),
+            flush=True)
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
 def _rel(a, b) -> float:
     """Relative L2 error of ``a`` against ``b``."""
     return float((a - b).double().norm() / b.double().norm())
@@ -1129,19 +1217,23 @@ def _compare_steps(state, ref, m, ref_m, emit, label, **extra) -> None:
                             - ref.post.rho.detach()).abs().max()), **extra)
 
 
-def _run_ranks(world: int, backend: str, args, work: str) -> list:
-    """Run ``world`` ranks of this script (--rank) and return their
-    PHASE18 results; any rank failing or outliving PAR_TIMEOUT fails the
+def _run_ranks(world: int, backend: str, args, work: str,
+               job: str = "parallel", weights: str = "") -> list:
+    """Run ``world`` ranks of this script (--rank) on ``job`` (phase 18's
+    "parallel" or phase 15's "serving") and return their PHASE18 /
+    PHASE15 results; any rank failing or outliving PAR_TIMEOUT fails the
     phase, and every rank is stopped on the way out."""
     import socket
 
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
+    tag = {"parallel": "PHASE18 ", "serving": "PHASE15 "}[job]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank", str(r),
          "--world", str(world), "--backend", backend, "--port", str(port),
-         "--work", work, "--seed", str(args.seed)],
+         "--work", work, "--seed", str(args.seed), "--job", job,
+         "--weights", weights],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     try:
@@ -1153,10 +1245,10 @@ def _run_ranks(world: int, backend: str, args, work: str) -> list:
                 p.wait()
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"phase 18 rank {r}/{world} ({backend}) "
+            raise AssertionError(f"{job} rank {r}/{world} ({backend}) "
                                  f"exited {p.returncode}:\n{out[-6000:]}")
-    return [json.loads(ln[len("PHASE18 "):]) for out in outs
-            for ln in out.splitlines() if ln.startswith("PHASE18 ")]
+    return [json.loads(ln[len(tag):]) for out in outs
+            for ln in out.splitlines() if ln.startswith(tag)]
 
 
 def phase_parallel(args, smi: str, bundle, work: str) -> dict:
@@ -1235,7 +1327,7 @@ def phase_parallel(args, smi: str, bundle, work: str) -> dict:
                                  f"statistics {tols}): {by[key]}")
     # fsdp keeps (1 - 1/2) of the four P-float moment vectors: its state
     # must be at least one P-float vector smaller than data=2's
-    P_mib = bundle.post.mu.numel() * 4 / 2**20
+    P_mib = by[("data2", 0, "gloo")]["P"] * 4 / 2**20
     for r in range(2):
         fs, d2 = by[("data2_fsdp", r, "gloo")], by[("data2", r, "gloo")]
         if not fs["state_mib"] <= d2["state_mib"] - P_mib:
@@ -1250,8 +1342,10 @@ def phase_parallel(args, smi: str, bundle, work: str) -> dict:
     c = by[("mc2_vs_stacked", 0, "gloo")]
     if not c["bit_equal"]:
         raise AssertionError(f"mc=2 logits != the stacked path's: {c}")
-    log(f"phase 18 (parallel): data=2, fsdp, mc=2 and NCCL world 1 ok "
-        f"[{smi}] in {time.perf_counter() - t_phase:.1f} s", summary=True)
+    log(f"phase 18 (parallel, stages {PAR_STAGES}, P="
+        f"{by[('data2', 0, 'gloo')]['P']}): data=2, fsdp, mc=2 and NCCL "
+        f"world 1 ok [{smi}] in {time.perf_counter() - t_phase:.1f} s",
+        summary=True)
     out = {"stacked_sampler": 0, "eps": 0}
     for (label, _, _), r in by.items():
         for k in out:
@@ -2386,6 +2480,7 @@ def phase_serving(args, smi: str, work: str, weights: str) -> dict:
     if max(errs) > 1e-3:
         raise AssertionError(f"artifact vs in-process uncertainties: max abs "
                              f"err {max(errs)}")
+    half_conv = _half_batch_conv_logits(bundle, batches[0], fold_seed(key, 0))
     del bundle, step
     free_cuda()
     rate = N_SAMPLES / wall
@@ -2460,11 +2555,54 @@ def phase_serving(args, smi: str, work: str, weights: str) -> dict:
         f" (two unseeded ones concurrent); seeded answer == predict(key=7); "
         f"shut down in {t_stop:.2f} s; launches {launches} = 10 x device "
         f"calls")
+    # the first batch's logits, beside which the data-sharded artifact's
+    # are reported, and its reduction-order control (the batch halves
+    # swapped, the output swapped back)
+    swap = [BATCH // 2 + i for i in range(BATCH // 2)] + list(
+        range(BATCH // 2))
+    m, b, ss, mask = batches[0]
+    seed = fold_seed(key, 0)
+    unsharded_logits = [
+        art.predict_logits(m, b, ss, key=seed, mask=mask).float().cpu(),
+        art.predict_logits(m[swap], b[swap], ss[swap], key=seed,
+                           mask=mask[swap])[:, swap].float().cpu(),
+        half_conv]
     del art
     free_cuda()
-    stacked = phase_serving_mc_shards(args, smi, work, weights, batches,
-                                      key, (t_export, t_load, rate))
+    unsharded = (t_export, t_load, rate, sizes["program.pt2"])
+    stacked, mc_sharded = phase_serving_mc_shards(args, smi, work, weights,
+                                                  batches, key, unsharded)
+    free_cuda()
+    n_launches += phase_serving_data_shards(args, smi, work, weights,
+                                            batches, key, (unsharded,
+                                                           mc_sharded),
+                                            unsharded_logits)
     return {"split_sampler": n_launches, "stacked_sampler": stacked}
+
+
+def _half_batch_conv_logits(bundle, batch, seed: int) -> torch.Tensor:
+    """The unsharded packed step's logits (chunk 2) on ``batch`` with every
+    convolution run per data shard's rows and concatenated: the data
+    shards' cuDNN kernels (chosen by batch shape) without their split of
+    the BN sums."""
+    import torch.nn.functional as F
+
+    from multimodal_auv_torch.engine.predict import make_packed_logits_fn
+    from multimodal_auv_torch.ops.sampling import chunk_seed_words
+
+    fn = make_packed_logits_fn(bundle, mc_chunk=2)
+    conv2d = F.conv2d
+    F.conv2d = lambda x, w, *a, **k: torch.cat(
+        [conv2d(h, w, *a, **k) for h in x.chunk(DATA_SHARDS)])
+    try:
+        with torch.inference_mode():
+            return fn(bundle.post, bundle.batch_stats,
+                      tuple(torch.from_numpy(a).cuda() for a in batch[:3]),
+                      chunk_seed_words(torch.Generator().manual_seed(seed),
+                                       NUM_MC // 2).cuda(),
+                      torch.from_numpy(batch[3]).cuda()).float().cpu()
+    finally:
+        F.conv2d = conv2d
 
 
 def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
@@ -2483,7 +2621,7 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
     time beside its bound, the plain version and ``torch.normal``. Prints
     export s, load s and patches/s beside the unsharded artifact's
     (``unsharded``). Returns the stacked_sampler launches of the served
-    run."""
+    run, and (export s, load s, patches/s, program MB)."""
     from multimodal_auv_torch.bayes.packing import softplus
     from multimodal_auv_torch.config import BNNPriorSpec
     from multimodal_auv_torch.engine.mc import mc_logits
@@ -2581,7 +2719,7 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
                           (P // 2) * rows * SAMPLER_F32_OPS[False])
     del mu, sg, mun, sgn
     free_cuda()
-    e0, l0, r0 = unsharded
+    e0, l0, r0, _ = unsharded
     log(f"mc-sharded artifact (full width, b{BATCH} x {NUM_MC} MC as "
         f"{MC_SHARDS} shards of {rows} stacked draws on cuda:0, bf16): "
         f"export {t_export:.2f} s, load {t_load:.2f} s, program.pt2 "
@@ -2597,7 +2735,190 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
         f"{plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}) [{smi}]; {philox_note(P, rows)}",
         summary=True)
-    return launches["stacked_sampler"]
+    return launches["stacked_sampler"], (t_export, t_load,
+                                         N_SAMPLES / wall, size)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want| (NaN stays NaN)."""
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / want.float().abs().max())
+
+
+def phase_serving_data_shards(args, smi: str, work: str, weights: str,
+                              batches, key: int, others,
+                              unsharded_logits) -> int:
+    """Phase 15's data-sharded point at full width (module docstring):
+    ``export_auv_serving_artifact(data_shards=DATA_SHARDS)`` from phase
+    13's file, chunk 2, loaded with both shards on cuda:0. The first
+    batch: the two shards' draws bit-equal, the logits bit-equal to the
+    data=2 mesh step of two gloo ranks (``serving_rank``) from the same
+    file at the same seed, and a planted fault (``auv::shard_sum``
+    returning each shard's local sums) not; both printed beside the
+    unsharded artifact's logits (``unsharded_logits``: them, their
+    reduction-order control, and the unsharded step with its convolutions
+    at the shards' batch shape), which in bf16 do not bound them
+    (PERF.md, Findings). Then the timed ``predict_batches`` with exactly
+    DATA_SHARDS x 30 split_sampler launches, and
+    ``check_composed_micro``. ``others``: the
+    unsharded and mc-sharded artifacts' (export s, load s, patches/s,
+    program MB), printed beside. Returns the split_sampler launches of
+    the timed run."""
+    from multimodal_auv_torch.ops import sampling as S
+    from multimodal_auv_torch.parallel import local_shards as L
+    from multimodal_auv_torch.pipelines import export_auv_serving_artifact
+    from multimodal_auv_torch.serving import fold_seed, load_predict_artifact
+
+    art_dir = os.path.join(work, "artifact_data_shards")
+    reset_launches()
+    t0 = time.perf_counter()
+    export_auv_serving_artifact(art_dir, batch_size=BATCH,
+                                num_mc_samples=NUM_MC,
+                                num_classes=NUM_CLASSES,
+                                model_weights_path=weights, mc_chunk=2,
+                                data_shards=DATA_SHARDS, seed=args.seed)
+    t_export = time.perf_counter() - t0
+    check_launches("data-sharded export", {})
+    size = os.path.getsize(os.path.join(art_dir, "program.pt2")) / 1e6
+    free_cuda()
+    t0 = time.perf_counter()
+    # the mesh step's ranks run while the artifact loads
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ranks = pool.submit(_run_ranks, 2, "gloo", args, work, "serving",
+                            weights)
+        art = load_predict_artifact(art_dir,
+                                    devices=["cuda:0"] * DATA_SHARDS)
+        t_load = time.perf_counter() - t0
+        ranks = sorted(ranks.result(), key=lambda r: r["rank"])
+    mesh = torch.cat([torch.tensor(r["logits"]) for r in ranks], dim=1)
+    t_mesh = time.perf_counter() - t0
+    if (art.data_shards, art.mc_shards, art.nchunks) != (
+            DATA_SHARDS, 1, NUM_MC // 2):
+        raise AssertionError(f"data-sharded artifact meta {art.meta}, "
+                             f"{art.nchunks} chunks")
+    m, b, ss, mask = batches[0]
+    first = lambda: art.predict_logits(m, b, ss, key=fold_seed(key, 0),
+                                       mask=mask).float().cpu()
+    try:
+        # the first batch (which warms the half-batch shapes up) with its
+        # draws recorded, keyed by their seed words (one row per chunk,
+        # the same on both shards)
+        draws, launch = {}, S._launch
+
+        def recording(name, mu, scale, seed, *a, **kw):
+            out = launch(name, mu, scale, seed, *a, **kw)
+            draws.setdefault(tuple(seed.tolist()), []).append(out)
+            return out
+
+        S._launch = recording
+        try:
+            got = first()
+        finally:
+            S._launch = launch
+        pairs = list(draws.values())
+        if (len(pairs) != NUM_MC // 2
+                or any(len(p) != DATA_SHARDS for p in pairs)
+                or not all(torch.equal(p[0], q) for p in pairs
+                           for q in p[1:])):
+            raise AssertionError(f"data shards' draws differ: "
+                                 f"{[len(p) for p in pairs]} launches per "
+                                 f"chunk")
+        del draws, pairs
+        free_cuda()
+        if got.shape != mesh.shape or not torch.equal(got, mesh):
+            raise AssertionError(
+                f"data-sharded logits != the data=2 mesh step's: "
+                f"{tuple(got.shape)} vs {tuple(mesh.shape)}, "
+                f"{_rel_err(got, mesh) if got.shape == mesh.shape else ''}")
+        real_sum = L.ShardGroup.sum
+        L.ShardGroup.sum = lambda self, index, x, turn=None: x.clone()
+        try:
+            bad = first()
+        finally:
+            L.ShardGroup.sum = real_sum
+        if torch.equal(bad, mesh):
+            raise AssertionError("the local-sums fault equals the data=2 "
+                                 "mesh step's logits")
+
+        reset_launches()
+        L.COUNTS["rendezvous"] = 0
+        t0 = time.perf_counter()
+        list(art.predict_batches(batches, key=key))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_launches("data-sharded artifact", {
+            "split_sampler": DATA_SHARDS * len(batches) * NUM_MC // 2})
+        rendezvous = L.COUNTS["rendezvous"] // len(batches)
+    finally:
+        art.close()
+    del art
+    free_cuda()
+    ref, control, half_conv = unsharded_logits
+    beside = "; ".join(
+        f"{name}: export {e:.2f} s, load {ld:.2f} s, {mb:.1f} MB, {r:.3f} "
+        f"patches/s" for name, (e, ld, r, mb) in zip(
+            ("unsharded (chunk 2)", f"mc_shards={MC_SHARDS}"), others))
+    log(f"data-sharded artifact (full width, b{BATCH} x {NUM_MC} MC, chunk "
+        f"2, as {DATA_SHARDS} shards of {BATCH // DATA_SHARDS} rows on "
+        f"cuda:0, bf16): export {t_export:.2f} s, load {t_load:.2f} s, "
+        f"program.pt2 {size:.1f} MB, predict_batches {N_SAMPLES} patches in "
+        f"{wall:.3f} s = {N_SAMPLES / wall:.3f} patches/s, {rendezvous} BN "
+        f"rendezvous a batch; {beside} [{smi}]; launches {launches}; the "
+        f"first batch: the shards' draws bit-equal, logits bit-equal to the "
+        f"data=2 mesh step of two gloo ranks ({t_mesh:.1f} s), the "
+        f"local-sums fault not; off the unsharded artifact's by "
+        f"{_rel_err(got, ref):.3e} of the largest logit (the fault "
+        f"{_rel_err(bad, ref):.3e}), its reduction-order control "
+        f"{_rel_err(control, ref):.3e}, the unsharded step with its "
+        f"convolutions run per shard's rows {_rel_err(half_conv, ref):.3e}",
+        summary=True)
+    check_composed_micro(smi, work)
+    return launches["split_sampler"]
+
+
+def check_composed_micro(smi: str, work: str) -> None:
+    """A (2 data x 2 mc)-sharded micro() artifact exported on the card and
+    the same export on the CPU (the same seeds, the stacked sampler's
+    draws bit-equal to its plain version): predicted classes equal, logits
+    within DS_MICRO_RTOL of the largest (f32 forwards, TF32 off)."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+    from multimodal_auv_torch.serving import (
+        export_predict_artifact,
+        load_predict_artifact,
+    )
+
+    rng = np.random.default_rng(15)
+    u8 = [rng.integers(0, 256, (BATCH, 32, 32, c), dtype=np.uint8)
+          for c in (3, 3, 1)]
+    mask = np.array([1, 1, 1, 0], np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bundle = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                        torch.Generator().manual_seed(0),
+                                        ArchConfig.micro(), device=dev)
+        d = os.path.join(work, f"composed_micro_{dev}")
+        export_predict_artifact(bundle, d, batch_size=BATCH,
+                                num_mc_samples=4, image_size=32,
+                                data_shards=2, mc_shards=2)
+        art = load_predict_artifact(d, devices=[dev] * 4)
+        try:
+            out[dev] = (art.predict_logits(*u8, key=3, mask=mask).float()
+                        .cpu(), art.predict(*u8, key=3, mask=mask))
+        finally:
+            art.close()
+    err = _rel_err(out["cuda"][0], out["cpu"][0])
+    if not (np.array_equal(out["cuda"][1]["predicted"],
+                           out["cpu"][1]["predicted"])
+            and err <= DS_MICRO_RTOL):
+        raise AssertionError(f"composed micro() artifact card vs CPU: "
+                             f"logits {err:.3e} of the largest")
+    log(f"(2 data x 2 mc)-sharded micro() artifact, card == CPU: classes "
+        f"equal, logits {err:.3e} of the largest (gate {DS_MICRO_RTOL}) "
+        f"[{smi}]", summary=True)
 
 
 def check_dvp_kernel(mean, scale, seed, smi: str) -> None:
@@ -3435,6 +3756,90 @@ def write_raw_survey(root: str, seed: int) -> tuple:
     return raw, tiffs
 
 
+def check_native(raw: str, tiffs: str, smi: str) -> None:
+    """Phase 20 (f): the port's C++ host runtime (``native/``), built on
+    this machine at first use; it must build. On the phase's data-prep
+    frames, ``load_image_u8`` to IMAGE px through the native decode and
+    resize against its fallback where the runtime has no decoder (PIL's
+    decode and convert, then the native resize), RGB and L, byte for byte;
+    the PIL-only path (no runtime) beside, whose resize differs. On the
+    LZW bathymetry GeoTIFF's strips, the native decoder against the Python
+    fallback, byte for byte. Prints ms per image of each path and the LZW
+    decoders' MB/s (decoded bytes)."""
+    from multimodal_auv_torch import native
+    from multimodal_auv_torch.data import transforms as T
+    from multimodal_auv_torch.dataprep import geotiff as G
+
+    lib = native.lib
+    log(f"native host runtime: lib is not None: {lib is not None}, "
+        f"has_decode: {getattr(lib, 'has_decode', None)}")
+    if lib is None:
+        raise AssertionError("the native host runtime did not build")
+
+    class NoDecode:
+        has_decode = False
+
+        def __getattr__(self, k):
+            return getattr(lib, k)
+
+    frames = sorted(os.path.join(raw, "dive1", f)
+                    for f in os.listdir(os.path.join(raw, "dive1")))
+    paths = (("native decode + resize", lib),
+             ("PIL decode + native resize", NoDecode()),
+             ("PIL decode + PIL resize", None))
+    outs, ms, real = {}, {}, T._native_lib
+    try:
+        for name, runtime in paths:
+            T._native_lib = lambda runtime=runtime: runtime
+            T.load_image_u8(frames[0], "RGB", (IMAGE, IMAGE))  # warm-up
+            t0 = time.perf_counter()
+            for _ in range(NATIVE_REPEATS):
+                got = [T.load_image_u8(f, "RGB", (IMAGE, IMAGE))
+                       for f in frames]
+            ms[name] = ((time.perf_counter() - t0) * 1e3
+                        / (NATIVE_REPEATS * len(frames)))
+            outs[name] = got + [T.load_image_u8(f, "L", (IMAGE, IMAGE))
+                                for f in frames]
+    finally:
+        T._native_lib = real
+    a, b, c = (outs[name] for name, _ in paths)
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("native decode + resize != PIL decode + "
+                             "native resize")
+    pil_d = max(int(np.abs(x.astype(int) - y.astype(int)).max())
+                for x, y in zip(a, c))
+
+    strips, lzw = [], G._native_or_py_lzw
+    G._native_or_py_lzw = lambda data, n: (strips.append((data, n)),
+                                           lzw(data, n))[1]
+    try:
+        tif = G.GeoTiff.open(os.path.join(tiffs, "site_a_b_Bathy.tif"))
+        tif.read(0)
+    finally:
+        G._native_or_py_lzw = lzw
+    rates = {}
+    for name, decode in (("native", lib.lzw_decode),
+                         ("Python", G._lzw_decode)):
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_REPEATS):
+            got = [decode(data, n) for data, n in strips]
+        rates[name] = (NATIVE_REPEATS * sum(n for _, n in strips)
+                       / (time.perf_counter() - t0) / 1e6)
+        if name == "native":
+            want = got
+    if got != want or not strips:
+        raise AssertionError(f"LZW: native != Python on {len(strips)} "
+                             f"strips")
+    log(f"phase 20 native host runtime: {len(frames)} frames (512 x 384 "
+        f"JPEG) to {IMAGE} px, ms per image: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in ms.items())}; native == "
+        f"PIL decode + native resize byte for byte (RGB and L), PIL-only "
+        f"max |d| {pil_d}; LZW over {len(strips)} strips "
+        f"({sum(n for _, n in strips)} bytes): native "
+        f"{rates['native']:.1f} MB/s, Python {rates['Python']:.2f} MB/s, "
+        f"byte-equal [{smi}]", summary=True)
+
+
 def _study_launches(n_train: int, n_eval: int, runs: int) -> dict:
     """Launches of ``runs`` epochs of n_train train steps (chunk 1, remat
     on: each draw sampled in the forward and again in the re-forward,
@@ -3671,6 +4076,9 @@ def phase_studies(args, smi: str, work: str) -> dict:
         f"folders in {wall:.2f} s = {wall / PREP_FRAMES:.3f} s per frame "
         f"(host); QA: main and SSS found in every folder, "
         f"{rep.problem_histogram()}", summary=True)
+
+    # (f) the C++ host runtime on this machine, against its fallbacks
+    check_native(raw, tiffs, smi)
     log(f"phase 20 (studies): {time.perf_counter() - t_phase:.1f} s; "
         f"launches {total}", summary=True)
     return total
@@ -3716,8 +4124,17 @@ def phase_learning(args, smi: str, work: str) -> dict:
     weights). The four gates of ``learning_gates``; exact launches of #2
     and #3 in training (remat on, chunk 1: 2 stacked and 1 eps per draw of
     each step) and of #1 in its evaluations and the prediction (one split
-    launch per draw of an eval batch, one per chunk of 2 draws). Returns
-    the phase's launches."""
+    launch per draw of an eval batch, one per chunk of 2 draws). cuDNN
+    runs its deterministic algorithms throughout: with its default ones
+    the same run's uncertainty-error AUROC varied from 0.4 to 1.0 between
+    runs on an H100 (the gate is > 0.5), so the phase's outcome was not a
+    function of the code. Returns the phase's launches."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        return _learning(args, smi, work)
+
+
+def _learning(args, smi: str, work: str) -> dict:
     from tests.fixtures.make_tree import make_separable_training_tree
 
     from multimodal_auv_torch.config import BNNPriorSpec
@@ -3832,9 +4249,12 @@ def main() -> int:
     ap.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--work", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--job", default="parallel", help=argparse.SUPPRESS)
+    ap.add_argument("--weights", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank is not None:
-        return parallel_rank(args)
+        return (serving_rank(args) if args.job == "serving"
+                else parallel_rank(args))
 
     # every phase passes its weights as a local file: never try the Hub
     os.environ.setdefault("HF_HUB_OFFLINE", "1")

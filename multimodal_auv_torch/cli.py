@@ -5,9 +5,9 @@
 Every flag of the JAX package's CLI, with its defaults; ``--devices`` is
 accepted and informational. One flag is added: ``--device`` (default
 ``cuda``, the card; ``cpu`` runs every kernel's plain version);
-``data-prep`` is host work and takes none. The flags of the sharded
-serving artifacts, not ported yet, exit non-zero with a message naming
-their ROADMAP item.
+``data-prep`` is host work and takes none. A path not ported yet (the DVP
+program with ``--data_shards``) exits non-zero with a message naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,10 +15,6 @@ import argparse
 import logging
 import sys
 from typing import Optional
-
-
-class NotPorted(Exception):
-    """A flag or subcommand whose path is not ported yet."""
 
 
 def _arch(args):
@@ -332,7 +328,10 @@ def export_serving_cli(argv=None):
                              "the shards on the first M cards or on the "
                              "devices it is given.")
     parser.add_argument("--data_shards", type=int, default=1,
-                        help="batch sharded over N devices (not ported yet)")
+                        help="Export a multi-device program: batch sharded "
+                             "over an N-device ('data',) mesh, state "
+                             "replicated. Serving host needs >= N devices; "
+                             "batch_size must be static and divisible by N.")
     parser.add_argument("--dvp_on_excess", choices=("warn", "mc"),
                         default="mc",
                         help="Guardrail action if the posterior spread "
@@ -358,11 +357,6 @@ def export_serving_cli(argv=None):
     _add_device_flag(parser)
     parser.add_argument("--tiny", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.data_shards > 1:
-        raise NotPorted("--data_shards is not ported yet: ROADMAP.md, Open "
-                        "items, 1 'Modules to port' item 8b (data_shards "
-                        "serving artifacts)")
-
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
 
     export_auv_serving_artifact(
@@ -452,7 +446,7 @@ def main(argv: Optional[list] = None) -> int:
         return 2
     try:
         return _COMMANDS[argv[0]](argv[1:])
-    except NotPorted as e:
+    except NotImplementedError as e:  # a path not ported yet, by its item
         print(f"error: {e}", file=sys.stderr)
         return 2
 

@@ -14,9 +14,9 @@ The reference extracts georeferenced patches with rasterio window reads
     every windowed read is a pure numpy slice (the fast path for
     patch-extraction sweeps).
 
-LZW decodes in pure Python: the JAX package's host C++ library
-(``native/``) is not ported yet (ROADMAP.md), and its numpy/zlib fallback
-is what runs here.
+LZW decodes in the port's C++ host runtime (``native/``, built at first
+use) when it is available, else in pure Python (``_lzw_decode``), as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -401,7 +401,7 @@ class GeoTiff:
                 raise TiffError(f"{self.path}: truncated deflate block "
                                 f"{idx}")
         elif self.compression == 5:
-            data = _lzw_decode(raw, nbytes_expected)
+            data = _native_or_py_lzw(raw, nbytes_expected)
         elif self.compression == 32773:
             data = _unpackbits_decode(raw, nbytes_expected)
         elif self.compression == 50000:  # ZSTD (GDAL/libtiff modern default)
@@ -620,6 +620,19 @@ def _lzw_encode(data: bytes) -> bytes:
     if accn:
         out.append((acc << (8 - accn)) & 0xFF)
     return bytes(out)
+
+
+def _native_or_py_lzw(raw: bytes, expected: int) -> bytes:
+    """LZW through the C++ host runtime where it is built, else (and for a
+    stream it refuses as corrupt, as the JAX package does) in Python."""
+    from multimodal_auv_torch import native
+
+    if native.lib is not None:
+        try:
+            return native.lib.lzw_decode(raw, expected)
+        except ValueError:
+            pass
+    return _lzw_decode(raw, expected)
 
 
 def get_pixel_resolution(path: str) -> Tuple[float, float]:

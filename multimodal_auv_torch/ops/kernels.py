@@ -16,8 +16,10 @@ Nothing here runs at import: the CPU tests import every module, and this
 machine has neither ``nvcc`` nor a card.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
-where it launches its kernel, and nowhere else, so a caller can show that a
-run went through the kernels (chip_smoke.py resets and reads it).
+(``count``, under a lock: a data-sharded serving artifact launches from
+several threads) where it launches its kernel, and nowhere else, so a
+caller can show that a run went through the kernels (chip_smoke.py resets
+and reads it).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -45,6 +48,13 @@ LAUNCHES: Dict[str, int] = {"split_sampler": 0, "stacked_sampler": 0,
                             "noise_parts": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 @dataclass(frozen=True)

@@ -355,7 +355,7 @@ def _launch(name: str, mu, scale, seed, num_draws, out_dtype,
     fn = _fn(f"{name}_launch", types + [ctypes.c_void_p])
     with _current(mu.device) as stream:
         kernels.check(fn(*args, stream), name)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name)
     return out
 
 
@@ -435,7 +435,7 @@ def launch_noise(name: str, P: int, seed, num_draws: int, device,
         kernels.check(fn(out.data_ptr(), P, num_draws, int(seed[0]) & _M32,
                          int(seed[1]) & _M32,
                          int(out_dtype == torch.bfloat16), stream), name)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name)
     return out
 
 
@@ -571,7 +571,7 @@ def noise_parts(n: int, noise: str = "f32", device="cuda"
         kernels.check(fn(out[0].data_ptr(), out[1].data_ptr(),
                          out[2].data_ptr(), n, NOISE_MODES.index(noise),
                          stream), "noise_parts")
-    kernels.LAUNCHES["noise_parts"] += 1
+    kernels.count("noise_parts")
     return out[0], out[1], out[2]
 
 

@@ -25,6 +25,12 @@ are the global batch's, as the JAX package's SPMD program computes them.
 It is a module global, not a context variable, because the backward (and a
 checkpointed chunk's re-forward) runs on the autograd engine's device
 thread, which sees no context variable of the caller's.
+
+``local_shards(N)`` is the axis of N data shards of one process, each run
+by a thread of its own (``parallel/local_shards.py``): under its
+``bn_sync`` the BN sums go through the op ``auv::shard_sum``, which a
+``torch.export`` program can hold where it cannot hold a collective
+(serving.py's data-sharded artifacts). It carries no other collective.
 """
 from __future__ import annotations
 
@@ -34,6 +40,9 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
+
+# registers torch.ops.auv.shard_sum
+from multimodal_auv_torch.parallel import local_shards as _local_shards  # noqa: F401
 
 # collectives this process issued, by kind; BatchNorm's forward reductions
 # also count under "bn" (a checkpointed chunk's re-forward counts again)
@@ -56,6 +65,14 @@ class Axis:
 
 
 LOCAL = Axis()
+# the group of a ``local_shards`` axis: threads of this process, not ranks
+LOCAL_SHARDS = "local_shards"
+
+
+def local_shards(n: int) -> Axis:
+    """The axis of ``n`` data shards run by threads of this process (the
+    shard's index is its thread's, ``local_shards.shard_context``)."""
+    return Axis(size=int(n), group=LOCAL_SHARDS)
 
 
 def all_reduce_(t: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -152,14 +169,22 @@ def bn_sync(axis: Optional[Axis]):
 def sync_sums(sums: torch.Tensor, count=None):
     """A BatchNorm layer's per-channel sums and their element count (a
     number or a 0-d tensor) over the BN axis: (sums, count), summed by one
-    differentiable all_reduce of their concatenation, counted under "bn";
-    returned as given on an axis of size 1."""
+    differentiable all_reduce of their concatenation (on a
+    ``local_shards`` axis one ``auv::shard_sum``, not differentiable),
+    counted under "bn"; returned as given on an axis of size 1."""
     axis = _BN_AXIS
     if axis.size == 1:
         return sums, count
-    COUNTS["bn"] += 1
+    if not torch.compiler.is_compiling():
+        # (a ``map`` body, which torch.export traces with dynamo, may not
+        # write a global)
+        COUNTS["bn"] += 1
+    if axis.group == LOCAL_SHARDS:
+        total = lambda t: torch.ops.auv.shard_sum(t, axis.size)
+    else:
+        total = lambda t: all_reduce_sum(t, axis)
     if count is None:
-        return all_reduce_sum(sums, axis), None
-    tot = all_reduce_sum(torch.cat([sums, torch.as_tensor(
-        count, dtype=sums.dtype, device=sums.device).reshape(1)]), axis)
+        return total(sums), None
+    tot = total(torch.cat([sums, torch.as_tensor(
+        count, dtype=sums.dtype, device=sums.device).reshape(1)]))
     return tot[:-1], tot[-1]

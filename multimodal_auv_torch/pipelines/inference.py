@@ -213,15 +213,10 @@ def export_auv_serving_artifact(
     guardrailed at export time by ``dvp_on_excess``, see serving.py).
     ``mc_shards`` > 1 exports an mc-sharded artifact (serving.py: one
     shard's program of the stacked sampler, run by the loader on
-    ``mc_shards`` devices). ``data_shards`` > 1 is not ported yet and
-    raises, naming its ROADMAP item, before anything is built: the
-    reference's train-mode BN needs a reduction over the data shards
-    inside every BN layer, which JAX's SPMD puts into its exported program
-    and a ``torch.export`` program does not hold."""
-    if data_shards > 1:
-        from multimodal_auv_torch.serving import _DATA_SHARDS_NOT_PORTED
-
-        raise NotImplementedError(_DATA_SHARDS_NOT_PORTED)
+    ``mc_shards`` devices). ``data_shards`` > 1 exports a batch-sharded
+    artifact (serving.py: one data shard's program, whose BN statistics
+    the loader's shard workers sum through ``auv::shard_sum``); the two
+    compose, on data_shards x mc_shards devices."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     dev = resolve_device(device)

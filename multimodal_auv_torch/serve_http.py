@@ -183,6 +183,11 @@ class ArtifactService:
             self._queue.put(None)
             self._batcher.join(timeout=10)
             self._batcher = None
+        # a data-sharded artifact's shard workers (restarted by a later
+        # call, so an artifact shared with another server stays usable)
+        close = getattr(self.artifact, "close", None)
+        if close is not None:
+            close()
 
     # -- helpers -----------------------------------------------------------
 

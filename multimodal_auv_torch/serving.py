@@ -42,21 +42,43 @@ shard's first row folded in (``draw_offset_seed``), runs the program once
 per shard and chunk on the shard's device, gathers the logits on the
 first device in chunk and shard order, and runs the reduction once: the
 draws and their order are the one-process stacked path's, so the logits
-equal it bit for bit. ``data_shards`` > 1 is not
-ported (ROADMAP item 8b): its BN needs a reduction over the shards inside
-every layer, which a ``torch.export`` program does not hold.
+equal it bit for bit.
+
+``data_shards=N`` (the JAX package's batch sharding): N devices each run
+b / N rows of every batch. Train-mode BN normalises over the whole batch,
+so every BN layer needs the sum of the shards' statistics, which JAX's
+SPMD program holds as a collective and a ``torch.export`` program cannot.
+The exported program is one data shard's, traced at b / N rows under
+``bn_sync(local_shards(N))``: each BN layer's sums go through the op
+``auv::shard_sum`` (``parallel/local_shards.py``). The loader starts N
+worker threads, one per data shard; on each call worker d takes rows
+[d b / N, (d + 1) b / N) of the inputs and the mask, runs the program for
+every seed row in ``seeds_for``'s order (the same on every worker) under
+its shard context, and the op sums the N shards' statistics in shard
+order at each BN layer. The logits are gathered on the first device along
+the batch in shard order, and reduced once. With ``mc_shards=M`` as well
+the program is the mc shard's (the op inside its ``map`` body) and runs
+on N x M devices, data shard d's mc shard m on device d M + m (the order
+of JAX's ``Mesh(devices.reshape(data, mc))``); the data shards of one mc
+column draw from the same seed row, so the same weights. On one card the
+shards share the card: the layout checks the semantics, it does not
+scale. DVP with ``data_shards`` is not ported (ROADMAP item 8c).
 
 The program is traced on the device that will serve it: ops that build
 tensors bake that device into the graph, so the loader refuses a device
 other than the one in ``meta["platforms"]``, and moves the program to
-each other card an mc-sharded artifact is loaded on.
+each other card a sharded artifact is loaded on.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
 import os
+import queue
+import threading
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -68,6 +90,14 @@ from multimodal_auv_torch.device import DeviceLike, resolve_device
 from multimodal_auv_torch.ops.sampling import (
     chunk_seed_words,
     draw_offset_seed,
+)
+# also registers torch.ops.auv.shard_sum, which data-sharded programs call
+from multimodal_auv_torch.parallel.collectives import bn_sync, local_shards
+from multimodal_auv_torch.parallel.local_shards import (
+    DEFAULT_TIMEOUT,
+    ShardGroup,
+    Turn,
+    shard_context,
 )
 
 logger = logging.getLogger(__name__)
@@ -172,8 +202,15 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     loader running it on M devices (module docstring). Exact MC only, a
     static ``batch_size``; ``mc_chunk`` defaults to all the draws (one
     stack, split over the shards) and must divide by M, as must
-    ``num_mc_samples``. ``data_shards`` > 1 is not ported yet and raises,
-    naming its ROADMAP item."""
+    ``num_mc_samples``.
+
+    ``data_shards=N`` exports one data shard's program over batch_size / N
+    rows, its BN statistics summed over the shards by ``auv::shard_sum``
+    (module docstring); the loader runs it on N devices (N x M with
+    ``mc_shards``). A static ``batch_size`` divisible by N; with
+    ``bn_mode="eval"`` the program holds no op (no batch statistics). The
+    DVP program with N > 1 is not ported yet and raises, naming its
+    ROADMAP item (an MC fallback of the guardrail exports)."""
     from multimodal_auv_torch.engine.predict import (
         _default_chunk,
         fused_outputs,
@@ -194,11 +231,15 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
         if mc_chunk % mc_shards:
             raise ValueError(f"mc_chunk {mc_chunk} must be divisible by "
                              f"mc_shards {mc_shards}")
-        if batch_size == "poly":
-            raise ValueError("sharded export requires a static batch_size "
-                             "(the per-device shard shape must be static)")
-    if data_shards > 1:
-        raise NotImplementedError(_DATA_SHARDS_NOT_PORTED)
+    if data_shards < 1 or mc_shards < 1:
+        raise ValueError(f"data_shards {data_shards} and mc_shards "
+                         f"{mc_shards} must be at least 1")
+    if (data_shards > 1 or mc_shards > 1) and batch_size == "poly":
+        raise ValueError("sharded export requires a static batch_size "
+                         "(the per-device shard shape must be static)")
+    if batch_size != "poly" and int(batch_size) % data_shards:
+        raise ValueError(f"batch_size {int(batch_size)} must be divisible "
+                         f"by data_shards {data_shards}")
     dev = bundle.device
     if platforms and list(platforms) != [dev.type]:
         raise ValueError(f"platforms {list(platforms)}: the program is traced "
@@ -219,6 +260,8 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
             bundle, num_mc_samples, on_excess=dvp_on_excess,
             packed_inputs=True, mc_chunk=mc_chunk, return_mode=True,
             spread=spread)
+    if exported_mode == "dvp" and data_shards > 1:
+        raise NotImplementedError(_DVP_DATA_SHARDS_NOT_PORTED)
     if exported_mode == "dvp":
         logits_fn, logits_dtype = step.logits_fn, torch.float32
         mc_chunk = num_mc_samples
@@ -249,10 +292,11 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     s = int(image_size)
     poly = batch_size == "poly"
     b = 2 if poly else int(batch_size)
-    u8 = tuple(torch.zeros((b, s, s, c), dtype=torch.uint8, device=dev)
+    rows = b // data_shards  # one data shard's rows
+    u8 = tuple(torch.zeros((rows, s, s, c), dtype=torch.uint8, device=dev)
                for c in (3, 3, 1))
     seeds = torch.zeros((1, 2), dtype=torch.int64, device=dev)
-    mask = torch.ones((b,), dtype=torch.float32, device=dev)
+    mask = torch.ones((rows,), dtype=torch.float32, device=dev)
     num_classes = bundle.module.num_classes
     logits = torch.zeros((num_mc_samples, b, num_classes),
                          dtype=logits_dtype, device=dev)
@@ -263,8 +307,11 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
                       {0: batch})
         reduce_dims = ({1: batch},)
     with torch.no_grad():
-        program = torch.export.export(ChunkProgram(), (leaves, u8, seeds, mask),
-                                      dynamic_shapes=chunk_dims, strict=False)
+        # a data shard's BN sums: one auv::shard_sum per BN call
+        with bn_sync(local_shards(data_shards) if data_shards > 1 else None):
+            program = torch.export.export(
+                ChunkProgram(), (leaves, u8, seeds, mask),
+                dynamic_shapes=chunk_dims, strict=False)
         reduce = torch.export.export(ReduceProgram(), (logits,),
                                      dynamic_shapes=reduce_dims, strict=False)
     # torch.export.save would write the example inputs into the file: the
@@ -308,9 +355,10 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     with open(os.path.join(out_dir, _META), "w") as f:
         json.dump(meta, f, indent=1)
     logger.info("Exported serving artifact to %s (mode=%s, platforms=%s, "
-                "batch=%s, mc=%d in chunks of %d over %d mc shards, %d state "
-                "leaves)", out_dir, exported_mode, meta["platforms"],
-                batch_size, num_mc_samples, mc_chunk, mc_shards, len(leaves))
+                "batch=%s over %d data shards, mc=%d in chunks of %d over %d "
+                "mc shards, %d state leaves)", out_dir, exported_mode,
+                meta["platforms"], batch_size, data_shards, num_mc_samples,
+                mc_chunk, mc_shards, len(leaves))
     return out_dir
 
 
@@ -351,10 +399,11 @@ def _release(version: str) -> str:
     return version.split("+")[0]
 
 
-_DATA_SHARDS_NOT_PORTED = (
-    "data_shards > 1 (batch-sharded artifacts) is not ported yet: "
-    "ROADMAP.md, Open items, 1 'Modules to port' item 8b (data_shards "
-    "serving artifacts)")
+_DVP_DATA_SHARDS_NOT_PORTED = (
+    "data_shards > 1 with the DVP program is not ported yet: ROADMAP.md, "
+    "Open items, 1 'Modules to port' item 8c (DVP x data_shards): its "
+    "draws are laid out by global row (a gather over the shards) and "
+    "each shard keeps its own rows")
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -364,30 +413,35 @@ def _indexed(dev: torch.device) -> torch.device:
     return dev
 
 
-def _shard_devices(device: DeviceLike, devices, mc_shards: int):
-    """The mc shards' devices: ``devices`` as given (one per shard; one
-    device may serve several shards), else ``mc_shards`` consecutive
-    cards from ``device``'s (ValueError when fewer are visible; an
-    unsharded artifact: ``device`` alone)."""
+def _shard_devices(device: DeviceLike, devices, mc_shards: int,
+                   data_shards: int = 1):
+    """The shards' devices, data shard d's mc shard m at index d M + m:
+    ``devices`` as given (one per shard; one device may serve several
+    shards), else data_shards x mc_shards consecutive cards from
+    ``device``'s (ValueError when fewer are visible; an unsharded
+    artifact: ``device`` alone)."""
+    n = data_shards * mc_shards
     if devices is not None:
         if device is not None:
             raise ValueError("pass device= or devices=, not both")
         devs = [_indexed(resolve_device(d)) for d in devices]
-        if len(devs) != mc_shards:
-            raise ValueError(f"devices: one per mc shard ({mc_shards}), got "
+        if len(devs) != n:
+            raise ValueError(f"devices: one per mc shard of each data shard "
+                             f"({data_shards} x {mc_shards} = {n}), got "
                              f"{len(devs)}")
         return devs
     dev = _indexed(resolve_device(device))
-    if mc_shards == 1:
+    if n == 1:
         return [dev]
     visible = torch.cuda.device_count() if dev.type == "cuda" else 1
     first = dev.index or 0
-    if visible - first < mc_shards:
-        raise ValueError(f"mc_shards={mc_shards} but only {visible - first} "
-                         f"{dev.type} devices are visible from {dev} (pass "
-                         f"devices=, which may repeat one)")
+    if visible - first < n:
+        raise ValueError(f"{data_shards} x {mc_shards} (data x mc) shards "
+                         f"but only {visible - first} {dev.type} devices are "
+                         f"visible from {dev} (pass devices=, which may "
+                         f"repeat one)")
     return [torch.device(dev.type, first + i) if dev.type == "cuda" else dev
-            for i in range(mc_shards)]
+            for i in range(n)]
 
 
 def _to_device(a, dtype, dev: torch.device) -> torch.Tensor:
@@ -399,14 +453,81 @@ def _to_device(a, dtype, dev: torch.device) -> torch.Tensor:
     return t
 
 
+class _ShardWorkers:
+    """One daemon thread per data shard. ``run(fn)`` calls ``fn(d)`` on
+    worker d, each under ``torch.inference_mode`` (thread-local, as the
+    current card is), and returns the N results in shard order once every
+    worker has finished; a worker that raises calls ``on_error`` at once
+    (which breaks the shards' barriers), and the call then raises the
+    first shard's error that is not a broken barrier."""
+
+    def __init__(self, n: int):
+        self._tasks = [queue.Queue() for _ in range(n)]
+        self._threads = [threading.Thread(target=self._loop, args=(q,),
+                                          name=f"auv-data-shard-{d}",
+                                          daemon=True)
+                         for d, q in enumerate(self._tasks)]
+        for t in self._threads:
+            t.start()
+
+    @staticmethod
+    def _loop(tasks: "queue.Queue") -> None:
+        while True:
+            item = tasks.get()
+            if item is None:
+                return
+            fn, d, on_error, done = item
+            try:
+                with torch.inference_mode():
+                    done.put((d, fn(d), None))
+            except BaseException as e:  # noqa: BLE001 - handed to the caller
+                on_error()
+                done.put((d, None, e))
+
+    def run(self, fn, on_error):
+        done: "queue.Queue" = queue.Queue()
+        for d, tasks in enumerate(self._tasks):
+            tasks.put((fn, d, on_error, done))
+        results, errors = [None] * len(self._tasks), []
+        for _ in self._tasks:
+            d, out, err = done.get()
+            results[d] = out
+            if err is not None:
+                errors.append((d, err))
+        if errors:
+            errors.sort(key=lambda e: e[0])
+            first = next((e for _, e in errors
+                          if not isinstance(e, threading.BrokenBarrierError)),
+                         errors[0][1])
+            raise first
+        return results
+
+    def close(self) -> None:
+        """Stop the workers: each ends after its current task."""
+        for tasks in self._tasks:
+            tasks.put(None)
+        for t in self._threads:
+            t.join(timeout=10)
+
+
+def _on_card(dev: torch.device):
+    """``dev`` made this thread's current card (no-op on the CPU)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
 class ServingArtifact:
     """A loaded serving artifact: ``predict`` runs the exported programs.
 
     Needs only torch, numpy and the port's ops at load time: the model is
-    in the exported graphs. ``devices``: the mc shards' devices (one, the
-    artifact's ``device``, when it is not mc-sharded); ``programs`` and
-    ``state_leaves`` map each of them to the chunk program and the state
-    there."""
+    in the exported graphs. ``devices``: the shards' devices, data shard
+    d's mc shard m at index d * mc_shards + m (one, the artifact's
+    ``device``, when it is not sharded); ``programs`` and ``state_leaves``
+    map each distinct one to the chunk program and the state there. A
+    data-sharded artifact starts one worker thread per data shard;
+    ``close`` stops them (a later call starts them again).
+    ``shard_timeout``: seconds a data shard waits for the others at one
+    BN rendezvous (``local_shards.DEFAULT_TIMEOUT``)."""
 
     def __init__(self, programs: dict, reduce, state_leaves: dict,
                  meta: dict, devices):
@@ -421,7 +542,9 @@ class ServingArtifact:
         self.batch_size = b if b == "poly" else int(b)
         self.image_size = int(meta["image_size"])
         self.mode = meta.get("mode", "mc")
+        self.data_shards = int(meta.get("data_shards", 1))
         self.mc_shards = int(meta.get("mc_shards", 1))
+        self.shard_timeout = DEFAULT_TIMEOUT
         # the chunk program's draws per call (one shard's): its output's
         # first dimension
         program = programs[self.device]
@@ -430,16 +553,34 @@ class ServingArtifact:
         self.mc_chunk = self.shard_rows * self.mc_shards
         self.nchunks = int(meta["num_mc_samples"]) // self.mc_chunk
         self._num_calls = 0  # fresh-draw counter for key=None predict()
+        self._workers = None
+        if self.data_shards > 1:
+            self._start_workers()
+
+    def _start_workers(self) -> "_ShardWorkers":
+        if self._workers is None:
+            self._workers = _ShardWorkers(self.data_shards)
+            # idle workers end with the artifact
+            self._finalizer = weakref.finalize(self, self._workers.close)
+        return self._workers
+
+    def close(self) -> None:
+        """Stop the data shards' workers (nothing else to release)."""
+        if self._workers is not None:
+            self._finalizer.detach()
+            self._workers.close()
+            self._workers = None
 
     @classmethod
     def load(cls, artifact_dir: str, *, device: DeviceLike = None,
              devices=None, verify_integrity: bool = True
              ) -> "ServingArtifact":
         """``device``: None = the card; it must be of the type the artifact
-        was exported on (``meta["platforms"]``). An mc-sharded artifact
-        runs its shards on ``mc_shards`` consecutive cards from
-        ``device``'s, or on ``devices`` instead (one per shard, repeats
-        allowed). The torch release must be the exporter's."""
+        was exported on (``meta["platforms"]``). A sharded artifact runs
+        its data_shards x mc_shards shards on as many consecutive cards
+        from ``device``'s, or on ``devices`` instead (one per shard, data
+        shard d's mc shard m at index d * mc_shards + m, repeats allowed).
+        The torch release must be the exporter's."""
         # a missing card raises before anything is read
         resolve_device(device if devices is None else devices[0])
         with open(os.path.join(artifact_dir, _META)) as f:
@@ -448,8 +589,6 @@ class ServingArtifact:
             raise ValueError(
                 f"serving artifact version {meta.get('version')} != "
                 f"supported {ARTIFACT_VERSION}")
-        if int(meta.get("data_shards", 1)) > 1:
-            raise NotImplementedError(_DATA_SHARDS_NOT_PORTED)
         exported = meta.get("torch_version", "(not recorded)")
         if _release(exported) != _release(torch.__version__):
             raise ValueError(
@@ -457,7 +596,8 @@ class ServingArtifact:
                 f"with torch {torch.__version__}: its programs are "
                 f"torch.export's serialisation, read only by the release "
                 f"that wrote it (re-export with this torch)")
-        devs = _shard_devices(device, devices, int(meta.get("mc_shards", 1)))
+        devs = _shard_devices(device, devices, int(meta.get("mc_shards", 1)),
+                              int(meta.get("data_shards", 1)))
         for dev in devs:
             if [dev.type] != list(meta.get("platforms") or []):
                 raise ValueError(
@@ -540,7 +680,12 @@ class ServingArtifact:
         program once per row of ``seeds`` (``seeds_for``'s rows, on the
         first device), row i on shard i % mc_shards's device (with its
         copy of the state and of the inputs, ``state_leaves`` standing for
-        the first device's), gathered in row order."""
+        the first device's), gathered in row order; a data-sharded
+        artifact's rows of each data shard on its worker
+        (``_data_sharded_logits``)."""
+        if self.data_shards > 1:
+            return self._data_sharded_logits(state_leaves, u8_inputs, seeds,
+                                             mask)
         placed = {self.device: (state_leaves, u8_inputs, seeds, mask)}
         out = []
         for i in range(seeds.shape[0]):
@@ -553,6 +698,49 @@ class ServingArtifact:
             out.append(self._programs[dev](leaves, u8, sd[i:i + 1], m)
                        .to(self.device))
         return torch.cat(out)
+
+    def _data_sharded_logits(self, state_leaves, u8_inputs, seeds, mask):
+        """``logits`` of a data-sharded artifact: worker d runs the program
+        on its b / N rows for every row i of ``seeds`` in order, on device
+        d * mc_shards + i % mc_shards, as shard d of mc column i %
+        mc_shards's group (the op ``auv::shard_sum`` sums the column's N
+        shards' BN statistics); the logits are gathered on the first device
+        along the batch in shard order. The workers' Python runs in turns
+        (``local_shards.Turn``)."""
+        N, M = self.data_shards, self.mc_shards
+        rows = u8_inputs[0].shape[0] // N
+        groups = [ShardGroup(N, self.shard_timeout) for _ in range(M)]
+        turn = Turn(self.shard_timeout)
+
+        def shard(d):
+            own = slice(d * rows, (d + 1) * rows)
+            placed, out = {}, []
+            turn.take()
+            try:
+                for i in range(seeds.shape[0]):
+                    dev = self.devices[d * M + i % M]
+                    if dev not in placed:
+                        leaves = (state_leaves if dev == self.device
+                                  else self._state[dev])
+                        placed[dev] = (
+                            leaves, tuple(a[own].to(dev) for a in u8_inputs),
+                            seeds.to(dev), mask[own].to(dev))
+                    leaves, u8, sd, m = placed[dev]
+                    with _on_card(dev), shard_context(groups[i % M], d, turn):
+                        out.append(self._programs[dev](leaves, u8,
+                                                       sd[i:i + 1], m)
+                                   .to(self.device))
+            finally:
+                turn.give()
+            return out
+
+        def abort():
+            for g in groups:
+                g.abort()
+
+        parts = self._start_workers().run(shard, abort)
+        return torch.cat([torch.cat([p[i] for p in parts], dim=1)
+                          for i in range(seeds.shape[0])])
 
     @torch.inference_mode()
     def call(self, state_leaves, u8_inputs, seeds: torch.Tensor,

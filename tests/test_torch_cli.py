@@ -9,6 +9,7 @@ import json
 import os
 from contextlib import redirect_stdout
 
+import numpy as np
 import pytest
 import torch
 
@@ -111,10 +112,12 @@ def test_same_argv_same_kwargs_as_jax(monkeypatch, command, flags):
 # ported since; the CLI runs it on a micro() model. DATA_PREP: the
 # data-prep subcommand of item 9, ported since; it runs on a raw tree.
 # MC_SHARDS: the mc-sharded export of item 8a, ported since; it writes an
-# mc-sharded artifact.
+# mc-sharded artifact. DATA_SHARDS: the batch-sharded export of item 8b,
+# ported since; it writes a data-sharded artifact.
 RUNS = "runs"
 DATA_PREP = "data-prep runs"
 MC_SHARDS = "mc-sharded export runs"
+DATA_SHARDS = "data-sharded export runs"
 NOT_PORTED = [
     ("retrain", ["--mesh_data", "2"], None),
     ("retrain", ["--mesh_mc", "2"], None),
@@ -127,7 +130,7 @@ NOT_PORTED = [
     ("train-scratch", ["--async_checkpoints"], RUNS),
     ("train-scratch", ["--remat", "auto"], RUNS),
     ("export-serving", ["--mc_shards", "2"], MC_SHARDS),
-    ("export-serving", ["--data_shards", "2"], "item 8b"),
+    ("export-serving", ["--data_shards", "2"], DATA_SHARDS),
     ("data-prep", [], DATA_PREP),
 ]
 
@@ -147,23 +150,39 @@ def test_unported_flags_exit_non_zero(monkeypatch, capsys, tmp_path,
     synthetic raw tree and a bathymetry and an SSS GeoTIFF: exit 0 and the
     per-sample folders of tests/test_etl_pipeline.py. ``export-serving
     --mc_shards 2`` (item 8a, ported) writes an mc-sharded artifact on the
-    CPU at micro() size that loads on two CPU shards; ``--data_shards``
-    still exits naming item 8b."""
-    if item == MC_SHARDS:
+    CPU at micro() size that loads on two CPU shards; ``--data_shards 2``
+    (item 8b, ported) a data-sharded one (one draw a chunk), which loads on
+    two CPU shards with one worker thread each."""
+    if item in (MC_SHARDS, DATA_SHARDS):
         from multimodal_auv_torch.models.model_utils import ArchConfig
         from multimodal_auv_torch.serving import load_predict_artifact
 
         monkeypatch.setenv("HF_HUB_OFFLINE", "1")
         monkeypatch.setattr(cli, "_arch", lambda args: ArchConfig.micro())
         out = str(tmp_path / "art")
+        chunk = ["--mc_chunk", "1"] if item == DATA_SHARDS else []
         assert cli.main([command, "--output_dir", out, "--allow_random_init",
                          "--num_mc_samples", "4", "--num_classes", "3",
-                         "--device", "cpu"] + extra) == 0
+                         "--device", "cpu"] + chunk + extra) == 0
         meta = json.load(open(os.path.join(out, "meta.json")))
-        assert (meta["mc_shards"], meta["data_shards"], meta["mode"]) == (
-            2, 1, "mc")
         art = load_predict_artifact(out, devices=["cpu", "cpu"])
-        assert (art.mc_shards, art.shard_rows, art.nchunks) == (2, 2, 1)
+        if item == MC_SHARDS:
+            assert (meta["mc_shards"], meta["data_shards"], meta["mode"]) == (
+                2, 1, "mc")
+            assert (art.mc_shards, art.shard_rows, art.nchunks) == (2, 2, 1)
+            return
+        assert (meta["mc_shards"], meta["data_shards"], meta["mode"]) == (
+            1, 2, "mc")
+        try:
+            assert (art.data_shards, art.shard_rows, art.nchunks) == (2, 1, 4)
+            rng = np.random.default_rng(0)
+            px = art.image_size
+            out = art.predict(*[rng.integers(0, 255, (4, px, px, c),
+                                             dtype=np.uint8)
+                                for c in (3, 3, 1)], key=1)
+            assert out["predicted"].shape == (4,)
+        finally:
+            art.close()
         return
     if item == DATA_PREP:
         from tests.test_torch_dataprep import _write_rasters

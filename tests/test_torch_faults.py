@@ -92,8 +92,9 @@ REPO = Path(__file__).resolve().parent.parent
 
 def test_wheel_carries_kernel_sources_and_inventory(tmp_path):
     """A wheel built offline from the project file and the port's package
-    holds the CUDA source that ``ops/kernels.py`` compiles at first use and
-    the inventory that ``interop/hf_manifest.py`` reads. Built in a copy:
+    holds the CUDA source that ``ops/kernels.py`` compiles at first use,
+    the host C++ source that ``native/`` compiles at first use and the
+    inventory that ``interop/hf_manifest.py`` reads. Built in a copy:
     a build in the repository would write ``build/`` and ``*.egg-info``
     there."""
     shutil.copy(REPO / "pyproject.toml", tmp_path)
@@ -108,6 +109,7 @@ def test_wheel_carries_kernel_sources_and_inventory(tmp_path):
     (whl,) = (tmp_path / "dist").glob("*.whl")
     names = set(zipfile.ZipFile(whl).namelist())
     assert "multimodal_auv_torch/csrc/sampling.cu" in names
+    assert "multimodal_auv_torch/native/csrc/auvnative.cpp" in names
     assert "multimodal_auv_torch/interop/expected_hf_keys.json" in names
 
 

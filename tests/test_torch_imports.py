@@ -55,7 +55,7 @@ def test_port_imports_no_jax():
                  "utils.devices", "dataprep.geodesy", "dataprep.exif",
                  "dataprep.geotiff", "dataprep.optical", "dataprep.patches",
                  "dataprep.combine", "dataprep.qa", "dataprep.utilities",
-                 "_lazy"):
+                 "_lazy", "parallel.local_shards", "native"):
         assert f"multimodal_auv_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 

@@ -75,6 +75,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_MC = 2
 LR, KL_WEIGHT = 1e-3, 1e-6
 SUBPROCESS_TIMEOUT = 120
+# the data=2 mesh step against a data_shards=2 serving artifact: micro(),
+# 3 classes, b4 x 4 MC (one draw a chunk) at 32 px, one row masked out
+SERVE_CLASSES, SERVE_MC, SERVE_SEED = 3, 4, 5
+SERVE_MASK = [1.0, 1.0, 1.0, 0.0]
 
 # One rank of a spawned group: argv = group, rank, port, work directory.
 _WORKER = r"""
@@ -212,6 +216,26 @@ def pipelines():
                       arch=ArchConfig.micro(), use_packed_loader=True,
                       mesh_spec=mesh, device="cpu")
 
+    # the unfused packed step on the data=2 mesh: the logits of this
+    # rank's rows, which a data-sharded serving artifact must reproduce
+    import multimodal_auv_torch.engine.predict as P
+    from multimodal_auv_torch.models.model_utils import make_multimodal_bundle
+    b = make_multimodal_bundle({serve_classes}, BNNPriorSpec(),
+                               torch.Generator().manual_seed(0),
+                               ArchConfig.micro(), device="cpu")
+    rng = np.random.default_rng({serve_seed})
+    u8 = [torch.from_numpy(rng.integers(0, 255, (4, 32, 32, c),
+                                        dtype=np.uint8)) for c in (3, 3, 1)]
+    seen, fused = [], P.fused_outputs
+    P.fused_outputs = lambda logits: (seen.append(logits), fused(logits))[1]
+    step = P.make_packed_predict_step(b, {serve_mc}, mc_chunk=1,
+                                      mesh=M.make_mesh(mesh))
+    step(b.post, b.batch_stats, u8, torch.Generator().manual_seed(
+        {serve_seed}), torch.tensor({serve_mask}) > 0)
+    P.fused_outputs = fused
+    np.save(os.path.join(work, f"mesh_logits_{{rank}}.npy"),
+            seen[0].float().numpy())
+
 
 try:
     {{"steps": steps, "pipelines": pipelines}}[group]()
@@ -239,7 +263,9 @@ def _free_port() -> int:
 def _spawn(group: str, work: str) -> None:
     """Run ``group`` on two ranks; raise with both ranks' output if either
     fails or outlives ``SUBPROCESS_TIMEOUT``."""
-    code = _WORKER.format(repo=REPO, lr=LR, kl=KL_WEIGHT, num_mc=NUM_MC)
+    code = _WORKER.format(repo=REPO, lr=LR, kl=KL_WEIGHT, num_mc=NUM_MC,
+                          serve_classes=SERVE_CLASSES, serve_mc=SERVE_MC,
+                          serve_seed=SERVE_SEED, serve_mask=SERVE_MASK)
     port = str(_free_port())
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)
@@ -691,7 +717,22 @@ def _flat_state(path):
     return d, out
 
 
-def test_two_rank_pipelines(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def pipelines_run(tmp_path_factory):
+    """The ``pipelines`` group's two ranks, spawned once: (their work
+    directory, an untouched copy of its trees for the one-process run)."""
+    tmp = tmp_path_factory.mktemp("pipelines")
+    work = str(tmp / "mesh")
+    os.makedirs(work)
+    make_training_tree(os.path.join(work, "tree"), n_samples=10)
+    make_inference_tree(os.path.join(work, "dives"), n_samples=5)
+    single = str(tmp / "single")
+    shutil.copytree(work, single)
+    _spawn("pipelines", work)
+    return work, single
+
+
+def test_two_rank_pipelines(pipelines_run, monkeypatch):
     """``run_AUV_training_from_scratch`` (one epoch, packed loader, global
     batch 4 on a data=2 mesh) and ``run_auv_inference`` (5 dives, batch
     4, 2 draws) on two gloo ranks, against the same calls in one process:
@@ -702,15 +743,7 @@ def test_two_rank_pipelines(tmp_path, monkeypatch):
     TensorBoard events exist under rank 0's working directory only; the
     inference CSV, written by rank 0, has the one-process CSV's names and
     classes and its uncertainties to 1e-5."""
-    work = str(tmp_path / "mesh")
-    os.makedirs(work)
-    make_training_tree(os.path.join(work, "tree"), n_samples=10)
-    make_inference_tree(os.path.join(work, "dives"), n_samples=5)
-    single = str(tmp_path / "single")
-    shutil.copytree(work, single)
-
-    _spawn("pipelines", work)
-
+    work, single = pipelines_run
     monkeypatch.chdir(single)
     assert run_AUV_training_from_scratch(
         {}, LR, 1, NUM_MC, 10, 10, 4, os.path.join(single, "tree"),
@@ -768,3 +801,39 @@ def test_two_rank_pipelines(tmp_path, monkeypatch):
         np.array([[float(v) for v in r[2:]] for r in mesh_rows[1:]]),
         np.array([[float(v) for v in r[2:]] for r in one_rows[1:]]),
         rtol=0, atol=1e-5)
+
+
+def test_data_sharded_artifact_equals_mesh_step(pipelines_run, tmp_path):
+    """A data_shards=2 serving artifact (serving.py: one data shard's
+    program, its BN sums through ``auv::shard_sum`` over two worker
+    threads) against the unfused packed step on the data=2 mesh of two
+    gloo ranks (their logits, saved by the ``pipelines`` group) at the
+    same seed, one row masked out: bit for bit. With two shards each BN
+    sum is one IEEE add of the two partial sums, on either side."""
+    from multimodal_auv_torch.models.model_utils import make_multimodal_bundle
+    from multimodal_auv_torch.serving import (
+        export_predict_artifact,
+        load_predict_artifact,
+    )
+
+    work, _ = pipelines_run
+    mesh = np.concatenate([np.load(os.path.join(work, f"mesh_logits_{r}.npy"))
+                           for r in range(2)], axis=1)
+    bundle = make_multimodal_bundle(SERVE_CLASSES, BNNPriorSpec(),
+                                    torch.Generator().manual_seed(0),
+                                    ArchConfig.micro(), device="cpu")
+    d = str(tmp_path / "art")
+    export_predict_artifact(bundle, d, batch_size=4,
+                            num_mc_samples=SERVE_MC, image_size=32,
+                            mc_chunk=1, data_shards=2)
+    art = load_predict_artifact(d, devices=["cpu", "cpu"])
+    try:
+        rng = np.random.default_rng(SERVE_SEED)
+        batch = [rng.integers(0, 255, (4, 32, 32, c), dtype=np.uint8)
+                 for c in (3, 3, 1)]
+        got = art.predict_logits(*batch, key=SERVE_SEED,
+                                 mask=np.array(SERVE_MASK, np.float32))
+    finally:
+        art.close()
+    assert mesh.shape == (SERVE_MC, 4, SERVE_CLASSES)
+    np.testing.assert_array_equal(got.float().numpy(), mesh)

@@ -235,29 +235,36 @@ def test_polymorphic_batch_artifact(artifact, tmp_path):
         np.testing.assert_array_equal(out["mean_prob"], ref["mean_prob"])
 
 
-def test_refusals_name_their_items(artifact, tmp_path):
-    """Batch-sharded exports are not ported yet and raise naming ROADMAP
-    item 8b; so do a batch-sharded artifact's load and the pipeline's
-    shard flag (mc-sharded artifacts are ported:
-    tests/test_torch_serving_mc_shards.py); platforms other than the
-    bundle's device and an unknown mode are refused; an artifact refuses a
-    device of another type than it was exported on."""
+def test_refusals_name_their_items(artifact, tmp_path, monkeypatch):
+    """Batch-sharded artifacts are ported (item 8b:
+    tests/test_torch_serving_data_shards*.py); the one path left, the DVP
+    program with data shards, raises naming ROADMAP item 8c, at export and
+    in the pipeline, before anything is written; a batch-sharded meta
+    loads as such, asking for one device per shard; platforms other than
+    the bundle's device and an unknown mode are refused; an artifact
+    refuses a device of another type than it was exported on."""
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
 
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
     d, bundle, _ = artifact
     kw = dict(batch_size=B, num_mc_samples=MC, image_size=S)
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="item 8c"):
         export_predict_artifact(bundle, str(tmp_path / "x"), data_shards=2,
-                                **kw)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        export_auv_serving_artifact(str(tmp_path / "x"), data_shards=2)
+                                mode="dvp", dvp_on_excess="warn", **kw)
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        export_auv_serving_artifact(
+            str(tmp_path / "x"), data_shards=2, use_dvp=True,
+            dvp_on_excess="warn", batch_size=B, num_mc_samples=MC,
+            num_classes=C, allow_random_init=True, arch=ARCH, device="cpu")
+    assert not os.path.exists(tmp_path / "x")
     with pytest.raises(ValueError, match="mode"):
         export_predict_artifact(bundle, str(tmp_path / "x"), mode="x", **kw)
     with pytest.raises(ValueError, match="platforms"):
         export_predict_artifact(bundle, str(tmp_path / "x"),
                                 platforms=["cuda"], **kw)
-    for change, err, match in (({"data_shards": 2}, NotImplementedError,
-                                "item 8b"),
+    for change, err, match in (({"data_shards": 2}, ValueError,
+                                r"2 x 1 \(data x mc\) shards but only 1 "
+                                "cpu devices"),
                                ({"platforms": ["cuda"]}, ValueError,
                                 "exported for")):
         bad = tmp_path / f"meta_{next(iter(change))}"

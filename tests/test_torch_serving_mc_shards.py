@@ -346,13 +346,15 @@ def test_mc_sharded_chunks_and_stream(bundle, tmp_path):
                                       ref["csv_cols"].numpy())
 
 
-def test_mc_sharded_validation(bundle, tmp_path):
+def test_mc_sharded_validation(bundle, tmp_path, monkeypatch):
     """The JAX package's four export errors (DVP, num_mc and mc_chunk not
-    divisible by the shards, a polymorphic batch), ``data_shards`` > 1
-    still refused naming ROADMAP item 8b at export, in the pipeline and at
-    load, and the loader's device checks."""
+    divisible by the shards, a polymorphic batch), and with ``data_shards``
+    (ported, ROADMAP item 8b) its fifth, a batch not divisible by the data
+    shards, at export and in the pipeline; the loader's device checks, and
+    an mc-sharded meta with two data shards asking for 2 x 2 devices."""
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
 
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
     x = str(tmp_path / "x")
     kw = dict(batch_size=B, num_mc_samples=MC, image_size=PX)
     with pytest.raises(ValueError, match="mode='mc'"):
@@ -367,10 +369,15 @@ def test_mc_sharded_validation(bundle, tmp_path):
     with pytest.raises(ValueError, match="static batch_size"):
         export_predict_artifact(bundle, x, **{**kw, "batch_size": "poly"},
                                 mc_shards=2)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        export_predict_artifact(bundle, x, **kw, data_shards=2)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        export_auv_serving_artifact(x, data_shards=2, device="cpu")
+    with pytest.raises(ValueError, match="batch_size 4 must be divisible "
+                                         "by data_shards 3"):
+        export_predict_artifact(bundle, x, **kw, data_shards=3, mc_shards=2)
+    with pytest.raises(ValueError, match="batch_size 5 must be divisible "
+                                         "by data_shards 2"):
+        export_auv_serving_artifact(x, batch_size=5, data_shards=2,
+                                    mc_shards=2, num_mc_samples=MC,
+                                    num_classes=C, allow_random_init=True,
+                                    arch=ARCH, device="cpu")
     assert not os.path.exists(x)
 
     d = str(tmp_path / "a")
@@ -385,5 +392,6 @@ def test_mc_sharded_validation(bundle, tmp_path):
     meta = json.load(open(os.path.join(d, "meta.json")))
     with open(os.path.join(d, "meta.json"), "w") as f:
         json.dump({**meta, "data_shards": 2}, f)
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(ValueError, match=r"one per mc shard of each data "
+                                         r"shard \(2 x 2 = 4\), got 2"):
         load_predict_artifact(d, devices=["cpu", "cpu"])
