@@ -182,7 +182,18 @@ result line):
     artifact loaded, its ``predict_batches`` over phase 4's patches bit-equal
     to the in-process DVP step at the same seeds with meta mode "dvp" and
     exactly 3 split_sampler launches; export s, load s, program size,
-    patches/s over DVP_REPEATS timed passes.
+    patches/s over DVP_REPEATS timed passes. (f) ``export-serving --dvp
+    --data_shards 2`` from the same file, both shards on cuda:0: on the
+    first batch the two shards' draws bit-equal (each draws the whole
+    batch's features) and the logits bit-equal to the DVP logits function
+    on a data=2 mesh of two gloo ranks (this script with --rank --job
+    serving_dvp, from the same file at the same seed words), a planted
+    local-sums fault and a planted wrong-rows fault (each shard handed the
+    other's rows) not; ``predict_batches`` over phase 4's patches with
+    exactly 2 x 3 split_sampler launches and as many rendezvous a batch
+    as the program holds ``auv::shard_sum`` and ``auv::shard_gather``
+    nodes; export s, load s, program size and patches/s over DVP_REPEATS
+    timed passes beside (e)'s, and the distance from (e)'s logits.
 
 17. grouped trunks (models/fused.py) at full width over phase 4's set, b4
     x 20 MC in chunks of 2, from the same seeds: the fused and unfused
@@ -1143,7 +1154,10 @@ def serving_rank(args) -> int:
     --job serving): the unfused packed step (chunk 2, bf16) on a data=2
     mesh of two gloo ranks, from phase 13's file (``--weights``), on phase
     4's first batch at the data-sharded artifact's seed; prints this rank's
-    rows of the logits as one ``PHASE15 {json}`` line."""
+    rows of the logits as one ``PHASE15 {json}`` line. With --job
+    serving_dvp, phase 16 (f)'s: the DVP logits function (b4 x 20 feature
+    draws, f32) on the same mesh and batch at the data-sharded DVP
+    artifact's seed words, as one ``PHASE16 {json}`` line."""
     import torch.distributed as dist
 
     sys.path.insert(0, HERE)
@@ -1167,6 +1181,8 @@ def serving_rank(args) -> int:
                                    args.seed, args.weights, False, dev)
         m, b, ss, mask = _padded_batches(os.path.join(args.work,
                                                       "packed"))[0][0]
+        if args.job == "serving_dvp":
+            return _dvp_rank(args, bundle, (m, b, ss), dev)
         seen, fused = [], P.fused_outputs
         P.fused_outputs = lambda logits: (seen.append(logits),
                                           fused(logits))[1]
@@ -1183,6 +1199,33 @@ def serving_rank(args) -> int:
         return 0
     finally:
         dist.destroy_process_group()
+
+
+def _dvp_rank(args, bundle, batch, dev) -> int:
+    """``serving_rank``'s DVP job: this rank's rows of the DVP logits on a
+    data=2 mesh (the moment BN's sums and the feature gathers over gloo),
+    drawn from the seed words of phase 16 (f)'s first batch."""
+    from multimodal_auv_torch.config import MeshSpec
+    from multimodal_auv_torch.engine.moment import make_dvp_logits_fn
+    from multimodal_auv_torch.ops.sampling import chunk_seed_words
+    from multimodal_auv_torch.parallel import mesh as M
+    from multimodal_auv_torch.parallel.collectives import bn_sync
+    from multimodal_auv_torch.serving import fold_seed
+
+    mesh = M.make_mesh(MeshSpec(2, 1))
+    logits_fn = make_dvp_logits_fn(bundle, NUM_MC, packed_inputs=True,
+                                   mesh=mesh)
+    rows = slice(args.rank * BATCH // 2, (args.rank + 1) * BATCH // 2)
+    seeds = chunk_seed_words(torch.Generator().manual_seed(
+        fold_seed(args.seed + 16, 0)), 1).to(dev)
+    with torch.inference_mode(), bn_sync(mesh.data_axis):
+        logits = logits_fn(bundle.post, bundle.batch_stats,
+                           [torch.from_numpy(a[rows]).to(dev) for a in batch],
+                           seeds)
+    print("PHASE16 " + json.dumps({
+        "rank": args.rank, "logits": logits.float().cpu().tolist()}),
+        flush=True)
+    return 0
 
 
 def _rel(a, b) -> float:
@@ -1220,15 +1263,17 @@ def _compare_steps(state, ref, m, ref_m, emit, label, **extra) -> None:
 def _run_ranks(world: int, backend: str, args, work: str,
                job: str = "parallel", weights: str = "") -> list:
     """Run ``world`` ranks of this script (--rank) on ``job`` (phase 18's
-    "parallel" or phase 15's "serving") and return their PHASE18 /
-    PHASE15 results; any rank failing or outliving PAR_TIMEOUT fails the
-    phase, and every rank is stopped on the way out."""
+    "parallel", phase 15's "serving" or phase 16's "serving_dvp") and
+    return their PHASE18 / PHASE15 / PHASE16 results; any rank failing or
+    outliving PAR_TIMEOUT fails the phase, and every rank is stopped on
+    the way out."""
     import socket
 
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
-    tag = {"parallel": "PHASE18 ", "serving": "PHASE15 "}[job]
+    tag = {"parallel": "PHASE18 ", "serving": "PHASE15 ",
+           "serving_dvp": "PHASE16 "}[job]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank", str(r),
          "--world", str(world), "--backend", backend, "--port", str(port),
@@ -3158,6 +3203,9 @@ def phase_dvp(args, smi: str, work: str, weights: str,
     bundle = pretrained_bundle(NUM_CLASSES, BNNPriorSpec(), ArchConfig(), 0,
                                weights, False, torch.device("cuda"))
     step = M.make_dvp_predict_step(bundle, NUM_MC, packed_inputs=True)
+    m, b, ss, mask = batches[0]
+    first = art.predict_logits(m, b, ss, key=fold_seed(key, 0),
+                               mask=mask).cpu()
     for i, ((m, b, ss, mask), out) in enumerate(zip(batches, outs)):
         ref = step(bundle.post, bundle.batch_stats,
                    tuple(torch.from_numpy(a).cuda() for a in (m, b, ss)),
@@ -3178,8 +3226,150 @@ def phase_dvp(args, smi: str, work: str, weights: str,
         f"launches {launches}")
     del art, bundle, step
     free_cuda()
+    n_launches += phase_dvp_data_shards(
+        args, smi, work, weights, batches, key, first,
+        (t_export, t_load, DVP_REPEATS * N_SAMPLES / wall, size))
     log(f"phase 16 (DVP): {time.perf_counter() - t_phase:.1f} s")
     return n_launches
+
+
+def phase_dvp_data_shards(args, smi: str, work: str, weights: str, batches,
+                          key: int, unsharded_logits, unsharded) -> int:
+    """Phase 16 (f), the data-sharded DVP artifact at full width (module
+    docstring): ``export-serving --dvp --data_shards DATA_SHARDS`` from
+    phase 13's file, loaded with both shards on cuda:0. The first batch:
+    the shards' draws bit-equal, the logits bit-equal to the DVP logits on
+    the data=2 mesh of two gloo ranks (``serving_rank``'s "serving_dvp"
+    job) from the same file at the same seed words, a planted local-sums
+    fault and a planted wrong-rows fault not. Then ``predict_batches``
+    with exactly DATA_SHARDS split_sampler launches a batch and the
+    program's rendezvous a batch, and DVP_REPEATS timed passes.
+    ``unsharded_logits``: (e)'s first batch; ``unsharded``: (e)'s export
+    s, load s, patches/s and program MB, printed beside. Returns the
+    split_sampler launches of the counted run."""
+    from multimodal_auv_torch import cli
+    from multimodal_auv_torch.ops import sampling as S
+    from multimodal_auv_torch.parallel import local_shards as L
+    from multimodal_auv_torch.serving import fold_seed, load_predict_artifact
+
+    art_dir = os.path.join(work, "artifact_dvp_data_shards")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["export-serving", "--output_dir", art_dir, "--batch_size",
+                   str(BATCH), "--num_mc_samples", str(NUM_MC),
+                   "--model_weights", weights, "--dvp", "--data_shards",
+                   str(DATA_SHARDS), "--device", "cuda"])
+    t_export = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"export-serving --dvp --data_shards exited "
+                             f"{rc}")
+    check_launches("data-sharded DVP export", {})
+    size = os.path.getsize(os.path.join(art_dir, "program.pt2")) / 1e6
+    free_cuda()
+    t0 = time.perf_counter()
+    # the mesh's ranks run while the artifact loads
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ranks = pool.submit(_run_ranks, 2, "gloo", args, work, "serving_dvp",
+                            weights)
+        art = load_predict_artifact(art_dir,
+                                    devices=["cuda:0"] * DATA_SHARDS)
+        t_load = time.perf_counter() - t0
+        ranks = sorted(ranks.result(), key=lambda r: r["rank"])
+    mesh = torch.cat([torch.tensor(r["logits"]) for r in ranks], dim=1)
+    t_mesh = time.perf_counter() - t0
+    if (art.meta["mode"], art.data_shards, art.mc_shards, art.nchunks) != (
+            "dvp", DATA_SHARDS, 1, 1):
+        raise AssertionError(f"data-sharded DVP artifact meta {art.meta}, "
+                             f"{art.nchunks} chunks")
+    nodes = [str(n.target) for n in art._programs[art.device].graph.nodes]
+    meets = sum(t in ("auv.shard_sum.default", "auv.shard_gather.default")
+                for t in nodes)
+    if (nodes.count("auv.shard_gather.default"),
+            nodes.count("auv.shard_rows.default")) != (2, 1):
+        raise AssertionError("the data-sharded DVP program holds "
+                             f"{nodes.count('auv.shard_gather.default')} "
+                             f"gathers, {nodes.count('auv.shard_rows.default')}"
+                             f" own-rows slices (want 2, 1)")
+    m, b, ss, mask = batches[0]
+    first = lambda: art.predict_logits(m, b, ss, key=fold_seed(key, 0),
+                                       mask=mask).cpu()
+    try:
+        # the first batch (which warms the half-batch shapes up) with each
+        # shard's draws recorded
+        draws, launch = [], S._launch
+
+        def recording(name, mu, scale, seed, *a, **kw):
+            out = launch(name, mu, scale, seed, *a, **kw)
+            draws.append(out)
+            return out
+
+        S._launch = recording
+        try:
+            got = first()
+        finally:
+            S._launch = launch
+        if (len(draws) != DATA_SHARDS
+                or not all(torch.equal(draws[0], d) for d in draws[1:])):
+            raise AssertionError(f"data shards' DVP draws differ "
+                                 f"({len(draws)} launches)")
+        del draws
+        if got.shape != mesh.shape or not torch.equal(got, mesh):
+            raise AssertionError(
+                f"data-sharded DVP logits != the data=2 mesh's: "
+                f"{tuple(got.shape)} vs {tuple(mesh.shape)}, "
+                f"{_rel_err(got, mesh) if got.shape == mesh.shape else ''}")
+        real_sum, rows_of = L.ShardGroup.sum, L.rows_of
+        L.ShardGroup.sum = lambda self, index, x, turn=None: x.clone()
+        try:
+            bad_sums = first()
+        finally:
+            L.ShardGroup.sum = real_sum
+        L.rows_of = lambda x, n, dim, i: rows_of(x, n, dim, (i + 1) % n)
+        try:
+            bad_rows = first()
+        finally:
+            L.rows_of = rows_of
+        for name, bad in (("local-sums", bad_sums), ("wrong-rows", bad_rows)):
+            if torch.equal(bad, mesh):
+                raise AssertionError(f"the {name} fault equals the data=2 "
+                                     f"mesh's DVP logits")
+
+        reset_launches()
+        L.COUNTS["rendezvous"] = 0
+        list(art.predict_batches(batches, key=key))
+        torch.cuda.synchronize()
+        launches = check_launches("data-sharded DVP artifact", {
+            "split_sampler": DATA_SHARDS * len(batches)})
+        if L.COUNTS["rendezvous"] != meets * len(batches):
+            raise AssertionError(
+                f"{L.COUNTS['rendezvous']} rendezvous over {len(batches)} "
+                f"batches, the program meets {meets} times a batch")
+        t0 = time.perf_counter()
+        for _ in range(DVP_REPEATS):
+            list(art.predict_batches(batches, key=key))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        art.close()
+    del art
+    free_cuda()
+    e, ld, r, mb = unsharded
+    log(f"data-sharded DVP artifact (export-serving --dvp --data_shards "
+        f"{DATA_SHARDS}, full width, b{BATCH} x {NUM_MC} as {DATA_SHARDS} "
+        f"shards of {BATCH // DATA_SHARDS} rows on cuda:0): export "
+        f"{t_export:.2f} s, load {t_load:.2f} s, program.pt2 {size:.1f} MB, "
+        f"predict_batches {DVP_REPEATS} x {N_SAMPLES} patches in {wall:.3f} "
+        f"s = {DVP_REPEATS * N_SAMPLES / wall:.3f} patches/s, {meets} "
+        f"rendezvous a batch; unsharded DVP artifact: export {e:.2f} s, load "
+        f"{ld:.2f} s, {mb:.1f} MB, {r:.3f} patches/s [{smi}]; launches "
+        f"{launches}; the first batch: the shards' draws bit-equal, logits "
+        f"bit-equal to the data=2 mesh's DVP logits of two gloo ranks "
+        f"({t_mesh:.1f} s), the local-sums fault (off the mesh by "
+        f"{_rel_err(bad_sums, mesh):.3e} of the largest logit) and the "
+        f"wrong-rows fault ({_rel_err(bad_rows, mesh):.3e}) not; off the "
+        f"unsharded DVP artifact's by {_rel_err(got, unsharded_logits):.3e}",
+        summary=True)
+    return launches["split_sampler"]
 
 
 def check_probe_kernels(P_full: int) -> None:
@@ -4253,7 +4443,7 @@ def main() -> int:
     ap.add_argument("--weights", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank is not None:
-        return (serving_rank(args) if args.job == "serving"
+        return (serving_rank(args) if args.job.startswith("serving")
                 else parallel_rank(args))
 
     # every phase passes its weights as a local file: never try the Hub
@@ -4315,7 +4505,7 @@ def main() -> int:
             e["launches"] += (retrain[e["name"]] + studies.get(e["name"], 0)
                               + learning.get(e["name"], 0))
         kernels_line += phase_probe(smi, P_full)
-    log("summary of phases 15 and 17-21:\n  " + "\n  ".join(SUMMARY))
+    log("summary of phases 15, 16 (f) and 17-21:\n  " + "\n  ".join(SUMMARY))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -5,9 +5,9 @@
 Every flag of the JAX package's CLI, with its defaults; ``--devices`` is
 accepted and informational. One flag is added: ``--device`` (default
 ``cuda``, the card; ``cpu`` runs every kernel's plain version);
-``data-prep`` is host work and takes none. A path not ported yet (the DVP
-program with ``--data_shards``) exits non-zero with a message naming its
-ROADMAP item.
+``data-prep`` is host work and takes none. A refusal of the port
+(``NotImplementedError``, e.g. a GeoTIFF compression the reader does not
+decode) exits 2 with its message.
 """
 from __future__ import annotations
 
@@ -446,7 +446,7 @@ def main(argv: Optional[list] = None) -> int:
         return 2
     try:
         return _COMMANDS[argv[0]](argv[1:])
-    except NotImplementedError as e:  # a path not ported yet, by its item
+    except NotImplementedError as e:  # a refusal, with what it refuses
         print(f"error: {e}", file=sys.stderr)
         return 2
 

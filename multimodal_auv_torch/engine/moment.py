@@ -62,7 +62,11 @@ from multimodal_auv_torch.ops.sampling import (
     chunk_seed_words,
     split_draws,
 )
-from multimodal_auv_torch.parallel.collectives import gather_rows, sync_sums
+from multimodal_auv_torch.parallel.collectives import (
+    gather_rows,
+    own_rows,
+    sync_sums,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -385,7 +389,11 @@ def make_dvp_logits_fn(bundle: ModelBundle, num_feature_samples: int,
     ``bn_sync(mesh.data_axis)``, so the moment BN's statistics are the
     global batch's); the pooled feature moments are gathered over the data
     axis, the draws and the head run on the global batch, as without a
-    mesh, and the logits of this rank's rows are returned."""
+    mesh, and the logits of this rank's rows are returned (``own_rows``).
+    On a mesh whose data axis is ``local_shards(N)`` (``parallel/mesh.py::
+    local_shards_mesh``) the gather and the slice are the ops
+    ``auv::shard_gather`` and ``auv::shard_rows``, which ``torch.export``
+    traces (serving.py's data-sharded DVP program)."""
     module, meta = bundle.module, bundle.meta
     trunk = getattr(module, _TRUNKS[0])
     stage_sizes = trunk.stage_sizes
@@ -410,9 +418,7 @@ def make_dvp_logits_fn(bundle: ModelBundle, num_feature_samples: int,
                       num_feature_samples)
         logits = _multimodal_head(draws, layout)
         if mesh is not None:
-            b = inputs[0].shape[0]
-            i = mesh.data_axis.index
-            logits = logits[:, i * b:(i + 1) * b]
+            logits = own_rows(logits, mesh.data_axis, dim=1)
         return logits
 
     logits_fn.layout = layout

@@ -27,10 +27,13 @@ checkpointed chunk's re-forward) runs on the autograd engine's device
 thread, which sees no context variable of the caller's.
 
 ``local_shards(N)`` is the axis of N data shards of one process, each run
-by a thread of its own (``parallel/local_shards.py``): under its
-``bn_sync`` the BN sums go through the op ``auv::shard_sum``, which a
+by a thread of its own (``parallel/local_shards.py``), whose ops a
 ``torch.export`` program can hold where it cannot hold a collective
-(serving.py's data-sharded artifacts). It carries no other collective.
+(serving.py's data-sharded artifacts): under its ``bn_sync`` the BN sums
+go through ``auv::shard_sum``; on it ``gather_rows`` is one
+``auv::shard_gather`` and ``own_rows`` one ``auv::shard_rows``. It
+carries no other collective (``gather_draws``' backward and the
+optimizer's sums are not for it).
 """
 from __future__ import annotations
 
@@ -41,8 +44,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
-# registers torch.ops.auv.shard_sum
-from multimodal_auv_torch.parallel import local_shards as _local_shards  # noqa: F401
+# also registers torch.ops.auv.shard_sum, shard_gather and shard_rows
+from multimodal_auv_torch.parallel import local_shards as _local_shards
 
 # collectives this process issued, by kind; BatchNorm's forward reductions
 # also count under "bn" (a checkpointed chunk's re-forward counts again)
@@ -117,14 +120,29 @@ def all_reduce_sum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 def gather_rows(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Concatenate every rank's ``x`` (equal shapes) along dimension 0 in
-    axis order: an all_reduce into a zero-filled buffer. Not
+    axis order: an all_reduce into a zero-filled buffer (on a
+    ``local_shards`` axis one ``auv::shard_gather``). Not
     differentiable."""
     if axis.size == 1:
         return x
+    if axis.group == LOCAL_SHARDS:
+        return torch.ops.auv.shard_gather(x, axis.size)
     n = x.shape[0]
     buf = x.new_zeros((axis.size * n,) + tuple(x.shape[1:]))
     buf[axis.index * n:(axis.index + 1) * n] = x
     return all_reduce_(buf, axis)
+
+
+def own_rows(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
+    """This member's 1/size slice of ``x`` along ``dim``, the inverse of
+    ``gather_rows``: a slice by ``axis.index`` on a process mesh, one
+    ``auv::shard_rows`` on a ``local_shards`` axis (whose index is the
+    worker thread's); ``x`` itself on an axis of size 1."""
+    if axis.size == 1:
+        return x
+    if axis.group == LOCAL_SHARDS:
+        return torch.ops.auv.shard_rows(x, axis.size, dim)
+    return _local_shards.rows_of(x, axis.size, dim, axis.index)
 
 
 class _GatherDraws(torch.autograd.Function):

@@ -1,42 +1,53 @@
-"""Data shards of one process: the op ``auv::shard_sum``, which sums a
-BatchNorm layer's statistics over N threads that each run one data shard
-of a batch (serving.py's data-sharded artifacts).
+"""Data shards of one process: the ops ``auv::shard_sum``,
+``auv::shard_gather`` and ``auv::shard_rows``, which a program run by N
+threads, each on one data shard of a batch, calls where a mesh rank calls
+a collective (serving.py's data-sharded artifacts).
 
 Train-mode BatchNorm normalises over the global batch, so a batch split
 over N shards needs the sum of the shards' per-channel sums inside every
-BN layer. A ``torch.export`` program holds no collective, so the exported
-per-shard program calls this op where a mesh rank calls ``all_reduce``
-(``parallel/collectives.py::sync_sums`` under ``bn_sync(local_shards(N))``).
-At serving time N worker threads run the N shards' programs at once; each
-thread sets its shard context (``shard_context``: its ``ShardGroup`` and
-its index) and the op meets the other shards there:
+BN layer; DVP (``engine/moment.py``) draws its features for the whole
+batch and keeps its own rows after the head. A ``torch.export`` program
+holds no collective, and a shard's index is its thread's at serving time,
+not a constant at trace time, so the exported per-shard program calls
+these ops (``parallel/collectives.py``: ``sync_sums`` under
+``bn_sync(local_shards(N))``, ``gather_rows`` and ``own_rows`` on a
+``local_shards`` axis). At serving time N worker threads run the N
+shards' programs at once; each thread sets its shard context
+(``shard_context``: its ``ShardGroup`` and its index):
 
-* shard i writes its tensor into slot i and waits at a barrier for all N;
-* it sums the slots in shard order 0..N-1, each copied to its own device,
-  so every shard gets the same total bit for bit;
-* it waits at a second barrier before any slot can be written again.
+* ``shard_sum(x, N)``: the sum of the shards' ``x`` in shard order;
+* ``shard_gather(x, N)``: the shards' ``x`` concatenated along dimension
+  0 in shard order;
+* ``shard_rows(x, N, dim)``: this shard's 1/N slice of ``x`` along
+  ``dim``. It meets no one.
+
+The first two meet the other shards (``ShardGroup._meet``): shard i writes
+its tensor into slot i and waits at a barrier for all N; it combines the
+slots in shard order 0..N-1, each copied to its own device, so every shard
+gets the same result bit for bit; it waits at a second barrier before any
+slot can be written again.
 
 Both barriers have a timeout. A worker that fails calls ``abort`` on its
 groups, so the other shards raise ``threading.BrokenBarrierError`` at once
-instead of waiting. The op never returns the local sums alone: outside a
-shard context, or in a group of another size, it raises.
+instead of waiting. No op falls back to the local tensor: outside a shard
+context, or in a group of another size, each raises.
 
 The shards' Python takes turns (``Turn``): a worker runs its program only
-while it holds the turn, and gives it up inside the op while it waits for
+while it holds the turn, and gives it up inside an op while it waits for
 the others. PyTorch releases the GIL in every op call, so two workers
 running at once hand the GIL over at every op (tens of thousands of
 handovers a batch, which made one b4 x 20 batch 6.5x slower than the
 unsharded artifact's on an H100); in turns, each shard's dispatch runs
 alone and the device still runs every queued kernel asynchronously.
 
-The fake implementation (``torch.empty_like``) is what ``torch.export``
-traces, so tracing runs no rendezvous.
+Each op's fake implementation (the output's shape alone) is what
+``torch.export`` traces, so tracing runs no rendezvous.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -50,10 +61,10 @@ COUNTS = {"rendezvous": 0}
 
 
 class ShardGroup:
-    """The N shards that meet in ``auv::shard_sum``: one slot per shard and
-    two reusable barriers. Every shard must call the op the same number of
-    times, in the same order (one call per BatchNorm layer of the same
-    program)."""
+    """The N shards that meet in ``auv::shard_sum`` and
+    ``auv::shard_gather``: one slot per shard and two reusable barriers.
+    Every shard must call the ops the same number of times, in the same
+    order (the same program)."""
 
     def __init__(self, size: int, timeout: float = DEFAULT_TIMEOUT):
         self.size = int(size)
@@ -67,19 +78,17 @@ class ShardGroup:
         self._filled.abort()
         self._read.abort()
 
-    def sum(self, index: int, x: torch.Tensor,
-            turn: Optional["Turn"] = None) -> torch.Tensor:
-        """The sum of every shard's ``x`` in shard order, on ``x``'s device:
-        a new tensor, the same bits on every shard. ``turn``: given up
-        while the shards meet, taken again before returning."""
+    def _meet(self, index: int, x: torch.Tensor, combine: Callable,
+              turn: Optional["Turn"]) -> torch.Tensor:
+        """``combine`` of every shard's ``x`` in shard order, each copied
+        to ``x``'s device. ``turn``: given up while the shards meet, taken
+        again before returning."""
         self._slots[index] = x
         if turn is not None:
             turn.give()
         self._filled.wait()
         try:
-            total = self._slots[0].to(x.device)
-            for s in self._slots[1:]:
-                total = total + s.to(x.device)
+            out = combine([s.to(x.device) for s in self._slots])
         except BaseException:
             self.abort()
             raise
@@ -87,7 +96,26 @@ class ShardGroup:
         self._read.wait()
         if turn is not None:
             turn.take()
-        return total
+        return out
+
+    def sum(self, index: int, x: torch.Tensor,
+            turn: Optional["Turn"] = None) -> torch.Tensor:
+        """The sum of every shard's ``x`` in shard order, on ``x``'s device:
+        a new tensor, the same bits on every shard."""
+        return self._meet(index, x, _sum_in_order, turn)
+
+    def gather(self, index: int, x: torch.Tensor,
+               turn: Optional["Turn"] = None) -> torch.Tensor:
+        """Every shard's ``x`` (equal shapes) concatenated along dimension
+        0 in shard order, on ``x``'s device."""
+        return self._meet(index, x, torch.cat, turn)
+
+
+def _sum_in_order(slots):
+    total = slots[0]
+    for s in slots[1:]:
+        total = total + s
+    return total
 
 
 class Turn:
@@ -133,26 +161,76 @@ def current_shard() -> Optional[tuple]:
     return getattr(_CTX, "shard", None)
 
 
+def _shard(op: str, nshards: int) -> tuple:
+    """This thread's (group, index, turn) for ``op`` over ``nshards``
+    shards; raises outside a shard context or in a group of another
+    size."""
+    ctx = current_shard()
+    if ctx is None:
+        raise RuntimeError(
+            f"auv::{op} outside a data shard: a data-sharded program runs "
+            f"only in the loader's shard workers (serving.py), which meet "
+            f"there over the shards")
+    if ctx[0].size != nshards:
+        raise RuntimeError(f"auv::{op} over {nshards} shards in a group of "
+                           f"{ctx[0].size}")
+    return ctx
+
+
+def _counted(index: int, out: torch.Tensor) -> torch.Tensor:
+    if index == 0:
+        COUNTS["rendezvous"] += 1
+    return out
+
+
 @torch.library.custom_op("auv::shard_sum", mutates_args=())
 def shard_sum(x: torch.Tensor, nshards: int) -> torch.Tensor:
     """The sum of ``x`` over the ``nshards`` data shards of this thread's
     group (module docstring). One implementation for every device."""
-    ctx = current_shard()
-    if ctx is None:
-        raise RuntimeError(
-            "auv::shard_sum outside a data shard: a data-sharded program "
-            "runs only in the loader's shard workers (serving.py), which "
-            "sum its BatchNorm statistics over the shards")
-    group, index, turn = ctx
-    if group.size != nshards:
-        raise RuntimeError(f"auv::shard_sum over {nshards} shards in a group "
-                           f"of {group.size}")
-    total = group.sum(index, x, turn)
-    if index == 0:
-        COUNTS["rendezvous"] += 1
-    return total
+    group, index, turn = _shard("shard_sum", nshards)
+    return _counted(index, group.sum(index, x, turn))
 
 
 @shard_sum.register_fake
 def _shard_sum_fake(x, nshards):
     return torch.empty_like(x)
+
+
+@torch.library.custom_op("auv::shard_gather", mutates_args=())
+def shard_gather(x: torch.Tensor, nshards: int) -> torch.Tensor:
+    """``x`` of the ``nshards`` data shards of this thread's group,
+    concatenated along dimension 0 in shard order (module docstring). One
+    implementation for every device."""
+    group, index, turn = _shard("shard_gather", nshards)
+    return _counted(index, group.gather(index, x, turn))
+
+
+@shard_gather.register_fake
+def _shard_gather_fake(x, nshards):
+    return x.new_empty((nshards * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def rows_of(x: torch.Tensor, nshards: int, dim: int,
+            index: int) -> torch.Tensor:
+    """Shard ``index``'s 1/``nshards`` slice of ``x`` along ``dim`` (a
+    view)."""
+    n = x.shape[dim] // nshards
+    return x.narrow(dim, index * n, n)
+
+
+@torch.library.custom_op("auv::shard_rows", mutates_args=())
+def shard_rows(x: torch.Tensor, nshards: int, dim: int) -> torch.Tensor:
+    """This thread's shard's 1/``nshards`` slice of ``x`` along ``dim``
+    (a copy: an op's output may not alias its input). It meets no one."""
+    _, index, _ = _shard("shard_rows", nshards)
+    if x.shape[dim] % nshards:
+        raise ValueError(f"auv::shard_rows: dimension {dim} of size "
+                         f"{x.shape[dim]} over {nshards} shards")
+    return rows_of(x, nshards, dim, index).clone()
+
+
+@shard_rows.register_fake
+def _shard_rows_fake(x, nshards, dim):
+    shape = list(x.shape)
+    shape[dim] = shape[dim] // nshards
+    return x.new_empty(shape)

@@ -38,7 +38,7 @@ import torch.distributed as dist
 
 from multimodal_auv_torch.config import MeshSpec
 from multimodal_auv_torch.parallel import distributed as D
-from multimodal_auv_torch.parallel.collectives import Axis
+from multimodal_auv_torch.parallel.collectives import LOCAL, Axis, local_shards
 
 logger = logging.getLogger(__name__)
 
@@ -66,6 +66,15 @@ class Mesh:
     @property
     def coords(self) -> Tuple[int, int]:
         return self.data_axis.index, self.mc_axis.index
+
+
+def local_shards_mesh(n: int) -> Mesh:
+    """The mesh of ``n`` data shards run by threads of this process
+    (serving.py's data-sharded DVP program): its data axis
+    ``local_shards(n)``, whose index is the worker thread's at run time;
+    the other axes of size 1."""
+    return Mesh(data=int(n), mc=1, rank=0, data_axis=local_shards(n),
+                mc_axis=LOCAL, world_axis=LOCAL)
 
 
 def mesh_shape(spec: Optional[MeshSpec]) -> Tuple[int, int]:

@@ -62,7 +62,18 @@ on N x M devices, data shard d's mc shard m on device d M + m (the order
 of JAX's ``Mesh(devices.reshape(data, mc))``); the data shards of one mc
 column draw from the same seed row, so the same weights. On one card the
 shards share the card: the layout checks the semantics, it does not
-scale. DVP with ``data_shards`` is not ported (ROADMAP item 8c).
+scale.
+
+The DVP program with ``data_shards=N`` is one data shard's DVP logits
+function (engine/moment.py) over a local-shards mesh
+(``parallel/mesh.py::local_shards_mesh``), traced at b / N rows under
+``bn_sync(local_shards(N))``: its moment BN sums go through
+``auv::shard_sum``; it gathers the shards' pooled feature moments with
+``auv::shard_gather``, draws every row's features and head weights with
+one split-sampler call from the one seed row (the same draws on every
+shard), runs the head on the whole batch and keeps its own rows with
+``auv::shard_rows``, whose index is the worker thread's shard. The
+loader runs it as any data-sharded program, one chunk of all the draws.
 
 The program is traced on the device that will serve it: ops that build
 tensors bake that device into the graph, so the loader refuses a device
@@ -91,7 +102,8 @@ from multimodal_auv_torch.ops.sampling import (
     chunk_seed_words,
     draw_offset_seed,
 )
-# also registers torch.ops.auv.shard_sum, which data-sharded programs call
+# also registers torch.ops.auv.shard_sum, shard_gather and shard_rows,
+# which data-sharded programs call
 from multimodal_auv_torch.parallel.collectives import bn_sync, local_shards
 from multimodal_auv_torch.parallel.local_shards import (
     DEFAULT_TIMEOUT,
@@ -209,8 +221,10 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
     (module docstring); the loader runs it on N devices (N x M with
     ``mc_shards``). A static ``batch_size`` divisible by N; with
     ``bn_mode="eval"`` the program holds no op (no batch statistics). The
-    DVP program with N > 1 is not ported yet and raises, naming its
-    ROADMAP item (an MC fallback of the guardrail exports)."""
+    DVP program also gathers the shards' feature moments
+    (``auv::shard_gather``) and keeps its own rows of the whole batch's
+    logits (``auv::shard_rows``); an MC fallback of the guardrail exports
+    as an MC data-sharded program."""
     from multimodal_auv_torch.engine.predict import (
         _default_chunk,
         fused_outputs,
@@ -256,14 +270,20 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
         )
 
         spread = posterior_spread(bundle.post, bundle.meta)
-        step, exported_mode = make_dvp_predict_step(
+        _, exported_mode = make_dvp_predict_step(
             bundle, num_mc_samples, on_excess=dvp_on_excess,
             packed_inputs=True, mc_chunk=mc_chunk, return_mode=True,
             spread=spread)
-    if exported_mode == "dvp" and data_shards > 1:
-        raise NotImplementedError(_DVP_DATA_SHARDS_NOT_PORTED)
     if exported_mode == "dvp":
-        logits_fn, logits_dtype = step.logits_fn, torch.float32
+        from multimodal_auv_torch.engine.moment import make_dvp_logits_fn
+        from multimodal_auv_torch.parallel.mesh import local_shards_mesh
+
+        # data shards: the feature gathers and the own-rows slice meet the
+        # shards' threads
+        logits_fn = make_dvp_logits_fn(
+            bundle, num_mc_samples, packed_inputs=True,
+            mesh=local_shards_mesh(data_shards) if data_shards > 1 else None)
+        logits_dtype = torch.float32
         mc_chunk = num_mc_samples
     else:
         mc_chunk = _default_chunk(num_mc_samples, mc_chunk)
@@ -307,7 +327,8 @@ def export_predict_artifact(bundle, out_dir: str, *, batch_size,
                       {0: batch})
         reduce_dims = ({1: batch},)
     with torch.no_grad():
-        # a data shard's BN sums: one auv::shard_sum per BN call
+        # a data shard's BN sums: one auv::shard_sum per BN call (DVP's
+        # gathers and own rows on the same axis)
         with bn_sync(local_shards(data_shards) if data_shards > 1 else None):
             program = torch.export.export(
                 ChunkProgram(), (leaves, u8, seeds, mask),
@@ -397,13 +418,6 @@ def _drop_stack_traces(program) -> None:
 def _release(version: str) -> str:
     """A torch version without its local build tag ("2.5.1+cu124")."""
     return version.split("+")[0]
-
-
-_DVP_DATA_SHARDS_NOT_PORTED = (
-    "data_shards > 1 with the DVP program is not ported yet: ROADMAP.md, "
-    "Open items, 1 'Modules to port' item 8c (DVP x data_shards): its "
-    "draws are laid out by global row (a gather over the shards) and "
-    "each shard keeps its own rows")
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -527,7 +541,7 @@ class ServingArtifact:
     data-sharded artifact starts one worker thread per data shard;
     ``close`` stops them (a later call starts them again).
     ``shard_timeout``: seconds a data shard waits for the others at one
-    BN rendezvous (``local_shards.DEFAULT_TIMEOUT``)."""
+    rendezvous (``local_shards.DEFAULT_TIMEOUT``)."""
 
     def __init__(self, programs: dict, reduce, state_leaves: dict,
                  meta: dict, devices):
@@ -704,8 +718,10 @@ class ServingArtifact:
         on its b / N rows for every row i of ``seeds`` in order, on device
         d * mc_shards + i % mc_shards, as shard d of mc column i %
         mc_shards's group (the op ``auv::shard_sum`` sums the column's N
-        shards' BN statistics); the logits are gathered on the first device
-        along the batch in shard order. The workers' Python runs in turns
+        shards' BN statistics; a DVP program's ``auv::shard_gather`` and
+        ``auv::shard_rows`` meet in the same group and read the same
+        index); the logits are gathered on the first device along the
+        batch in shard order. The workers' Python runs in turns
         (``local_shards.Turn``)."""
         N, M = self.data_shards, self.mc_shards
         rows = u8_inputs[0].shape[0] // N

@@ -113,11 +113,14 @@ def test_same_argv_same_kwargs_as_jax(monkeypatch, command, flags):
 # data-prep subcommand of item 9, ported since; it runs on a raw tree.
 # MC_SHARDS: the mc-sharded export of item 8a, ported since; it writes an
 # mc-sharded artifact. DATA_SHARDS: the batch-sharded export of item 8b,
-# ported since; it writes a data-sharded artifact.
+# ported since; it writes a data-sharded artifact. DVP_DATA_SHARDS: the
+# data-sharded DVP export of item 8c, ported since; it writes a
+# data-sharded DVP artifact.
 RUNS = "runs"
 DATA_PREP = "data-prep runs"
 MC_SHARDS = "mc-sharded export runs"
 DATA_SHARDS = "data-sharded export runs"
+DVP_DATA_SHARDS = "data-sharded DVP export runs"
 NOT_PORTED = [
     ("retrain", ["--mesh_data", "2"], None),
     ("retrain", ["--mesh_mc", "2"], None),
@@ -131,6 +134,7 @@ NOT_PORTED = [
     ("train-scratch", ["--remat", "auto"], RUNS),
     ("export-serving", ["--mc_shards", "2"], MC_SHARDS),
     ("export-serving", ["--data_shards", "2"], DATA_SHARDS),
+    ("export-serving", ["--dvp", "--data_shards", "2"], DVP_DATA_SHARDS),
     ("data-prep", [], DATA_PREP),
 ]
 
@@ -152,8 +156,10 @@ def test_unported_flags_exit_non_zero(monkeypatch, capsys, tmp_path,
     --mc_shards 2`` (item 8a, ported) writes an mc-sharded artifact on the
     CPU at micro() size that loads on two CPU shards; ``--data_shards 2``
     (item 8b, ported) a data-sharded one (one draw a chunk), which loads on
-    two CPU shards with one worker thread each."""
-    if item in (MC_SHARDS, DATA_SHARDS):
+    two CPU shards with one worker thread each; ``--dvp --data_shards 2``
+    (item 8c, ported) a data-sharded DVP one (all the draws in one
+    chunk), which predicts on two CPU shards."""
+    if item in (MC_SHARDS, DATA_SHARDS, DVP_DATA_SHARDS):
         from multimodal_auv_torch.models.model_utils import ArchConfig
         from multimodal_auv_torch.serving import load_predict_artifact
 
@@ -171,10 +177,12 @@ def test_unported_flags_exit_non_zero(monkeypatch, capsys, tmp_path,
                 2, 1, "mc")
             assert (art.mc_shards, art.shard_rows, art.nchunks) == (2, 2, 1)
             return
+        dvp = item == DVP_DATA_SHARDS
         assert (meta["mc_shards"], meta["data_shards"], meta["mode"]) == (
-            1, 2, "mc")
+            1, 2, "dvp" if dvp else "mc")
         try:
-            assert (art.data_shards, art.shard_rows, art.nchunks) == (2, 1, 4)
+            assert (art.data_shards, art.shard_rows, art.nchunks) == (
+                (2, 4, 1) if dvp else (2, 1, 4))
             rng = np.random.default_rng(0)
             px = art.image_size
             out = art.predict(*[rng.integers(0, 255, (4, px, px, c),

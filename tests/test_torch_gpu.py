@@ -459,6 +459,50 @@ def test_data_sharded_artifact_on_two_cards(tmp_path):
     assert float(err) <= 1e-5
 
 
+def test_dvp_data_sharded_artifact_on_two_cards(tmp_path):
+    """A data_shards=2 DVP micro() artifact exported on cuda:0 and loaded
+    with its default devices runs data shard 1 on cuda:1 (its moment BN
+    sums and its two feature gathers meeting across the cards, its own
+    rows kept by its worker's shard index): the logits on cuda:0 equal the
+    same artifact's with both shards on cuda:0 bit for bit, and the
+    unsharded DVP artifact's within 1e-5 of the largest; one split launch
+    per shard (each draws the whole batch's features)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from multimodal_auv_torch.serving import (
+        export_predict_artifact,
+        load_predict_artifact,
+    )
+
+    bundle = make_multimodal_bundle(3, BNNPriorSpec(),
+                                    torch.Generator().manual_seed(0),
+                                    ArchConfig.micro(), device="cuda:0")
+    one, d = str(tmp_path / "one"), str(tmp_path / "d2")
+    kw = dict(batch_size=4, num_mc_samples=4, image_size=32, mode="dvp")
+    export_predict_artifact(bundle, one, **kw)
+    export_predict_artifact(bundle, d, data_shards=2, **kw)
+    rng = np.random.default_rng(0)
+    u8 = [rng.integers(0, 256, (4, 32, 32, c), dtype=np.uint8)
+          for c in (3, 3, 1)]
+    art = load_predict_artifact(d)
+    same = load_predict_artifact(d, devices=["cuda:0", "cuda:0"])
+    try:
+        assert art.meta["mode"] == "dvp" and art.devices == [
+            torch.device("cuda", 0), torch.device("cuda", 1)]
+        before = kernels.LAUNCHES["split_sampler"]
+        got = art.predict_logits(*u8, key=7)
+        torch.cuda.synchronize(1)
+        assert kernels.LAUNCHES["split_sampler"] == before + 2
+        assert got.device == torch.device("cuda", 0)
+        assert torch.equal(got, same.predict_logits(*u8, key=7))
+    finally:
+        art.close()
+        same.close()
+    want = load_predict_artifact(one).predict_logits(*u8, key=7)
+    err = (got - want).abs().max() / want.abs().max()
+    assert float(err) <= 1e-5
+
+
 @pytest.mark.parametrize("noise", S.NOISE_MODES)
 def test_noise_parts_bit_equal_plain_all_words(noise):
     """The device functions of every noise kernel (radius of b1, sin and

@@ -236,6 +236,21 @@ def pipelines():
     np.save(os.path.join(work, f"mesh_logits_{{rank}}.npy"),
             seen[0].float().numpy())
 
+    # the DVP logits function on the same mesh and batch: this rank's
+    # rows, which a data-sharded DVP serving artifact must reproduce
+    from multimodal_auv_torch.engine.moment import make_dvp_logits_fn
+    from multimodal_auv_torch.ops.sampling import chunk_seed_words
+    from multimodal_auv_torch.parallel.collectives import bn_sync
+    data2 = M.make_mesh(mesh)
+    dvp = make_dvp_logits_fn(b, {serve_mc}, packed_inputs=True, mesh=data2)
+    with torch.no_grad(), bn_sync(data2.data_axis):
+        logits = dvp(b.post, b.batch_stats,
+                     [x[2 * rank:2 * rank + 2] for x in u8],
+                     chunk_seed_words(torch.Generator().manual_seed(
+                         {serve_seed}), 1))
+    np.save(os.path.join(work, f"mesh_dvp_logits_{{rank}}.npy"),
+            logits.numpy())
+
 
 try:
     {{"steps": steps, "pipelines": pipelines}}[group]()
@@ -837,3 +852,49 @@ def test_data_sharded_artifact_equals_mesh_step(pipelines_run, tmp_path):
         art.close()
     assert mesh.shape == (SERVE_MC, 4, SERVE_CLASSES)
     np.testing.assert_array_equal(got.float().numpy(), mesh)
+
+
+def test_dvp_data_sharded_artifact_equals_mesh_step(pipelines_run,
+                                                    tmp_path, monkeypatch):
+    """A data_shards=2 DVP serving artifact (serving.py: one data shard's
+    DVP program, its moment BN sums through ``auv::shard_sum``, its
+    feature moments gathered with ``auv::shard_gather`` and its own rows
+    kept with ``auv::shard_rows``) against the DVP logits function on the
+    data=2 mesh of two gloo ranks (saved by the ``pipelines`` group) at
+    the same seed words: bit for bit. A planted wrong-rows fault (each
+    shard handed the other shard's slice) fails the same gate."""
+    from multimodal_auv_torch.models.model_utils import make_multimodal_bundle
+    from multimodal_auv_torch.parallel import local_shards as L
+    from multimodal_auv_torch.serving import (
+        export_predict_artifact,
+        load_predict_artifact,
+    )
+
+    work, _ = pipelines_run
+    mesh = np.concatenate([np.load(os.path.join(
+        work, f"mesh_dvp_logits_{r}.npy")) for r in range(2)], axis=1)
+    bundle = make_multimodal_bundle(SERVE_CLASSES, BNNPriorSpec(),
+                                    torch.Generator().manual_seed(0),
+                                    ArchConfig.micro(), device="cpu")
+    d = str(tmp_path / "dvp")
+    export_predict_artifact(bundle, d, batch_size=4,
+                            num_mc_samples=SERVE_MC, image_size=32,
+                            mode="dvp", data_shards=2)
+    art = load_predict_artifact(d, devices=["cpu", "cpu"])
+    rng = np.random.default_rng(SERVE_SEED)
+    batch = [rng.integers(0, 255, (4, 32, 32, c), dtype=np.uint8)
+             for c in (3, 3, 1)]
+    try:
+        assert (art.meta["mode"], art.data_shards, art.nchunks) == (
+            "dvp", 2, 1)
+        got = art.predict_logits(*batch, key=SERVE_SEED)
+        rows_of = L.rows_of
+        monkeypatch.setattr(L, "rows_of", lambda x, n, dim, i: rows_of(
+            x, n, dim, (i + 1) % n))
+        bad = art.predict_logits(*batch, key=SERVE_SEED)
+    finally:
+        art.close()
+    assert mesh.shape == (SERVE_MC, 4, SERVE_CLASSES)
+    assert float(np.abs(mesh).max()) > 1e-2
+    np.testing.assert_array_equal(got.numpy(), mesh)
+    assert not np.array_equal(bad.numpy(), mesh)

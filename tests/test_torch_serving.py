@@ -237,31 +237,39 @@ def test_polymorphic_batch_artifact(artifact, tmp_path):
 
 def test_refusals_name_their_items(artifact, tmp_path, monkeypatch):
     """Batch-sharded artifacts are ported (item 8b:
-    tests/test_torch_serving_data_shards*.py); the one path left, the DVP
-    program with data shards, raises naming ROADMAP item 8c, at export and
-    in the pipeline, before anything is written; a batch-sharded meta
-    loads as such, asking for one device per shard; platforms other than
-    the bundle's device and an unknown mode are refused; an artifact
+    tests/test_torch_serving_data_shards*.py), and so is the last path,
+    the DVP program with data shards (item 8c:
+    tests/test_torch_serving_dvp_data_shards.py): at export and in the
+    pipeline it writes a DVP artifact with two data shards that loads on
+    two CPU shards; a batch-sharded meta loads as such, asking for one
+    device per shard; platforms other than the bundle's device and an
+    unknown mode are refused, before anything is written; an artifact
     refuses a device of another type than it was exported on."""
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
 
     monkeypatch.setenv("HF_HUB_OFFLINE", "1")
     d, bundle, _ = artifact
     kw = dict(batch_size=B, num_mc_samples=MC, image_size=S)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        export_predict_artifact(bundle, str(tmp_path / "x"), data_shards=2,
-                                mode="dvp", dvp_on_excess="warn", **kw)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        export_auv_serving_artifact(
-            str(tmp_path / "x"), data_shards=2, use_dvp=True,
-            dvp_on_excess="warn", batch_size=B, num_mc_samples=MC,
-            num_classes=C, allow_random_init=True, arch=ARCH, device="cpu")
-    assert not os.path.exists(tmp_path / "x")
+    dvp = [str(tmp_path / "dvp"), str(tmp_path / "dvp_pipeline")]
+    export_predict_artifact(bundle, dvp[0], data_shards=2, mode="dvp",
+                            dvp_on_excess="warn", **kw)
+    export_auv_serving_artifact(
+        dvp[1], data_shards=2, use_dvp=True, dvp_on_excess="warn",
+        batch_size=B, num_mc_samples=MC, num_classes=C,
+        allow_random_init=True, arch=ARCH, device="cpu")
+    for a in dvp:
+        art = load_predict_artifact(a, devices=["cpu", "cpu"])
+        try:
+            assert (art.meta["mode"], art.meta["data_shards"],
+                    art.data_shards, art.nchunks) == ("dvp", 2, 2, 1)
+        finally:
+            art.close()
     with pytest.raises(ValueError, match="mode"):
         export_predict_artifact(bundle, str(tmp_path / "x"), mode="x", **kw)
     with pytest.raises(ValueError, match="platforms"):
         export_predict_artifact(bundle, str(tmp_path / "x"),
                                 platforms=["cuda"], **kw)
+    assert not os.path.exists(tmp_path / "x")
     for change, err, match in (({"data_shards": 2}, ValueError,
                                 r"2 x 1 \(data x mc\) shards but only 1 "
                                 "cpu devices"),

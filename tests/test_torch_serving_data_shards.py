@@ -173,10 +173,11 @@ def test_data_sharded_close_to_unsharded(arts, monkeypatch, n):
 
 def test_data_sharded_validation(bundle, arts, tmp_path):
     """JAX's export errors (a polymorphic batch; a batch not divisible by
-    the data shards); the DVP program with data shards refused naming
-    ROADMAP item 8c, before anything is written; the loader's device
-    count (shards from ``device``'s visible devices) and ``devices=``
-    length errors."""
+    the data shards), before anything is written; the DVP program with
+    data shards (ROADMAP item 8c, ported) exports and loads on two CPU
+    shards as one chunk of all the draws; the loader's device count
+    (shards from ``device``'s visible devices) and ``devices=`` length
+    errors."""
     x = str(tmp_path / "x")
     kw = dict(num_mc_samples=MC, image_size=PX)
     with pytest.raises(ValueError, match="static batch_size"):
@@ -185,10 +186,16 @@ def test_data_sharded_validation(bundle, arts, tmp_path):
     with pytest.raises(ValueError, match="batch_size 4 must be divisible "
                                          "by data_shards 3"):
         export_predict_artifact(bundle, x, batch_size=B, **kw, data_shards=3)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        export_predict_artifact(bundle, x, batch_size=B, **kw, mode="dvp",
-                                dvp_on_excess="warn", data_shards=2)
     assert not os.path.exists(x)
+    dvp = str(tmp_path / "dvp")
+    export_predict_artifact(bundle, dvp, batch_size=B, **kw, mode="dvp",
+                            dvp_on_excess="warn", data_shards=2)
+    art = load_predict_artifact(dvp, devices=["cpu", "cpu"])
+    try:
+        assert (art.meta["mode"], art.data_shards, art.mc_chunk,
+                art.nchunks) == ("dvp", 2, MC, 1)
+    finally:
+        art.close()
     d, _ = arts["d2"]
     with pytest.raises(ValueError, match=r"2 x 1 \(data x mc\) shards but "
                                          "only 1 cpu devices are visible"):
@@ -259,7 +266,8 @@ def test_failing_shard_raises_without_hanging(arts, monkeypatch):
 def test_rendezvous_and_launch_counts_under_thread_stress():
     """More shard threads than cores, a shortened switch interval: every
     shard's every ``auv::shard_sum`` returns the exact sum of the round's
-    inputs (a slot read after the next round's write breaks it), the
+    inputs and every ``auv::shard_gather`` the round's inputs in shard
+    order (a slot read after the next round's write breaks them), the
     threads take turns, and ``kernels.count`` from all of them loses no
     launch; each thread joins within its timeout."""
     import sys
@@ -284,6 +292,11 @@ def test_rendezvous_and_launch_counts_under_thread_stress():
                         torch.full((3,), float(r * n + d)), n)
                     want = sum(r * n + i for i in range(n))
                     if not torch.equal(got, torch.full((3,), float(want))):
+                        wrong.append((d, r, got))
+                    got = torch.ops.auv.shard_gather(
+                        torch.full((1,), float(r * n + d)), n)
+                    if not torch.equal(got, torch.arange(
+                            r * n, (r + 1) * n, dtype=torch.float32)):
                         wrong.append((d, r, got))
         except BaseException as e:  # noqa: BLE001 - reported below
             errors.append(e)

@@ -1,13 +1,15 @@
 """Data-sharded serving artifacts against the JAX package's own
 (multimodal_auv_torch/serving.py, ``data_shards``, alone and with
-``mc_shards``; the port against itself: tests/test_torch_serving_data_shards.py
-and tests/test_torch_serving_data_shards_composed.py).
+``mc_shards``, and the DVP program with ``data_shards``; the port against
+itself: tests/test_torch_serving_data_shards.py,
+tests/test_torch_serving_data_shards_composed.py and
+tests/test_torch_serving_dvp_data_shards.py).
 
-The posterior mean carried from JAX (rho = -30, so every draw is the bf16
+The posterior mean carried from JAX (rho = -30, so every draw is the
 posterior mean in both packages, whatever their noise): the port's
-data_shards=2 and (2 data x 2 mc) artifacts against the JAX package's own,
-which run on tests/conftest.py's 8 virtual CPU devices, to
-tests/test_torch_serving.py's tolerances.
+data_shards=2, (2 data x 2 mc) and data_shards=2 DVP artifacts against
+the JAX package's own, which run on tests/conftest.py's 8 virtual CPU
+devices, to tests/test_torch_serving.py's tolerances.
 """
 import json
 import os
@@ -47,8 +49,9 @@ def _one_intra_op_thread():
 @pytest.fixture(scope="module")
 def posterior_mean(tmp_path_factory):
     """The JAX micro() bundle with rho = -30, its JAX artifacts at
-    data_shards=2 and (2 data x 2 mc), and the port's of the same
-    posterior (carried by ``from_jax``), loaded on CPU devices."""
+    data_shards=2, (2 data x 2 mc) and DVP at data_shards=2, and the
+    port's of the same posterior (carried by ``from_jax``), loaded on CPU
+    devices; keyed (mode, data, mc)."""
     jb = jmake(C, JSpec(), jax.random.PRNGKey(0), JArch.micro())
     jb.post = jb.post.replace(rho=jnp.full_like(jb.post.rho, -30.0))
     tb = from_jax(np.asarray(jb.post.mu), np.asarray(jb.post.rho),
@@ -58,28 +61,31 @@ def posterior_mean(tmp_path_factory):
                    for e in jb.meta.entries],
                   num_classes=C, arch=ARCH, device="cpu")
     out = {}
-    for n, m in ((2, 1), (2, 2)):
-        jd = str(tmp_path_factory.mktemp(f"jax_d{n}m{m}"))
+    for mode, n, m in (("mc", 2, 1), ("mc", 2, 2), ("dvp", 2, 1)):
+        jd = str(tmp_path_factory.mktemp(f"jax_{mode}_d{n}m{m}"))
         jax_export(jb, jd, batch_size=B, num_mc_samples=MC, image_size=PX,
-                   data_shards=n, mc_shards=m)
-        d = str(tmp_path_factory.mktemp(f"port_d{n}m{m}"))
-        export_predict_artifact(tb, d, batch_size=B, num_mc_samples=MC,
-                                image_size=PX, data_shards=n, mc_shards=m,
-                                mc_chunk=1 if m == 1 else None)
-        out[(n, m)] = (jd, d, load_predict_artifact(
+                   mode=mode, data_shards=n, mc_shards=m)
+        d = str(tmp_path_factory.mktemp(f"port_{mode}_d{n}m{m}"))
+        export_predict_artifact(
+            tb, d, batch_size=B, num_mc_samples=MC, image_size=PX,
+            mode=mode, data_shards=n, mc_shards=m,
+            mc_chunk=1 if (mode, m) == ("mc", 1) else None)
+        out[(mode, n, m)] = (jd, d, load_predict_artifact(
             d, devices=["cpu"] * (n * m)))
     yield out
     for _, _, art in out.values():
         art.close()
 
 
-@pytest.mark.parametrize("shards", [(2, 1), (2, 2)], ids=["d2", "d2m2"])
+@pytest.mark.parametrize("shards", [("mc", 2, 1), ("mc", 2, 2),
+                                    ("dvp", 2, 1)],
+                         ids=["d2", "d2m2", "dvp_d2"])
 def test_equals_jax_artifact_at_posterior_mean(posterior_mean, shards):
     """The port's sharded artifact against the JAX package's with the same
-    shards on the same batch: predicted classes equal; mean_prob and the
-    aleatoric entropy to 1e-5 absolute; the predictive variance (~0 in
-    both) to 1e-6; meta.json has the JAX artifact's keys and
-    ``torch_version``, with the same shards."""
+    mode and shards on the same batch: predicted classes equal; mean_prob
+    and the aleatoric entropy to 1e-5 absolute; the predictive variance
+    (~0 in both) to 1e-6; meta.json has the JAX artifact's keys and
+    ``torch_version``, with the same mode and shards."""
     jd, d, art = posterior_mean[shards]
     batch = _batch(17)
     got = art.predict(*batch, key=0)
@@ -97,5 +103,6 @@ def test_equals_jax_artifact_at_posterior_mean(posterior_mean, shards):
     ours = json.load(open(os.path.join(d, "meta.json")))
     theirs = json.load(open(os.path.join(jd, "meta.json")))
     assert set(ours) == set(theirs) | {"torch_version"}
-    for k in ("data_shards", "mc_shards", "batch_size", "num_mc_samples"):
+    for k in ("mode", "data_shards", "mc_shards", "batch_size",
+              "num_mc_samples"):
         assert ours[k] == theirs[k], k
