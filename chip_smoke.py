@@ -31,7 +31,13 @@ result line):
    noise) at (0, 1); eps moments at full P; times beside the bound, the
    plain version and one library call (``torch.normal`` over the expanded
    (n, P) mu and sigma; ``torch.randn``); the autograd backward on the
-   card against autograd through the plain version (1e-6 relative).
+   card against autograd through the plain version (1e-6 relative). The
+   stacked sampler's bf16-output kernel (``bf16_stacked_kernel``: the
+   approximate noise and its bracket, with an exact path) against its
+   plain version bit for bit at the small P's for 1, 2, 3 and 10 draws,
+   bf16 and f32 in, on random, sigma = |mu| and bf16-tie posteriors
+   (``sampler_times.check_bf16_stacked``), the ties with exact-path calls
+   counted by the kernel > 0.
 6. training, card vs CPU: one micro() train step from the same seeds on
    both; loss and CE to 1e-4 relative, mu and rho gradients to 2e-2 with
    a leaf-scaled floor, new running statistics to 1e-5.
@@ -80,7 +86,10 @@ result line):
     the port of scripts/probe_rng_split.py): the device functions every
     noise kernel draws through (``noise_parts``: the radius and the
     angle's sin and cos of all 2^24 words, each polynomial set) against
-    their plain versions, bits compared; every kernel the probe launches
+    their plain versions, bits compared, and the bf16 stacked kernel's
+    approximate radius and angle over the same words against the f32
+    ones: every deviation within the bracket constants the library holds
+    (``sampler_times.check_bracket``); every kernel the probe launches
     (rng_bits, rng_bmlite, eps_fast, and the eps kernel in f32 and bf16)
     against its plain version, bits compared, at the small and
     quarter-ending P's, the full P, and the probe's own shapes (72,941,568
@@ -142,18 +151,24 @@ result line):
     (``mc_logits`` through ``gaussian_shift_scale``, one chunk of 20, bf16
     weights) at the same seeds and its CSV columns equal; kernel #2
     through the op ``auv::stacked_sampler`` (seed words read from device
-    memory) == its plain version at the shard's shape (10 draws x the full
-    P, bf16 in and out), its time beside its bound, the plain version and
-    ``torch.normal``; export s, load s and patches/s beside the unsharded
+    memory; its bf16 kernel) == its plain version at the shard's shape (10
+    draws x the full P, bf16 in and out), its time beside its bound, the
+    plain version and ``torch.normal``, the share of its Philox calls that
+    took the exact path (the kernel's own counter), and its time over ~2 s
+    of back-to-back calls beside the SM clock and power nvidia-smi read
+    meanwhile; export s, load s and patches/s beside the unsharded
     artifact's. Then the data-sharded artifact (``data_shards=
-    DATA_SHARDS``, chunk 2) exported from the same file and loaded with
-    both shards on cuda:0 (semantics, not scaling): on the first batch the
+    DATA_SHARDS``, chunk 2) at ResNet-50's widths with one bottleneck per
+    stage (PAR_STAGES, as phase 18), exported from a published-form file
+    written at that depth and loaded with both shards on cuda:0
+    (semantics, not scaling): on the first batch the
     two shards' draws bit-equal chunk by chunk and the logits bit-equal to
     the data=2 mesh step (the unfused packed step on two gloo ranks, this
     script with --rank --job serving, from the same file at the same
     seed), and a planted fault (``auv::shard_sum`` returning each shard's
-    local sums) not; the distance from the unsharded artifact's logits
-    printed beside its reduction-order control (the batch halves swapped)
+    local sums) not; the distance from the unsharded step's logits at
+    that depth printed beside its reduction-order control (the batch
+    halves swapped)
     and the unsharded step with its convolutions run per shard's rows
     (cuDNN's kernels at the shards' batch shape, which set that distance
     in bf16);
@@ -250,7 +265,8 @@ result line):
     chunk's rows at full P equal [w; (2 mu - w) formed in f32, cast to
     bf16] of the plain sampler bit for bit; micro() card == CPU (classes
     equal, uncertainty to 1e-4); kernel #2 with bf16 mu, sigma and output
-    at one draw against its byte bound and ``torch.normal``. (c) per-draw
+    at one draw (its bf16 kernel) == its plain version, its exact-path
+    share, its time against its byte bound and ``torch.normal``. (c) per-draw
     remat: one b12 x 20 MC train step in chunks of VAR_CHUNK (f32
     posterior): exactly 2 stacked_sampler and 2 eps launches, its time and
     peak memory; its gradients against remat off at VAR_GRAD_BATCH x
@@ -498,9 +514,7 @@ def philox_calls(P: int, num_draws: int) -> int:
     ``num_draws`` draws: one per call j whose element j lies inside P."""
     from multimodal_auv_torch.ops import sampling as S
 
-    full, rem = divmod(P, S.BLOCK_ELEMS)
-    return num_draws * (full * S.CALLS_PER_BLOCK
-                        + min(rem, S.CALLS_PER_BLOCK))
+    return S.philox_calls(P, num_draws)
 
 
 def philox_note(P: int, num_draws: int) -> str:
@@ -1152,8 +1166,9 @@ def parallel_rank(args) -> int:
 def serving_rank(args) -> int:
     """One rank of phase 15's data=2 mesh step (this script with --rank
     --job serving): the unfused packed step (chunk 2, bf16) on a data=2
-    mesh of two gloo ranks, from phase 13's file (``--weights``), on phase
-    4's first batch at the data-sharded artifact's seed; prints this rank's
+    mesh of two gloo ranks, at one bottleneck per stage (PAR_STAGES) from
+    the file phase 15 writes at that depth (``--weights``), on phase 4's
+    first batch at the data-sharded artifact's seed; prints this rank's
     rows of the logits as one ``PHASE15 {json}`` line. With --job
     serving_dvp, phase 16 (f)'s: the DVP logits function (b4 x 20 feature
     draws, f32) on the same mesh and batch at the data-sharded DVP
@@ -1177,7 +1192,12 @@ def serving_rank(args) -> int:
         process_id=args.rank, initialization_timeout=300, backend="gloo"))
     try:
         dev = resolve_device(None)
-        bundle = pretrained_bundle(NUM_CLASSES, BNNPriorSpec(), ArchConfig(),
+        # phase 15's data-sharded MC artifact runs at one bottleneck per
+        # stage (its file is written at that depth), phase 16 (f) at full
+        # depth
+        arch = (ArchConfig() if args.job == "serving_dvp"
+                else ArchConfig(stage_sizes=PAR_STAGES))
+        bundle = pretrained_bundle(NUM_CLASSES, BNNPriorSpec(), arch,
                                    args.seed, args.weights, False, dev)
         m, b, ss, mask = _padded_batches(os.path.join(args.work,
                                                       "packed"))[0][0]
@@ -1407,8 +1427,10 @@ def check_train_kernels(post, n_padded: int):
     from multimodal_auv_torch.bayes.packing import softplus
     from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
     from multimodal_auv_torch.ops import sampling as S
+    from multimodal_auv_torch.ops.sampler_times import check_bf16_stacked
 
     g = torch.Generator().manual_seed(1)
+    g_cuda = torch.Generator(device="cuda").manual_seed(1)
     cases = [("small", (torch.randn(P, generator=g).cuda(),
                         (torch.rand(P, generator=g) + 0.01).cuda()))
              for P in SMALL_PS]
@@ -1450,6 +1472,14 @@ def check_train_kernels(post, n_padded: int):
             del eps, want, at01, split, zeros, ones
         log(f"stacked_sampler, eps == plain bit for bit, eps == stacked(0, 1) "
             f"== split f32 (0, 1): {label} P={P}, chunks 1,2,3, f32 and bf16")
+    # the bf16 stacked kernel: 1-3 and 10 draws, bf16 and f32 in, random,
+    # sigma = |mu| and bf16-tie posteriors (exact-path calls counted > 0)
+    for P in SMALL_PS:
+        check_bf16_stacked(P, g_cuda)
+    log(f"stacked_sampler bf16 out (bf16_stacked_kernel) == plain bit for "
+        f"bit at P={', '.join(map(str, SMALL_PS))}, 1, 2, 3 and 10 draws, "
+        f"bf16 and f32 in; random, sigma = |mu| and tie posteriors, the ties "
+        f"taking the exact path")
 
     P = n_padded
     e0, e1 = (e.double() for e in S.gaussian_noise(P, (77, 5), 2, "cuda"))
@@ -2525,7 +2555,6 @@ def phase_serving(args, smi: str, work: str, weights: str) -> dict:
     if max(errs) > 1e-3:
         raise AssertionError(f"artifact vs in-process uncertainties: max abs "
                              f"err {max(errs)}")
-    half_conv = _half_batch_conv_logits(bundle, batches[0], fold_seed(key, 0))
     del bundle, step
     free_cuda()
     rate = N_SAMPLES / wall
@@ -2600,29 +2629,16 @@ def phase_serving(args, smi: str, work: str, weights: str) -> dict:
         f" (two unseeded ones concurrent); seeded answer == predict(key=7); "
         f"shut down in {t_stop:.2f} s; launches {launches} = 10 x device "
         f"calls")
-    # the first batch's logits, beside which the data-sharded artifact's
-    # are reported, and its reduction-order control (the batch halves
-    # swapped, the output swapped back)
-    swap = [BATCH // 2 + i for i in range(BATCH // 2)] + list(
-        range(BATCH // 2))
-    m, b, ss, mask = batches[0]
-    seed = fold_seed(key, 0)
-    unsharded_logits = [
-        art.predict_logits(m, b, ss, key=seed, mask=mask).float().cpu(),
-        art.predict_logits(m[swap], b[swap], ss[swap], key=seed,
-                           mask=mask[swap])[:, swap].float().cpu(),
-        half_conv]
     del art
     free_cuda()
     unsharded = (t_export, t_load, rate, sizes["program.pt2"])
-    stacked, mc_sharded = phase_serving_mc_shards(args, smi, work, weights,
-                                                  batches, key, unsharded)
+    stacked, mc_sharded, bf16_entry = phase_serving_mc_shards(
+        args, smi, work, weights, batches, key, unsharded)
     free_cuda()
-    n_launches += phase_serving_data_shards(args, smi, work, weights,
-                                            batches, key, (unsharded,
-                                                           mc_sharded),
-                                            unsharded_logits)
-    return {"split_sampler": n_launches, "stacked_sampler": stacked}
+    n_launches += phase_serving_data_shards(args, smi, work, batches, key,
+                                            (unsharded, mc_sharded))
+    return {"split_sampler": n_launches, "stacked_sampler": stacked,
+            "bf16_entry": bf16_entry}
 
 
 def _half_batch_conv_logits(bundle, batch, seed: int) -> torch.Tensor:
@@ -2676,6 +2692,7 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
     from multimodal_auv_torch.ops.preprocess import normalize_multimodal
     from multimodal_auv_torch.ops.probe_rng_split import cuda_ms
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
+    from multimodal_auv_torch.ops.sampler_times import sustained
     from multimodal_auv_torch.pipelines.inference import pretrained_bundle
     from multimodal_auv_torch.serving import fold_seed, load_predict_artifact
 
@@ -2753,8 +2770,17 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
                              f"P={P} bf16")
     err = float((got.float() - want.float()).abs().max())
     del got, want
-    ms = cuda_ms(lambda: S.stacked_draws(mu, sg, seeds, rows,
-                                         out_dtype=torch.bfloat16), 20)
+    counted, calls = S.stacked_exact_calls(mu, sg, seeds, rows)
+    if not torch.equal(counted, S.stacked_plain(mu, sg, words, rows,
+                                                torch.bfloat16)):
+        raise AssertionError("the counted bf16 stacked launch != plain")
+    share = calls / S.philox_calls(P, rows)
+    del counted
+    free_cuda()
+    draw = lambda: S.stacked_draws(mu, sg, seeds, rows,
+                                   out_dtype=torch.bfloat16)
+    ms = cuda_ms(draw, 20)
+    held = sustained(draw)
     plain_ms = cuda_ms(lambda: S.stacked_plain(mu, sg, words, rows,
                                                torch.bfloat16), 2)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2774,14 +2800,23 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
         f"patches/s [{smi}]; logits bit-equal to the one-process stacked "
         f"path on every batch, CSV columns equal; launches {launches}",
         summary=True)
-    log(f"stacked_sampler via auv::stacked_sampler (device seed) at the "
-        f"shard's shape {rows} x P={P}, bf16 in and out: == plain bit for "
-        f"bit (max abs err {err}); kernel {ms:.4f} ms, plain "
+    log(f"stacked_sampler (bf16_stacked_kernel) via auv::stacked_sampler "
+        f"(device seed) at the shard's shape {rows} x P={P}, bf16 in and "
+        f"out: == plain bit for bit (max abs err {err}); kernel {ms:.4f} ms "
+        f"({held['ms']:.4f} ms a call over {held['calls']} back to back at "
+        f"SM {held['sm_mhz']} MHz, {held['watts']} W), plain "
         f"{plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}) [{smi}]; {philox_note(P, rows)}",
-        summary=True)
+        f"{b_ms:.4f} ms ({b_by}); exact path {calls} of "
+        f"{S.philox_calls(P, rows)} Philox calls ({share:.3e}) [{smi}]; "
+        f"{philox_note(P, rows)}", summary=True)
+    entry = {"name": "stacked_sampler:bf16_stacked_kernel", "route": "cuda",
+             "source": "multimodal_auv_torch/csrc/sampling.cu",
+             "replaces": "multimodal_auv_tpu/ops/sampling.py:198",
+             "launches": launches["stacked_sampler"], "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": lib_ms}
     return launches["stacked_sampler"], (t_export, t_load,
-                                         N_SAMPLES / wall, size)
+                                         N_SAMPLES / wall, size), entry
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2790,38 +2825,82 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
                  / want.float().abs().max())
 
 
-def phase_serving_data_shards(args, smi: str, work: str, weights: str,
-                              batches, key: int, others,
-                              unsharded_logits) -> int:
-    """Phase 15's data-sharded point at full width (module docstring):
-    ``export_auv_serving_artifact(data_shards=DATA_SHARDS)`` from phase
-    13's file, chunk 2, loaded with both shards on cuda:0. The first
-    batch: the two shards' draws bit-equal, the logits bit-equal to the
-    data=2 mesh step of two gloo ranks (``serving_rank``) from the same
-    file at the same seed, and a planted fault (``auv::shard_sum``
-    returning each shard's local sums) not; both printed beside the
-    unsharded artifact's logits (``unsharded_logits``: them, their
-    reduction-order control, and the unsharded step with its convolutions
-    at the shards' batch shape), which in bf16 do not bound them
+def _unsharded_logits(bundle, batch, seed: int) -> list:
+    """The unsharded packed step's logits (chunk 2) on ``batch``, beside
+    which the data-sharded artifact's are reported: them, their
+    reduction-order control (the batch halves swapped, the output swapped
+    back) and the step with its convolutions run per data shard's rows
+    (``_half_batch_conv_logits``)."""
+    from multimodal_auv_torch.engine.predict import make_packed_logits_fn
+    from multimodal_auv_torch.ops.sampling import chunk_seed_words
+
+    fn = make_packed_logits_fn(bundle, mc_chunk=2)
+    seeds = chunk_seed_words(torch.Generator().manual_seed(seed),
+                             NUM_MC // 2).cuda()
+    swap = [BATCH // 2 + i for i in range(BATCH // 2)] + list(
+        range(BATCH // 2))
+    m, b, ss, mask = batch
+    with torch.inference_mode():
+        run = lambda rows: fn(bundle.post, bundle.batch_stats, tuple(
+            torch.from_numpy(a[rows]).cuda() for a in (m, b, ss)), seeds,
+            torch.from_numpy(mask[rows]).cuda()).float().cpu()
+        return [run(slice(None)), run(swap)[:, swap],
+                _half_batch_conv_logits(bundle, batch, seed)]
+
+
+def phase_serving_data_shards(args, smi: str, work: str, batches, key: int,
+                              others) -> int:
+    """Phase 15's data-sharded point (module docstring), at ResNet-50's
+    widths with one bottleneck per stage (PAR_STAGES, as phase 18: the
+    full depth's export, load and mesh ranks took ~150 s of the smoke's
+    time limit): a published-form file written at that depth from a seed,
+    ``export_auv_serving_artifact(data_shards=DATA_SHARDS)`` from it, chunk
+    2, loaded with both shards on cuda:0. The first batch: the two
+    shards' draws bit-equal, the logits bit-equal to the data=2 mesh step
+    of two gloo ranks (``serving_rank``) from the same file at the same
+    seed, and a planted fault (``auv::shard_sum`` returning each shard's
+    local sums) not; both printed beside the unsharded step's logits at
+    that depth (``_unsharded_logits``), which in bf16 do not bound them
     (PERF.md, Findings). Then the timed ``predict_batches`` with exactly
     DATA_SHARDS x 30 split_sampler launches, and
-    ``check_composed_micro``. ``others``: the
-    unsharded and mc-sharded artifacts' (export s, load s, patches/s,
-    program MB), printed beside. Returns the split_sampler launches of
-    the timed run."""
+    ``check_composed_micro``. ``others``: the full-depth unsharded and
+    mc-sharded artifacts' (export s, load s, patches/s, program MB),
+    printed beside. Returns the split_sampler launches of the timed
+    run."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.interop.torch_export import save_torch_checkpoint
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
     from multimodal_auv_torch.ops import sampling as S
     from multimodal_auv_torch.parallel import local_shards as L
     from multimodal_auv_torch.pipelines import export_auv_serving_artifact
+    from multimodal_auv_torch.pipelines.inference import pretrained_bundle
     from multimodal_auv_torch.serving import fold_seed, load_predict_artifact
 
+    arch = ArchConfig(stage_sizes=PAR_STAGES)
+    weights = os.path.join(work, "pytorch_model_stages.bin")
+    src = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                 torch.Generator().manual_seed(args.seed + 52),
+                                 arch, device="cuda")
+    save_torch_checkpoint(src, weights, published=True)
+    del src
+    bundle = pretrained_bundle(NUM_CLASSES, BNNPriorSpec(), arch, args.seed,
+                               weights, False, torch.device("cuda"))
+    unsharded_logits = _unsharded_logits(bundle, batches[0],
+                                         fold_seed(key, 0))
+    del bundle
+    free_cuda()
     art_dir = os.path.join(work, "artifact_data_shards")
     reset_launches()
     t0 = time.perf_counter()
     export_auv_serving_artifact(art_dir, batch_size=BATCH,
                                 num_mc_samples=NUM_MC,
                                 num_classes=NUM_CLASSES,
-                                model_weights_path=weights, mc_chunk=2,
-                                data_shards=DATA_SHARDS, seed=args.seed)
+                                model_weights_path=weights, arch=arch,
+                                mc_chunk=2, data_shards=DATA_SHARDS,
+                                seed=args.seed)
     t_export = time.perf_counter() - t0
     check_launches("data-sharded export", {})
     size = os.path.getsize(os.path.join(art_dir, "program.pt2")) / 1e6
@@ -2903,7 +2982,8 @@ def phase_serving_data_shards(args, smi: str, work: str, weights: str,
         f"{name}: export {e:.2f} s, load {ld:.2f} s, {mb:.1f} MB, {r:.3f} "
         f"patches/s" for name, (e, ld, r, mb) in zip(
             ("unsharded (chunk 2)", f"mc_shards={MC_SHARDS}"), others))
-    log(f"data-sharded artifact (full width, b{BATCH} x {NUM_MC} MC, chunk "
+    log(f"data-sharded artifact (ResNet-50 widths, one bottleneck per "
+        f"stage, b{BATCH} x {NUM_MC} MC, chunk "
         f"2, as {DATA_SHARDS} shards of {BATCH // DATA_SHARDS} rows on "
         f"cuda:0, bf16): export {t_export:.2f} s, load {t_load:.2f} s, "
         f"program.pt2 {size:.1f} MB, predict_batches {N_SAMPLES} patches in "
@@ -2911,7 +2991,7 @@ def phase_serving_data_shards(args, smi: str, work: str, weights: str,
         f"rendezvous a batch; {beside} [{smi}]; launches {launches}; the "
         f"first batch: the shards' draws bit-equal, logits bit-equal to the "
         f"data=2 mesh step of two gloo ranks ({t_mesh:.1f} s), the "
-        f"local-sums fault not; off the unsharded artifact's by "
+        f"local-sums fault not; off the unsharded step's by "
         f"{_rel_err(got, ref):.3e} of the largest logit (the fault "
         f"{_rel_err(bad, ref):.3e}), its reduction-order control "
         f"{_rel_err(control, ref):.3e}, the unsharded step with its "
@@ -3409,12 +3489,25 @@ def check_noise_parts() -> None:
     of b1, the angle's sin and cos of b2) on all 2^24 words, each
     polynomial set, against the plain versions on the card, bits compared:
     the exact forms of the Box-Muller (csrc/sampling.cu) and its division
-    and square root without range checks, over every input they meet."""
-    from multimodal_auv_torch.ops.sampler_times import check_parts
+    and square root without range checks, over every input they meet.
+    Then the bf16 stacked kernel's approximate radius and angle over the
+    same words against the f32 ones: every deviation within the bracket
+    constants the library holds (``sampler_times.check_bracket``, which
+    raises otherwise; the constants are never widened to pass)."""
+    from multimodal_auv_torch.ops.sampler_times import (
+        check_bracket,
+        check_parts,
+    )
 
     check_parts()
     log("noise_parts (radius, sin, cos of all 2^24 words; f32, fast and "
         "lite polynomials) == plain bit for bit")
+    b = check_bracket()
+    log(f"bf16 stacked kernel's bracket over all 2^24 words: max |r' - r| "
+        f"{b['max_dev_r']:.3e}, max |sin' - sin|, |cos' - cos| "
+        f"{b['max_dev_sc']:.3e}; every deviation within the library's "
+        f"constants (E_sc {b['library'][1]:.3e} >= {b['need_sc']:.3e} "
+        f"needed)")
 
 
 def log_sass_counts() -> None:
@@ -3676,6 +3769,10 @@ def phase_variants(args, smi: str, bundle, work: str) -> dict:
         raise AssertionError(f"antithetic card vs CPU at micro(): {cols}")
     P = mu.numel()
     with torch.no_grad():
+        got, calls = S.stacked_exact_calls(mu, sg, (1, 2), 1)
+        if not torch.equal(got, S.stacked_plain(mu, sg, (1, 2), 1, bf16)):
+            raise AssertionError("bf16 stacked kernel != plain at one draw")
+        del got
         ms = cuda_ms(lambda: S.gaussian_shift_scale(mu, sg, (1, 2), 1,
                                                     out_dtype=bf16), 50)
         plain_ms = cuda_ms(lambda: S.stacked_plain(mu, sg, (1, 2), 1, bf16),
@@ -3689,9 +3786,11 @@ def phase_variants(args, smi: str, bundle, work: str) -> dict:
         f"{n_batches * NUM_MC // 2} stacked launches; mirror rows == "
         f"(2 mu - w) in f32 cast to bf16 bit for bit at P={P}; card == CPU "
         f"at micro(): classes equal, uncertainty max abs err {err:.2e}; "
-        f"stacked_sampler bf16 in and out, 1 draw: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}) [{smi}]", summary=True)
+        f"stacked_sampler bf16 in and out, 1 draw (bf16_stacked_kernel, "
+        f"== plain, exact path {calls / S.philox_calls(P, 1):.3e} of the "
+        f"calls): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.normal {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+        f"[{smi}]", summary=True)
     del anti, outs, mu, sg
     free_cuda()
 
@@ -4504,6 +4603,9 @@ def main() -> int:
         for e in kernels_line:
             e["launches"] += (retrain[e["name"]] + studies.get(e["name"], 0)
                               + learning.get(e["name"], 0))
+        # #2's bf16 kernel at the mc shard: the mc-sharded run's launches
+        # (every stacked launch there writes bf16)
+        kernels_line.append(serving["bf16_entry"])
         kernels_line += phase_probe(smi, P_full)
     log("summary of phases 15, 16 (f) and 17-21:\n  " + "\n  ".join(SUMMARY))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -36,6 +36,13 @@ regenerates exactly the forward's eps):
   u2 = (b2 & 0xFFFFFF) / 2^24, r = sqrt(-2 ln u1); the pair takes
   (r cos 2 pi u2, r sin 2 pi u2).
 
+The stacked sampler with bf16 output keeps the contract with fewer
+instructions on the card (``bracket_bf16`` below is the plain twin of its
+decision): it rounds mu + sigma z' for an approximation z' of each value
+and its bound E, and keeps the bf16 result where both ends of [z' - E,
+z' + E] give the same bits, recomputing the rest exactly; its output
+equals ``stacked_plain``'s bit for bit.
+
 A seed is a pair of 32-bit words, the counterpart of the JAX package's
 ``_seed_from_key``; callers draw it from a ``torch.Generator``
 (``chunk_seed_words``, ``chunk_seeds``). The split sampler takes its seed
@@ -297,6 +304,9 @@ def split_plain(mu: torch.Tensor, sigma: torch.Tensor, seed: Tuple[int, int],
 
 
 _DTYPE_OK = (torch.float32, torch.bfloat16)
+# the stacked sampler's entry with a device counter of its bf16 kernel's
+# exact-path calls
+COUNTED_ENTRY = "stacked_sampler_counted_launch"
 
 
 def _fn(name: str, argtypes):
@@ -324,14 +334,16 @@ def _check_vector_loads(mu, scale) -> None:
 
 
 def _launch(name: str, mu, scale, seed, num_draws, out_dtype,
-            extra=()) -> torch.Tensor:
+            extra=(), exact_calls=None) -> torch.Tensor:
     """One launch of sampler ``name`` into a (num_draws, P) buffer;
     ``scale`` is sigma, or rho for the reparam sampler; ``seed``: the
     (seed0, seed1) words by value, or for the split and stacked samplers
     a (2,) int64 tensor on the device that the kernel reads (the split
     sampler takes only that; the stacked sampler's entry takes a device
     pointer, null for the words by value); ``extra``: trailing int
-    arguments."""
+    arguments; ``exact_calls``: a (1,) int64 device tensor to which the
+    stacked sampler's bf16 kernel adds its exact-path calls (its counted
+    entry, ``COUNTED_ENTRY``)."""
     _check_vector_loads(mu, scale)
     P = mu.shape[0]
     out = mu.new_empty((num_draws, P), dtype=out_dtype)
@@ -352,7 +364,12 @@ def _launch(name: str, mu, scale, seed, num_draws, out_dtype,
     types = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, *seed_types,
              ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * len(extra)
-    fn = _fn(f"{name}_launch", types + [ctypes.c_void_p])
+    entry = f"{name}_launch"
+    if exact_calls is not None:
+        entry = COUNTED_ENTRY
+        args.append(exact_calls.data_ptr())
+        types.append(ctypes.c_void_p)
+    fn = _fn(entry, types + [ctypes.c_void_p])
     with _current(mu.device) as stream:
         kernels.check(fn(*args, stream), name)
     kernels.count(name)
@@ -421,6 +438,34 @@ def _stacked_sampler_cuda(mu, sigma, seeds, num_draws, out_dtype):
 @stacked_sampler.register_fake
 def _stacked_sampler_fake(mu, sigma, seeds, num_draws, out_dtype):
     return mu.new_empty((num_draws, mu.shape[0]), dtype=out_dtype)
+
+
+def stacked_exact_calls(mu: torch.Tensor, sigma: torch.Tensor, seed,
+                        num_draws: int) -> Tuple[torch.Tensor, int]:
+    """``stacked_draws(mu, sigma, seed, num_draws, out_dtype=bf16)`` on a
+    CUDA tensor, and how many of its Philox calls took the bf16 kernel's
+    exact path, by the kernel's own counter: the calls where the
+    approximate noise's bracket left an element's bf16 rounding open. A
+    measurement of the kernel (sampler_times.py, chip_smoke.py), on the
+    card only; no user path passes a counter."""
+    _check_args(mu, sigma, num_draws, torch.bfloat16)
+    if not mu.is_cuda:
+        raise ValueError("stacked_exact_calls counts the card's kernel: "
+                         f"mu on {mu.device}")
+    seeds = (seed if isinstance(seed, torch.Tensor)
+             else seed_tensor(seed, mu.device))
+    _check_seeds(seeds, mu.device)
+    counter = torch.zeros(1, dtype=torch.int64, device=mu.device)
+    out = _launch("stacked_sampler", mu, sigma, seeds, num_draws,
+                  torch.bfloat16, exact_calls=counter)
+    return out, int(counter.item())
+
+
+def philox_calls(P: int, num_draws: int) -> int:
+    """The noise contract's Philox calls for one launch over P elements and
+    ``num_draws`` draws: one per call j whose element j lies inside P."""
+    full, rem = divmod(P, BLOCK_ELEMS)
+    return num_draws * (full * CALLS_PER_BLOCK + min(rem, CALLS_PER_BLOCK))
 
 
 def launch_noise(name: str, P: int, seed, num_draws: int, device,
@@ -559,20 +604,158 @@ def noise_parts(n: int, noise: str = "f32", device="cuda"
     draws through, on all n <= 2^24 words), on the CPU the plain version.
     A check of the kernels' exact forms, not a sampler."""
     _check_noise(noise)
+    _check_words(n)
     device = torch.device(device)
-    if not 0 < n <= 1 << 24:
-        raise ValueError(f"n={n}: 1 .. 2^24 words")
     if device.type != "cuda":
         return noise_parts_plain(n, noise, device)
+    return _parts_launch(n, NOISE_MODES.index(noise), device)
+
+
+def _check_words(n: int) -> None:
+    if not 0 < n <= 1 << 24:
+        raise ValueError(f"n={n}: 1 .. 2^24 words")
+
+
+def _parts_launch(n: int, mode: int, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of ``noise_parts`` on the card: the polynomial set of
+    ``NOISE_MODES[mode]``, or (mode 3) the bf16 stacked kernel's
+    approximations."""
     out = torch.empty((3, n), dtype=torch.float32, device=device)
     fn = _fn("noise_parts_launch", [ctypes.c_void_p] * 3
              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with _current(device) as stream:
         kernels.check(fn(out[0].data_ptr(), out[1].data_ptr(),
-                         out[2].data_ptr(), n, NOISE_MODES.index(noise),
-                         stream), "noise_parts")
+                         out[2].data_ptr(), n, mode, stream), "noise_parts")
     kernels.count("noise_parts")
     return out[0], out[1], out[2]
+
+
+# The bf16 stacked kernel's bracket (csrc/sampling.cu, bf16_stacked_kernel):
+# each value z of a pair is approximated by z' with |z' - z| <= E =
+# E_r[bracket_bucket(b1)] + r' E_sc, and where mu + sigma (z' -/+ E) round
+# to the same bf16 bits the kernel keeps them (``bracket_bf16``).
+BRACKET_SLOTS = 25
+BRACKET_FLOOR = 1e-30
+
+
+def approx_parts_plain(n: int, device=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the bf16 stacked kernel's approximations approximate, for words
+    0..n-1 as b1 and as b2, laid out as ``noise_parts_plain``: r =
+    sqrt(2 ln 2 (24 - log2 f1)) and (sin, cos) 2 pi u2, in f64 rounded to
+    f32. The card's MUFU results (``approx_parts``) differ from these by
+    their approximation errors: no CPU version has their bits."""
+    w = torch.arange(n, dtype=torch.int64, device=device)
+    f1 = ((w & _M24) + 1).to(torch.float64)
+    r = torch.sqrt(torch.clamp_min((24.0 - torch.log2(f1)) * (2 * _LN2), 0))
+    t = (w & _M24).to(torch.float64) * (2 * _PI / 16777216.0)
+    return (r.to(torch.float32), torch.sin(t).to(torch.float32),
+            torch.cos(t).to(torch.float32))
+
+
+def approx_parts(n: int, device="cuda"
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 stacked kernel's approximate radius and (sin, cos) of words
+    0..n-1 (n <= 2^24), laid out as ``noise_parts``: on a CUDA device one
+    launch of ``noise_parts`` in its approximate mode, the device functions
+    the kernel's fast path calls; on the CPU ``approx_parts_plain``. How
+    the bracket's constants are measured, not a sampler."""
+    _check_words(n)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return approx_parts_plain(n, device)
+    return _parts_launch(n, len(NOISE_MODES), device)
+
+
+def bracket_bucket(words: torch.Tensor) -> torch.Tensor:
+    """The bracket's table index of each word as b1: the bit length of g =
+    2^24 - f1 = 0xFFFFFF - (b1 & 0xFFFFFF), 0 for g = 0 (the kernel reads
+    it from the exponent field of the f32 g, which is exact)."""
+    g = _M24 - (words.to(torch.int64) & _M24)
+    _, exp = torch.frexp(g.to(torch.float64))
+    return torch.where(g > 0, exp, 0).to(torch.int64)
+
+
+def bracket_deviations(exact, approx) -> Tuple[torch.Tensor, torch.Tensor,
+                                               float]:
+    """Per-word deviations of the approximate parts from the exact ones,
+    each ``(r, sin, cos)`` over the same words: |r' - r| per word, the
+    larger of |sin' - sin| and |cos' - cos| per word, and C, the largest
+    |sin| or |cos| of either (at least 1), in f64."""
+    (r, s, c), (ra, sa, ca) = ([t.double() for t in p] for p in (exact,
+                                                                  approx))
+    dev_r = (ra - r).abs()
+    dev_sc = torch.maximum((sa - s).abs(), (ca - c).abs())
+    c_max = max(1.0, *(float(t.abs().max()) for t in (s, c, sa, ca)))
+    return dev_r, dev_sc, c_max
+
+
+def bracket_constants(dev_r: torch.Tensor, buckets: torch.Tensor,
+                      dev_sc: torch.Tensor, c_max: float,
+                      margin: float = 1.0) -> Tuple[List[float], float]:
+    """The bracket's table E_r (BRACKET_SLOTS values, by ``buckets``, the
+    ``bracket_bucket`` of each word of ``dev_r``) and E_sc from per-word
+    deviations (``bracket_deviations``), times ``margin``. With dR the
+    largest radius deviation of a bucket, dS the largest sin / cos one and
+    C >= every |sin| and |cos|, the pair's value z = fl(r c) and its
+    approximation z' = fl(r' c') differ by at most |r' - r| |c'| + r |c' -
+    c| + 2^-24 (|r c| + |r' c'|) <= dR (C + dS + 2^-24 C) + r' (dS + 2^-23
+    C), using r <= r' + dR: E_r = dR (C + dS + 2^-24 C), E_sc = dS + 2^-23
+    C. Every E_r is at least BRACKET_FLOOR, so that E > 0 and RD(z' - E) <
+    z' < RU(z' + E) even where the deviations are 0 (an exact z of -0
+    beside z' = +0 must then straddle)."""
+    d_r = torch.zeros(BRACKET_SLOTS, dtype=torch.float64)
+    d_r = d_r.scatter_reduce(0, buckets.cpu(), dev_r.double().cpu(), "amax")
+    d_s = float(dev_sc.max())
+    e_r = d_r * (c_max + d_s + 2.0 ** -24 * c_max) * margin
+    return (e_r.clamp_min(BRACKET_FLOOR).tolist(),
+            (d_s + 2.0 ** -23 * c_max) * margin)
+
+
+def library_bracket_constants() -> Tuple[List[float], float]:
+    """The bracket constants the built kernel library holds (E_r, E_sc), as
+    f32 values: what its bf16 stacked kernel uses."""
+    out = (ctypes.c_float * (BRACKET_SLOTS + 1))()
+    fn = _fn("bracket_constants", [ctypes.c_void_p, ctypes.c_int])
+    if fn(out, BRACKET_SLOTS + 1) != BRACKET_SLOTS + 1:
+        raise RuntimeError("bracket_constants: the library's table size "
+                           f"differs from {BRACKET_SLOTS}")
+    return list(out[:BRACKET_SLOTS]), out[BRACKET_SLOTS]
+
+
+def _add_directed(x: torch.Tensor, y: torch.Tensor, up: bool
+                  ) -> torch.Tensor:
+    """x + y for f32 tensors rounded toward +inf (``up``) or -inf, as the
+    kernel's __fadd_ru / __fsub_rd: the round-to-nearest sum and its exact
+    error by TwoSum (Knuth), moved one f32 step where the error points
+    the other way; an exact zero is -0 rounding down unless both terms
+    are +0, and +0 rounding up unless both are -0."""
+    s = x + y
+    bp = s - x
+    t = (x - (s - bp)) + (y - bp)
+    inf = torch.full_like(s, float("inf") if up else -float("inf"))
+    moved = torch.where(t > 0 if up else t < 0, torch.nextafter(s, inf), s)
+    zero = (moved == 0) & (t == 0)
+    neg = torch.signbit(x) & torch.signbit(y)
+    if up:
+        return torch.where(zero, torch.where(neg, -0.0, 0.0), moved)
+    pos = ~torch.signbit(x) & ~torch.signbit(y)
+    return torch.where(zero, torch.where(pos, 0.0, -0.0), moved)
+
+
+def bracket_bf16(mu: torch.Tensor, sigma: torch.Tensor, z: torch.Tensor,
+                 e: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the bf16 stacked kernel's decision per element
+    (f32 inputs, E > 0): lo = fl(mu + fl(sigma RD(z - e))) and hi = fl(mu +
+    fl(sigma RU(z + e))) rounded to bf16. Returns lo's bf16 bits (int16)
+    and the safe mask, where lo's and hi's bits are equal: there, every z
+    within e of ``z`` gives those bits as bf16(fl(mu + fl(sigma z)))."""
+    a = _add_directed(z, -e, up=False)
+    b = _add_directed(z, e, up=True)
+    lo = (mu + sigma * a).to(torch.bfloat16).view(torch.int16)
+    hi = (mu + sigma * b).to(torch.bfloat16).view(torch.int16)
+    return lo, lo == hi
 
 
 class _GaussianShiftScale(torch.autograd.Function):

@@ -136,6 +136,17 @@ def loop_counts(insns: List[Tuple[int, str, Optional[str]]], k_vec: int
             "opcodes": dict(ops.most_common())}
 
 
+def vec_of(name: str) -> int:
+    """Values per 16-byte store of a kernel by its ``short_name``: 8 where
+    it writes bf16, else 4 (f32). The output type: noise_kernel<TOut, N>,
+    sampler_kernel<TIn, TOut, N, kSoftplus>; bf16_stacked_kernel<TIn>
+    writes bf16."""
+    args = name[name.find("<") + 1:-1].split(",")
+    t_out = ("bf16" if name.startswith("bf16_stacked_kernel") else args[1]
+             if name.startswith("sampler_kernel") else args[0])
+    return 8 if t_out == "bf16" else 4
+
+
 def _tool(name: str) -> str:
     from multimodal_auv_torch.ops.kernels import nvcc
 
@@ -185,11 +196,7 @@ def library_counts(lib_path, build_log: str = "") -> Dict[str, Dict]:
     out = {}
     for mangled, dm in zip(names, demangled):
         name = short_name(dm)
-        # the output type: noise_kernel<TOut, N>, sampler_kernel<TIn, TOut,
-        # N, kSoftplus>
-        args = name[name.find("<") + 1:-1].split(",")
-        t_out = args[1] if name.startswith("sampler_kernel") else args[0]
-        counts = loop_counts(funcs[mangled], 8 if t_out == "bf16" else 4)
+        counts = loop_counts(funcs[mangled], vec_of(name))
         if counts is not None:
             counts.update(ptxas.get(mangled, {}))
             out[name] = counts

@@ -17,6 +17,7 @@ from multimodal_auv_torch.models.model_utils import (
 )
 from multimodal_auv_torch.ops import kernels
 from multimodal_auv_torch.ops import probe_rng_split as PR
+from multimodal_auv_torch.ops import sampler_times as ST
 from multimodal_auv_torch.ops import sampling as S
 
 pytestmark = pytest.mark.gpu
@@ -517,3 +518,58 @@ def test_noise_parts_bit_equal_plain_all_words(noise):
     want = S.noise_parts_plain(n, noise, "cuda")
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _bf16_stacked_posteriors(P, seed):
+    """Random, MOPED-like (sigma = 0.1 |mu|), sigma = |mu| and f32 mu on
+    bf16 ties for draw 0 of ``seed`` (``sampler_times.tie_posterior``), each
+    with bf16 or f32 mu and sigma, on the card."""
+    g = torch.Generator().manual_seed(P)
+    mu = torch.randn(P, generator=g).cuda()
+    w = mu * 0.05
+    out = {"random f32": (mu, torch.rand(P, generator=g).cuda() + 0.01),
+           "moped f32": (w, 0.1 * w.abs()),
+           "sigma=|mu| f32": (w, w.abs()),
+           "ties f32": ST.tie_posterior(w, seed)}
+    for name in ("random", "moped", "sigma=|mu|"):
+        m, s = out[f"{name} f32"]
+        out[f"{name} bf16"] = (m.bfloat16(), s.bfloat16())
+    return out
+
+
+@pytest.mark.parametrize("P", [RAGGED_P] + QUARTER_PS)
+def test_bf16_stacked_kernel_bit_equal_plain(P):
+    """The stacked sampler's bf16 kernel (approximate noise, the bf16
+    bracket, the exact path) equals ``stacked_plain`` bit for bit at P's
+    whose last block ends in each quarter, for 1-3 and 10 draws, bf16 and
+    f32 in, through the op (device seed) and the autograd path (words by
+    value); the ties posterior takes the exact path (the kernel's count)."""
+    _cuda_or_skip()
+    for n in (1, 2, 3, 10):
+        seed = (17 * n + P % 1000, 0xFFFFFF00)
+        for name, (mu, sg) in _bf16_stacked_posteriors(P, seed).items():
+            want = S.stacked_plain(mu, sg, seed, n, torch.bfloat16)
+            got, calls = S.stacked_exact_calls(mu, sg, seed, n)
+            by_value = S.gaussian_shift_scale(mu, sg, seed, n,
+                                              out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            for x in (got, by_value):
+                assert torch.equal(x.view(torch.int16),
+                                   want.view(torch.int16)), (name, n)
+            if name.startswith("ties"):
+                assert calls > 0, (name, n)
+
+
+def test_bf16_stacked_bracket_covers_all_words():
+    """Every word's approximate radius and angle (``approx_parts``, the
+    MUFU functions the kernel's fast path calls) lies within the bracket
+    constants the library holds, with the f32 evaluation of E's factor."""
+    _cuda_or_skip()
+    n = 1 << 24
+    dev_r, dev_sc, c_max = S.bracket_deviations(
+        S.noise_parts(n, "f32", "cuda"), S.approx_parts(n, "cuda"))
+    need_r, need_sc = S.bracket_constants(
+        dev_r, S.bracket_bucket(torch.arange(n, device="cuda")), dev_sc,
+        c_max, 1 + 2.0 ** -20)
+    have_r, have_sc = S.library_bracket_constants()
+    assert all(a <= b for a, b in zip(need_r, have_r)) and need_sc <= have_sc
