@@ -175,8 +175,9 @@ result line):
     then ``predict_batches`` over phase 4's patches with exactly 2 x 30 =
     60 split_sampler launches and no other, the BN rendezvous per batch
     counted; export s, load s, program size and patches/s beside the other
-    two artifacts'. Then a (2 data x 2 mc)-sharded micro() artifact on the
-    card against the same export on the CPU: predicted classes equal,
+    two artifacts'. A (2 data x 2 mc)-sharded micro() artifact on the
+    card against the same export on the CPU (``side_rank``, beside phase
+    15's other checks): predicted classes equal,
     logits within DS_MICRO_RTOL of the largest.
 
 16. DVP (single-pass deterministic variance propagation, engine/moment.py)
@@ -237,22 +238,38 @@ result line):
     PAR_GRAD_CAP). The same gates must reject each fault
     of PAR_FAULTS planted in the BN sums for one step (per-rank
     statistics; a backward without its all_reduce). The f32 step with
-    fsdp against data=2: gradients and the gathered Adam moment to
-    PAR_GRAD_REPEAT, and its state (posterior, gradients, moments) at
-    least P floats smaller; each step's state and peak bytes printed.
-    Exactly 40 stacked_sampler and 20 eps launches per rank and step,
+    fsdp (mu, rho and their moments sharded at rest, gathered for the
+    step, gradients reduce-scattered) against data=2: gradients and the
+    gathered Adam moment to PAR_GRAD_REPEAT, and its state (posterior,
+    gradients, moments) at least 3 P floats smaller on each rank; both
+    states' ``save_train_state`` files hold the same leaves, shapes and
+    dtypes, their values to PAR_GRAD_REPEAT; each layout then restores
+    data=2's file and takes one more step: the two to PAR_GRAD_REPEAT.
+    Each step's state and peak bytes printed. Beside these ranks two more
+    pairs (``--job depth_data2``, ``depth_fsdp``) compare the memory at
+    ResNet-50's own depth (PAR_DEPTH_STAGES), full width, 256 px, b12 x
+    20 MC, bf16 activations: two steps of data=2 and two of fsdp, each rank's
+    state MiB at rest after each step and the step's peak printed with
+    its collectives by kind, fsdp's state at least 3 P floats (that
+    depth's P) below data=2's after each step. Exactly 40
+    stacked_sampler and 20 eps launches per rank and counted step,
     nothing else; both ranks' mu equal. Then an mc=2 mesh: the logits of
     phase 4's first batch, 20 draws in chunks of 2, bf16 weights, each
     rank drawing its row of every chunk (10 stacked_sampler launches per
     rank, the draw offset folded into the seed), bit-equal to the
     one-process stacked path. Kernel #2 with bf16 mu, sigma and output at
     the full P against its plain version first (the mc-sharded path's
-    form). Then the f32 train step at world size 1 under NCCL against the
-    one-process step (PAR_GRAD_REPEAT). Prints each step's seconds and
-    collectives.
+    form). Then the f32 train step at world size 1 under NCCL, plain and
+    with fsdp (no collective issued, as on every axis of size 1, and the
+    launches of the plain step), each against the one-process step
+    (PAR_GRAD_REPEAT), and NCCL's dedicated all_gather and
+    reduce_scatter through the flat collectives' formulations
+    (``_gather_dedicated``, ``_scatter_dedicated``) on the step's mu and
+    a ragged vector: copies bit for bit, 2 of each. Prints each step's
+    seconds and collectives.
 
-19. MC variants and the rest of training, at full width, right after
-    phase 18 with phase 4's model: (a) pipelined inference over phase 4's
+19. MC variants and the rest of training, at full width, after phase 16
+    (``side_rank``) on a model made as phase 4's is: (a) pipelined inference over phase 4's
     set (``make_packed_predict_step(pipelined=True)``, chunk k + 1 sampled
     on a second stream): one batch's logits bit-equal to the split path's
     at the same seed words, the CSV byte-equal to the split step's, exactly
@@ -285,7 +302,7 @@ result line):
     at their init values within 4 x 0.1 / sqrt(n), standard deviations 0.1
     within 1%; one b4 x 20 predict batch finite, exactly 10 split_sampler
     launches.
-20. studies (ROADMAP item 9), after phase 16, at full width on a
+20. studies (ROADMAP item 9), in a process of its own, at full width on a
     STUDY_SAMPLES-folder tree: (a) ``run_noise_study``, turbidity centres
     STUDY_CENTERS at depth 1.0, one degraded fine-tuning epoch each at
     b4 x 5 MC, then a degraded evaluation with the extended metrics: the
@@ -311,7 +328,11 @@ result line):
     decode, the native resize), RGB and L, the LZW bathymetry's strips
     decoded natively byte-equal to the Python decoder; ms per image of
     each path (and PIL alone) and each LZW decoder's MB/s.
-21. learning, after phase 20: tests/test_learning.py:64's recipe on the
+21. learning, twice: in a process of its own (this script with --job
+    learning, started beside phases 14 and 15) and in this process after
+    the others, a witness held bit for bit against it (each train step's
+    loss and updated mu):
+    tests/test_learning.py:64's recipe on the
     card at micro() and 32 px (LEARN_*): ``run_AUV_training_from_scratch
     (device=None)`` on a separable synthetic tree (tests/fixtures/
     make_tree.py), 10 epochs at b6 x 2 MC, non-MOPED init; the
@@ -324,10 +345,34 @@ result line):
     probe has hits and errors; exact launches of #2 and #3 in training and
     of #1 in its evaluations and the prediction. Prints s per epoch and
     the accuracy.
+22. examples, run while phase 18's ranks run: the ten scripts of
+    ``examples/torch/`` in this process
+    (``runpy``) on the card at ``--tiny`` (micro(), 32 px) and their
+    smallest flags, on trees written here: inference (a CSV of 5 rows),
+    training from scratch and retraining (1 epoch: ledgers and a
+    checkpoint), the export of the from-scratch checkpoint (a .pth),
+    data preparation (phase 20's raw survey: one folder a frame), both
+    noise studies (6 results and their CSVs), the serving export (an
+    artifact and 3 batches served), the HTTP example on it (healthz, 4
+    rows, metrics) and the research driver (3 unimodal trainings and one
+    sweep combo: its summary). Each example's launches counted from 0:
+    the kernels its path uses and no other, none for data preparation
+    and the export.
+
+Schedule: this process runs phases 1-7, 17, 18, 8, 13, 14, 15, 21's
+witness, phase 15's kernel timing and 12, in that order. Phase 18's
+ranks are processes of their own; phases 22, 9, 10 and 11 run here
+while they run. After phase 13 three more processes start and run
+while phases 14 and 15 run here: one runs phase 15's composed micro()
+check and phases 16 and 19 (``--job side``), one phase 20 (``--job
+studies``) and one phase 21's first run. Their output is printed when they end. Every time printed by a
+phase that shares the card that way is taken under that contention; the
+kernels line's times are taken with the card to themselves.
 
 The kernels line's launches of #1-#3 add phases 13, 14, 15, 16, 17, 18,
-19, 20 and 21 to their paths' counts (phase 19's comparison runs not
-counted). Beside each sampler's bound the script prints the
+19, 20, 21 and 22 to their paths' counts (phase 19's comparison runs and
+phase 18's resume and full-depth steps not counted). Beside each
+sampler's bound the script prints the
 noise contract's Philox calls for that launch and their estimated INT32
 time, labelled as an estimate; it is not part of ``bound_ms``.
 
@@ -350,6 +395,8 @@ import importlib.util
 import json
 import math
 import os
+import platform
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -434,6 +481,9 @@ PAR_TIMEOUT = 600      # seconds for the ranks of phase 18
 # and NCCL steps against one process); at ResNet-50's depth (3, 4, 6, 3)
 # it took 208-336 s of the smoke's 1200 s limit
 PAR_STAGES = (1, 1, 1, 1)
+# phase 18's memory comparison (data=2 against fsdp, two steps each) at
+# ResNet-50's own depth
+PAR_DEPTH_STAGES = (3, 4, 6, 3)
 UNI_MC, UNI_BATCH, UNI_CLASSES = 10, 4, 7      # BASELINE.json configs[0]
 UNI_TRAIN_MC, UNI_TRAIN_BATCH = 5, 8           # BASELINE.json configs[1]
 # phase 19: the b12 x 20 train step in chunks of 10 (per-draw remat), and
@@ -470,6 +520,8 @@ DATA_SHARDS, DS_MICRO_RTOL = 2, 1e-4
 LEARN_CLASSES, LEARN_PER_CLASS, LEARN_EPOCHS = 3, 8, 10
 LEARN_BATCH, LEARN_MC, LEARN_LR = 6, 2, 3e-3
 LEARN_PROBE_PER_CLASS, LEARN_PROBE_MC = 6, 16
+# phase 22: the labelled folders of the examples' training tree (3 classes)
+EXAMPLE_SAMPLES = 8
 
 
 # phases 15 and 17-21's results, printed again before the kernels line
@@ -532,15 +584,45 @@ def phase_device():
         print("chip_smoke: no CUDA device; the port runs on the card",
               file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
+    smi = smi_line()
+    log(smi)
+    nvidia = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"cudnn {torch.backends.cudnn.version()} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}"
+        f"; NVIDIA {nvidia}; host {host_cpu()}, {os.cpu_count()} cores")
+    return smi
+
+
+def smi_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()}")
-    return smi
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo shows it: its model where shown, the
+    architecture, and which of the vector features the host runtime's
+    -march=native build turns on it has (the host's decode and normalise
+    round as they do)."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    flags = set(info.get("flags", "").split())
+    vec = [f for f in ("avx2", "fma", "avx512f") if f in flags]
+    vec = " ".join(vec) or "none of avx2, fma, avx512f"
+    return (f"{info.get('model name', 'model not shown')} "
+            f"({platform.machine()}; {vec})")
 
 
 # each source's nvcc log from phase_build (ptxas registers and spills)
@@ -945,6 +1027,63 @@ def _clone_tree(t):
     return t.detach().clone()
 
 
+def depth_memory(dev, mesh, emit, inputs, labels, mask, fsdp: bool) -> None:
+    """Phase 18 at ResNet-50's full depth (PAR_DEPTH_STAGES), full width,
+    256 px, b12 x 20 MC (bf16 activations, the main path's), on this
+    rank of the data=2 mesh: two train steps under data=2 or under fsdp
+    (each a rank pair of its own), from the same random weights. After
+    each step it prints the state's MiB at rest (what the step's state
+    holds above the start: posterior, gradients, Adam moments) and the
+    step's peak above the start, with the step's collectives by kind."""
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.engine.optim import (
+        BayesTrainState,
+        make_optimizer,
+    )
+    from multimodal_auv_torch.engine.steps import make_train_step
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+    from multimodal_auv_torch.parallel import mesh as M
+    from multimodal_auv_torch.parallel.collectives import COUNTS, reset_counts
+
+    base = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                  torch.Generator().manual_seed(7),
+                                  ArchConfig(stage_sizes=PAR_DEPTH_STAGES),
+                                  device=dev)
+    P = base.post.mu.numel()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    mu, rho = base.post.mu.detach(), base.post.rho.detach()
+    if not fsdp:  # data=2 steps a copy in place; fsdp copies its shard
+        mu, rho = mu.clone(), rho.clone()
+    state = M.shard_state(mesh, BayesTrainState(
+        type(base.post)(mu, rho, _clone_tree(base.post.det)), None,
+        _clone_tree(base.batch_stats)), make_optimizer(PAR_LR, 1e-5),
+        fsdp)
+    del mu, rho
+    step = M.wrap_train_step(mesh, make_train_step(
+        base.module, base.meta, BNNPriorSpec(), NUM_MC, mc_chunk=1,
+        packed_inputs=True, remat="on", mesh=mesh))
+    for k in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, inputs, labels, mask,
+                        torch.Generator().manual_seed(18 + k),
+                        PAR_KL_WEIGHT, float(TRAIN_BATCH))
+        torch.cuda.synchronize()
+        emit(label=f"depth_{'fsdp' if fsdp else 'data2'}_step{k}",
+             stages=list(PAR_DEPTH_STAGES), P=P,
+             shard=state.post.mu.numel(), loss=float(m["loss"]),
+             skipped=m["skipped"], seconds=time.perf_counter() - t0,
+             state_mib=(torch.cuda.memory_allocated() - mem0) / 2**20,
+             peak_mib=(torch.cuda.max_memory_allocated() - mem0) / 2**20,
+             collectives=dict(COUNTS))
+
+
 def parallel_rank(args) -> int:
     """One rank of phase 18 (this script with --rank): joins the process
     group, runs its steps and prints one ``PHASE18 {json}`` line per
@@ -959,6 +1098,8 @@ def parallel_rank(args) -> int:
     from multimodal_auv_torch.engine.mc import mc_logits
     from multimodal_auv_torch.engine.optim import (
         BayesTrainState,
+        ShardedAdam,
+        full_posterior,
         make_optimizer,
     )
     from multimodal_auv_torch.engine.steps import make_train_step
@@ -976,6 +1117,7 @@ def parallel_rank(args) -> int:
     from multimodal_auv_torch.parallel.distributed import (
         maybe_initialize_distributed,
     )
+    from multimodal_auv_torch.engine import checkpointing as ckpt
 
     def emit(**kw):
         print("PHASE18 " + json.dumps(dict(kw, rank=args.rank,
@@ -999,13 +1141,6 @@ def parallel_rank(args) -> int:
             raise AssertionError(f"NCCL all_reduce of 1 over 1 rank: {one}")
     try:
         dev = resolve_device(None)
-        arch = ArchConfig(stage_sizes=PAR_STAGES)
-        base = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
-                                      torch.Generator().manual_seed(args.seed),
-                                      arch, device=dev)
-        modules = {torch.bfloat16: base.module,
-                   torch.float32: multimodal_module(NUM_CLASSES, ArchConfig(
-                       stage_sizes=PAR_STAGES, dtype=torch.float32))}
         rng = np.random.default_rng(args.seed + 18)
         inputs = [torch.from_numpy(rng.integers(
             0, 256, (TRAIN_BATCH, IMAGE, IMAGE, c), dtype=np.uint8)).to(dev)
@@ -1013,12 +1148,34 @@ def parallel_rank(args) -> int:
         labels = torch.from_numpy(rng.integers(0, NUM_CLASSES,
                                                TRAIN_BATCH)).to(dev)
         mask = torch.ones(TRAIN_BATCH, device=dev)
+        if args.job.startswith("depth"):
+            depth_memory(dev, M.make_mesh(MeshSpec(2, 1)), emit, inputs,
+                         labels, mask, fsdp=args.job == "depth_fsdp")
+            return 0
+        arch = ArchConfig(stage_sizes=PAR_STAGES)
+        base = make_multimodal_bundle(NUM_CLASSES, BNNPriorSpec(),
+                                      torch.Generator().manual_seed(args.seed),
+                                      arch, device=dev)
+        modules = {torch.bfloat16: base.module,
+                   torch.float32: multimodal_module(NUM_CLASSES, ArchConfig(
+                       stage_sizes=PAR_STAGES, dtype=torch.float32))}
 
         def clone(dtype):
             p = base.post
             return ModelBundle(modules[dtype], PackedPosterior(
                 p.mu.detach().clone(), p.rho.detach().clone(),
                 _clone_tree(p.det)), base.meta, _clone_tree(base.batch_stats))
+
+        def state_of(b, mesh, fsdp):
+            """b's train state: one process, data=2, or under fsdp this
+            rank's shard of mu and rho (the state then holds no reference
+            to b's whole vectors)."""
+            tx = make_optimizer(PAR_LR, 1e-5)
+            if mesh is None:
+                return BayesTrainState(b.post, tx.init(b.post), b.batch_stats)
+            return M.shard_state(mesh, BayesTrainState(b.post, None,
+                                                       b.batch_stats),
+                                 tx, fsdp)
 
         def train(mesh, fsdp=False, dtype=torch.float32, perm=None):
             torch.cuda.synchronize()
@@ -1027,14 +1184,11 @@ def parallel_rank(args) -> int:
             x, y = inputs, labels
             if perm is not None:  # the same batch, its rows reordered
                 x, y = [a[perm] for a in x], y[perm]
-            tx = make_optimizer(PAR_LR, 1e-5)
-            state = BayesTrainState(b.post, tx.init(b.post) if mesh is None
-                                    else M.shard_optimizer(mesh, tx, b.post,
-                                                           fsdp),
-                                    b.batch_stats)
+            state = state_of(b, mesh, fsdp)
             step = make_train_step(b.module, b.meta, BNNPriorSpec(), NUM_MC,
                                    mc_chunk=1, packed_inputs=True,
                                    remat="on", mesh=mesh)
+            del b  # under fsdp: frees the whole mu and rho
             if mesh is not None:
                 step = M.wrap_train_step(mesh, step)
             torch.cuda.synchronize()
@@ -1054,12 +1208,24 @@ def parallel_rank(args) -> int:
                    / 2**20}
             return state, m, dict(kernels.LAUNCHES), dict(COUNTS), wall, mem
 
+        def gathered(state):
+            """``state`` with its whole posterior, the gradients of mu and
+            rho gathered onto it, under fsdp (every rank joins)."""
+            opt = state.opt_state
+            if not isinstance(opt, ShardedAdam):
+                return state
+            full = full_posterior(state)
+            for f, sh in ((full.mu, state.post.mu),
+                          (full.rho, state.post.rho)):
+                f.grad = C.all_gather_flat(sh.grad, opt.axis, opt.n)
+            return BayesTrainState(full, opt, state.batch_stats, state.step)
+
         def summary(state, m, launches, coll, wall, mem, label):
-            mu = state.post.mu.detach().double()
+            mu = full_posterior(state).mu.detach().double()
             emit(label=label, loss=float(m["loss"]), skipped=m["skipped"],
                  mu_sum=float(mu.sum()), mu_sq=float((mu * mu).sum()),
                  launches=launches, collectives=coll, seconds=wall,
-                 P=mu.numel(), **mem)
+                 P=mu.numel(), shard=state.post.mu.numel(), **mem)
 
         @contextlib.contextmanager
         def planted(fault):
@@ -1083,10 +1249,38 @@ def parallel_rank(args) -> int:
             mesh = M.make_mesh(MeshSpec(1, 1))
             got = train(mesh)
             summary(*got, label="nccl_world1")
+            # fsdp at world 1: the shard is the whole vector and, as every
+            # collective on an axis of size 1, its gathers and
+            # reduce-scatters issue nothing
+            fs = train(M.make_mesh(MeshSpec(1, 1, fsdp=True)), fsdp=True)
+            summary(*fs, label="nccl_world1_fsdp")
             ref = train(None)
             summary(*ref, label="one_process")
             _compare_steps(got[0], ref[0], got[1], ref[1], emit,
                            "nccl_world1")
+            _compare_steps(gathered(fs[0]), ref[0], fs[1], ref[1], emit,
+                           "nccl_world1_fsdp")
+            # NCCL's dedicated all_gather and reduce_scatter through the
+            # flat collectives' own formulations (on a group of one each
+            # is a copy): the step's mu (P, whole chunks) and a ragged
+            # vector with -0.0 among its values, bit for bit
+            axis = mesh.world_axis
+            ragged = torch.randn(1500, generator=torch.Generator().manual_seed(
+                args.seed + 20)).to(dev)
+            ragged[::7] = -0.0
+            equal = []
+            reset_counts()
+            for v in (fs[0].post.mu.detach(), ragged):
+                n = v.numel()
+                equal.append(torch.equal(C._gather_dedicated(v, axis, n)
+                                         .view(torch.int32),
+                                         v.view(torch.int32)))
+                equal.append(torch.equal(C._scatter_dedicated(
+                    v.clone(), axis, (0, n)).view(torch.int32),
+                    v.view(torch.int32)))
+            torch.cuda.synchronize()
+            emit(label="nccl_world1_flat", bit_equal=equal,
+                 collectives=dict(COUNTS))
             return 0
 
         data2 = M.make_mesh(MeshSpec(2, 1))
@@ -1121,11 +1315,44 @@ def parallel_rank(args) -> int:
                 summary(*fs, label="data2_fsdp")
                 exp = [s.opt_state.state_dict()["state"][0]["exp_avg"]
                        for s in (got[0], fs[0])]
-                _compare_steps(fs[0], got[0], fs[1], got[1], emit,
+                _compare_steps(gathered(fs[0]), got[0], fs[1], got[1], emit,
                                "fsdp", exp_avg_rel_l2=_rel(exp[1], exp[0]))
+                # resume: both states' checkpoints (rank 0 writes the
+                # gathered state: the same file, to the steps' run-to-run
+                # differences), then each layout restores data=2's and
+                # takes one more step (from the same start: the card's
+                # run-to-run differences of one step grow in the next)
+                files = [os.path.join(args.work, f"par_state_{k}.pt")
+                         for k in (0, 1)]
+                for st, f in zip((got[0], fs[0]), files):
+                    ckpt.save_train_state(f, st, 1, {"multimodal": 1})
                 del fs, exp
+                torch.cuda.empty_cache()
+                dist.barrier()  # rank 0 has written both files
+                if args.rank == 0:
+                    emit(label="fsdp_file", **_files_differ(*files))
+                resumed = {}
+                for fsdp in (False, True):
+                    b = clone(dtype)
+                    st = state_of(b, data2, fsdp)
+                    step = M.wrap_train_step(data2, make_train_step(
+                        b.module, b.meta, BNNPriorSpec(), NUM_MC,
+                        mc_chunk=1, packed_inputs=True, remat="on",
+                        mesh=data2))
+                    del b
+                    st = ckpt.restore_train_state(files[0], st)[0]
+                    st, m = step(st, inputs, labels, mask,
+                                 torch.Generator().manual_seed(args.seed + 19),
+                                 PAR_KL_WEIGHT, float(TRAIN_BATCH))
+                    resumed[fsdp] = (gathered(st), m)
+                    del st
+                _compare_steps(resumed[True][0], resumed[False][0],
+                               resumed[True][1], resumed[False][1], emit,
+                               "fsdp_resumed")
+                del resumed
             del got
             torch.cuda.empty_cache()
+
 
         # mc=2: each rank draws its row of every chunk of 2
         mc2 = M.make_mesh(MeshSpec(1, 2))
@@ -1260,6 +1487,39 @@ def _flat_stats(tree) -> torch.Tensor:
     return tree.detach().double().reshape(-1)
 
 
+def _files_differ(path_a: str, path_b: str) -> dict:
+    """Two ``save_train_state`` files leaf by leaf: whether they hold the
+    same leaves with the same shapes and dtypes and the same epoch, step
+    and scheduler counts, and the largest relative L2 difference of their
+    float leaves (``max_rel``)."""
+    def leaves(t, path=""):
+        if isinstance(t, dict):
+            for k in sorted(t, key=str):
+                yield from leaves(t[k], f"{path}/{k}")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, t
+
+    a, b = (dict(leaves(torch.load(p, map_location="cpu", weights_only=True)))
+            for p in (path_a, path_b))
+    same = sorted(a) == sorted(b)
+    rel = 0.0
+    for k in a if same else ():
+        x, y = a[k], b.get(k)
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            same &= x.shape == y.shape and x.dtype == y.dtype
+            if same and x.is_floating_point() and x.numel():
+                rel = max(rel, float((x - y).double().norm())
+                          / max(float(y.double().norm()), 1e-30))
+            elif same:
+                same &= bool(torch.equal(x, y))
+        else:
+            same &= x == y
+    return {"same_leaves": bool(same), "leaves": len(a), "max_rel": rel}
+
+
 def _compare_steps(state, ref, m, ref_m, emit, label, **extra) -> None:
     """One train step's result against a reference step's: the loss, the
     gradients' and the updated running statistics' relative L2 errors,
@@ -1280,45 +1540,83 @@ def _compare_steps(state, ref, m, ref_m, emit, label, **extra) -> None:
                             - ref.post.rho.detach()).abs().max()), **extra)
 
 
-def _run_ranks(world: int, backend: str, args, work: str,
-               job: str = "parallel", weights: str = "") -> list:
-    """Run ``world`` ranks of this script (--rank) on ``job`` (phase 18's
-    "parallel", phase 15's "serving" or phase 16's "serving_dvp") and
-    return their PHASE18 / PHASE15 / PHASE16 results; any rank failing or
-    outliving PAR_TIMEOUT fails the phase, and every rank is stopped on
-    the way out."""
+def _start_ranks(world: int, backend: str, args, work: str,
+                 job: str = "parallel", weights: str = "",
+                 extra: tuple = ()) -> tuple:
+    """Start ``world`` ranks of this script (--rank) on ``job`` (phase
+    18's "parallel", "depth_data2" or "depth_fsdp", phase 15's "serving",
+    phase 16's "serving_dvp", phase 21's "learning" or "side", the phases
+    ``side_rank`` runs, each a process of its own), rendezvousing at a
+    free port, with ``extra`` arguments; ``_finish_ranks`` collects them.
+    Each rank writes its output to a file in ``work`` (a pipe left unread
+    while this process works would stop a rank that prints much)."""
     import socket
 
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
-    tag = {"parallel": "PHASE18 ", "serving": "PHASE15 ",
-           "serving_dvp": "PHASE16 "}[job]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
-         "--world", str(world), "--backend", backend, "--port", str(port),
-         "--work", work, "--seed", str(args.seed), "--job", job,
-         "--weights", weights],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
+    paths = [os.path.join(work, f"rank_{job}_{port}_{r}.log")
+             for r in range(world)]
+    procs = []
+    for r, path in enumerate(paths):
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                 "--world", str(world), "--backend", backend, "--port",
+                 str(port), "--work", work, "--seed", str(args.seed),
+                 "--job", job, "--weights", weights, *extra],
+                stdout=out, stderr=subprocess.STDOUT, text=True))
+    return procs, job, backend, paths
+
+
+def _stop_ranks(started: tuple) -> None:
+    for p in started[0]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _finish_ranks(started: tuple, relay: bool = False) -> list:
+    """The PHASE18 / PHASE15 / PHASE16 / PHASE21 / SIDE results of the
+    ranks ``_start_ranks`` started (``relay``: the rest of their output
+    printed here); any rank failing or outliving PAR_TIMEOUT fails the
+    phase, and every rank is stopped on the way out."""
+    procs, job, backend, paths = started
+    tag = {"serving": "PHASE15 ", "serving_dvp": "PHASE16 ",
+           "learning": "PHASE21 ", "side": "SIDE ",
+           "studies": "SIDE "}.get(job, "PHASE18 ")
     try:
-        outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
-    finally:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+            p.wait(timeout=PAR_TIMEOUT)
+    finally:
+        _stop_ranks(started)
+    outs = []
+    for path in paths:
+        with open(path) as f:
+            outs.append(f.read())
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"{job} rank {r}/{world} ({backend}) "
+            raise AssertionError(f"{job} rank {r}/{len(procs)} ({backend}) "
                                  f"exited {p.returncode}:\n{out[-6000:]}")
+    if relay:
+        for out in outs:
+            print("".join(ln for ln in out.splitlines(keepends=True)
+                          if not ln.startswith(tag)), end="", flush=True)
     return [json.loads(ln[len(tag):]) for out in outs
             for ln in out.splitlines() if ln.startswith(tag)]
 
 
-def phase_parallel(args, smi: str, bundle, work: str) -> dict:
-    """Phase 18 (see the module docstring). Returns the launches of #2 and
-    #3 its ranks counted on their paths."""
+def _run_ranks(world: int, backend: str, args, work: str,
+               job: str = "parallel", weights: str = "") -> list:
+    """``_start_ranks`` and ``_finish_ranks``: the ranks' results."""
+    return _finish_ranks(_start_ranks(world, backend, args, work, job,
+                                      weights))
+
+
+def phase_parallel(args, smi: str, bundle, work: str, beside=None):
+    """Phase 18 (see the module docstring). ``beside`` (``main`` passes
+    phases 22, 9, 10 and 11) runs in this process while the ranks run. Returns the launches of #2 and #3
+    its ranks counted on their paths, and ``beside()``'s result."""
     from multimodal_auv_torch.bayes.packing import softplus
     from multimodal_auv_torch.ops import sampling as S
 
@@ -1341,8 +1639,25 @@ def phase_parallel(args, smi: str, bundle, work: str) -> dict:
     del mu, sg
     free_cuda()
 
-    res = _run_ranks(2, "gloo", args, work)
-    res += _run_ranks(1, "nccl", args, work)
+    # the full-depth memory comparison's two rank pairs (data=2, fsdp) and
+    # the NCCL rank run beside the semantics checks' pair (the card is
+    # idle most of a host-bound step), so every step time this phase
+    # prints is taken under that contention
+    others = [_start_ranks(2, "gloo", args, work, job=f"depth_{k}")
+              for k in ("data2", "fsdp")]
+    try:
+        others.append(_start_ranks(1, "nccl", args, work))
+        semantics = _start_ranks(2, "gloo", args, work)
+        try:
+            other = beside() if beside is not None else None
+            res = _finish_ranks(semantics)
+        finally:
+            _stop_ranks(semantics)
+        for started in others:
+            res += _finish_ranks(started)
+    finally:
+        for started in others:
+            _stop_ranks(started)
     by = {(r["label"], r["rank"], r["backend"]): r for r in res}
     for r in res:
         body = {k: v for k, v in r.items()
@@ -1376,8 +1691,10 @@ def phase_parallel(args, smi: str, bundle, work: str) -> dict:
                 and c["stats_rel_l2"] <= stats_tol
                 and c.get("exp_avg_rel_l2", 0.0) <= PAR_GRAD_REPEAT)
 
-    checks = [(("nccl_world1_vs_ref", 0, "nccl"), repeat)]
-    checks += [(("fsdp_vs_ref", r, "gloo"), repeat) for r in (0, 1)]
+    checks = [((f"{w}_vs_ref", 0, "nccl"), repeat)
+              for w in ("nccl_world1", "nccl_world1_fsdp")]
+    checks += [((f"{name}_vs_ref", r, "gloo"), repeat) for r in (0, 1)
+               for name in ("fsdp", "fsdp_resumed")]
     for name, tols in gates.items():
         checks.append(((f"{name}_vs_ref", 0, "gloo"), tols))
         for fault in PAR_FAULTS[name]:
@@ -1390,16 +1707,46 @@ def phase_parallel(args, smi: str, bundle, work: str) -> dict:
         if not held(key, *tols):
             raise AssertionError(f"{key[0]} (gates: loss, gradients, "
                                  f"statistics {tols}): {by[key]}")
-    # fsdp keeps (1 - 1/2) of the four P-float moment vectors: its state
-    # must be at least one P-float vector smaller than data=2's
-    P_mib = by[("data2", 0, "gloo")]["P"] * 4 / 2**20
-    for r in range(2):
-        fs, d2 = by[("data2_fsdp", r, "gloo")], by[("data2", r, "gloo")]
-        if not fs["state_mib"] <= d2["state_mib"] - P_mib:
-            raise AssertionError(f"fsdp rank {r}: state {fs['state_mib']:.1f}"
-                                 f" MiB, data=2 {d2['state_mib']:.1f} MiB")
-    if by[("nccl_world1", 0, "nccl")]["launches"] != full(want):
-        raise AssertionError("nccl world 1: launches")
+    # fsdp keeps mu, rho, their gradients and Adam moments on shards at
+    # rest: 8 P / 2 = 4 P floats a rank on two ranks against data=2's
+    # 8 P, so its state must be at least 3 P floats below data=2's, at
+    # each depth with that depth's P, after every step
+    pairs = [("data2_fsdp", "data2")] + [
+        (f"depth_fsdp_step{k}", f"depth_data2_step{k}") for k in (1, 2)]
+    for fs_label, d2_label in pairs:
+        for r in range(2):
+            fs, d2 = by[(fs_label, r, "gloo")], by[(d2_label, r, "gloo")]
+            P = d2["P"]
+            if not (fs["P"] == P and 0 < fs["shard"] < P and not
+                    fs["skipped"] and not d2["skipped"]):
+                raise AssertionError(f"{fs_label} rank {r}: {fs} / {d2}")
+            gap = (d2["state_mib"] - fs["state_mib"]) * 2**20 / 4 / P
+            log(f"phase 18 {fs_label} rank {r}: state {fs['state_mib']:.1f}"
+                f" MiB against data=2's {d2['state_mib']:.1f} MiB (P={P}: "
+                f"{gap:.2f} P floats less), peak {fs['peak_mib']:.1f} "
+                f"against {d2['peak_mib']:.1f} MiB", summary=True)
+            if not gap >= 3.0:
+                raise AssertionError(
+                    f"{fs_label} rank {r}: state {fs['state_mib']:.1f} MiB, "
+                    f"data=2 {d2['state_mib']:.1f} MiB: {gap:.2f} P floats "
+                    f"less, not 3")
+    f = by[("fsdp_file", 0, "gloo")]
+    if not (f["same_leaves"] and f["max_rel"] <= PAR_GRAD_REPEAT):
+        raise AssertionError(f"fsdp's save_train_state file against "
+                             f"data=2's: {f}")
+    for label in ("nccl_world1", "nccl_world1_fsdp"):
+        if by[(label, 0, "nccl")]["launches"] != full(want):
+            raise AssertionError(f"{label}: launches")
+    coll = by[("nccl_world1_fsdp", 0, "nccl")]["collectives"]
+    if any(coll.values()):
+        raise AssertionError(f"nccl world 1 fsdp: the step issued "
+                             f"collectives {coll} on an axis of size 1")
+    flat = by[("nccl_world1_flat", 0, "nccl")]
+    coll = flat["collectives"]
+    if not (all(flat["bit_equal"]) and len(flat["bit_equal"]) == 4
+            and (coll["all_gather"], coll["reduce_scatter"]) == (2, 2)):
+        raise AssertionError(f"NCCL's dedicated all_gather and "
+                             f"reduce_scatter at world 1: {flat}")
     for r in range(2):
         if by[("mc2", r, "gloo")]["launches"] != full(
                 {"stacked_sampler": NUM_MC // 2}):
@@ -1408,16 +1755,18 @@ def phase_parallel(args, smi: str, bundle, work: str) -> dict:
     if not c["bit_equal"]:
         raise AssertionError(f"mc=2 logits != the stacked path's: {c}")
     log(f"phase 18 (parallel, stages {PAR_STAGES}, P="
-        f"{by[('data2', 0, 'gloo')]['P']}): data=2, fsdp, mc=2 and NCCL "
-        f"world 1 ok [{smi}] in {time.perf_counter() - t_phase:.1f} s",
+        f"{by[('data2', 0, 'gloo')]['P']}; memory also at stages "
+        f"{PAR_DEPTH_STAGES}, P={by[('depth_data2_step1', 0, 'gloo')]['P']}"
+        f"): data=2, fsdp, fsdp resumed, mc=2 and NCCL world 1 (with and "
+        f"without fsdp) ok [{smi}] in {time.perf_counter() - t_phase:.1f} s",
         summary=True)
     out = {"stacked_sampler": 0, "eps": 0}
     for (label, _, _), r in by.items():
         for k in out:
             out[k] += r.get("launches", {}).get(k, 0) if label in (
                 "data2_bf16", "data2", "data2_fsdp", "mc2",
-                "nccl_world1") else 0
-    return out
+                "nccl_world1", "nccl_world1_fsdp") else 0
+    return out, other
 
 
 def check_train_kernels(post, n_padded: int):
@@ -1707,6 +2056,77 @@ def timed_train_steps(pipeline):
         pipeline.make_train_step = build
 
 
+@contextlib.contextmanager
+def recorded_train_steps(pipeline):
+    """While open, every train step that ``pipeline`` builds appends its
+    loss's bits (``float.hex``) and a SHA-1 of the updated mu's bytes to
+    the yielded list: a digest of the run that any change of a bit shows."""
+    import hashlib
+
+    record, build = [], pipeline.make_train_step
+
+    def recorded_build(*a, **kw):
+        step = build(*a, **kw)
+
+        def recorded_step(*sa):
+            state, m = step(*sa)
+            mu = state.post.mu.detach().float().cpu().numpy()
+            record.append((float(m["loss"]).hex(),
+                           hashlib.sha1(mu.tobytes()).hexdigest()[:12]))
+            return state, m
+
+        return recorded_step
+
+    pipeline.make_train_step = recorded_build
+    try:
+        yield record
+    finally:
+        pipeline.make_train_step = build
+
+
+def poison_allocator() -> None:
+    """Leave NaN in the blocks the caching allocator holds free, in its
+    small pool (blocks under 1 MiB) and its large one, so a kernel that
+    reads memory its run did not write reads NaN."""
+    small = [torch.full((2**16,), float("nan"), device="cuda")
+             for _ in range(512)]
+    large = [torch.full((2**24,), float("nan"), device="cuda")
+             for _ in range(16)]
+    torch.cuda.synchronize()
+    del small, large
+
+
+def learning_probe(args, work: str, tag: str) -> list:
+    """One epoch of phase 21's training (``--probe_learning``): the same
+    tree, recipe, seed and cuDNN flags, in a directory of its own; logs
+    and returns ``recorded_train_steps``' digest of its 4 steps."""
+    from tests.fixtures.make_tree import make_separable_training_tree
+
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.models.model_utils import ArchConfig
+    from multimodal_auv_torch.pipelines import training as pipeline
+
+    root = os.path.join(work, "probe_tree")
+    if not os.path.isdir(root):
+        make_separable_training_tree(root, n_per_class=LEARN_PER_CLASS,
+                                     seed=args.seed)
+    run_dir = tempfile.mkdtemp(prefix="probe_", dir=work)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True), \
+            recorded_train_steps(pipeline) as record, \
+            contextlib.chdir(run_dir):
+        ok = pipeline.run_AUV_training_from_scratch(
+            BNNPriorSpec(moped_enable=False).to_dict(), LEARN_LR, 1,
+            LEARN_MC, 10, 10, LEARN_BATCH, root, num_classes=0,
+            arch=ArchConfig.micro(image_size=32), seed=args.seed,
+            strict_errors=True, handle_preemption=False,
+            resume_checkpoint=os.path.join(run_dir, "state.pt"))
+    if ok is not True:
+        raise AssertionError(f"learning probe {tag}: returned {ok}")
+    log(f"learning probe after {tag}: {record}")
+    return record
+
+
 def phase_training(args, smi: str, bundle, work: str):
     """The training path at full width: kernels, card vs CPU, then one
     epoch through ``run_AUV_training_from_scratch`` on a folder tree in
@@ -1990,7 +2410,8 @@ def phase_models(args, smi: str):
     ms = cuda_ms(lambda: S.gaussian_reparam(post.mu, post.rho, (1, 2)), 50)
     b_ms, _ = bound_ms(3 * P * 4, (P // 2) * REPARAM_F32_OPS)
     log(f"reparam_sampler 1 draw f32 at the unimodal P={P}: kernel {ms:.4f} "
-        f"ms, bound {b_ms:.4f} ms (bytes); {philox_note(P, 1)}")
+        f"ms (beside phase 18's ranks), bound {b_ms:.4f} ms (bytes); "
+        f"{philox_note(P, 1)}")
     check_sample_and_apply_card_vs_cpu()
     return models, launches["reparam_sampler"]
 
@@ -2400,7 +2821,8 @@ def phase_retraining(args, smi: str, work: str, weights: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        with timed_train_steps(pipeline) as (times, _), contextlib.chdir(work):
+        with timed_train_steps(pipeline) as (times, _), \
+            recorded_train_steps(pipeline) as record, contextlib.chdir(work):
             rc = cli.main([
                 "retrain", "--data_dir", root, "--model_weights", weights,
                 "--num_classes", str(classes), "--freeze_backbone",
@@ -2632,13 +3054,13 @@ def phase_serving(args, smi: str, work: str, weights: str) -> dict:
     del art
     free_cuda()
     unsharded = (t_export, t_load, rate, sizes["program.pt2"])
-    stacked, mc_sharded, bf16_entry = phase_serving_mc_shards(
+    stacked, mc_sharded, bf16_timer = phase_serving_mc_shards(
         args, smi, work, weights, batches, key, unsharded)
     free_cuda()
     n_launches += phase_serving_data_shards(args, smi, work, batches, key,
                                             (unsharded, mc_sharded))
     return {"split_sampler": n_launches, "stacked_sampler": stacked,
-            "bf16_entry": bf16_entry}
+            "bf16_timer": bf16_timer}
 
 
 def _half_batch_conv_logits(bundle, batch, seed: int) -> torch.Tensor:
@@ -2682,7 +3104,8 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
     time beside its bound, the plain version and ``torch.normal``. Prints
     export s, load s and patches/s beside the unsharded artifact's
     (``unsharded``). Returns the stacked_sampler launches of the served
-    run, and (export s, load s, patches/s, program MB)."""
+    run, (export s, load s, patches/s, program MB) and ``time_kernel``,
+    which times kernel #2 there."""
     from multimodal_auv_torch.bayes.packing import softplus
     from multimodal_auv_torch.config import BNNPriorSpec
     from multimodal_auv_torch.engine.mc import mc_logits
@@ -2777,19 +3200,6 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
     share = calls / S.philox_calls(P, rows)
     del counted
     free_cuda()
-    draw = lambda: S.stacked_draws(mu, sg, seeds, rows,
-                                   out_dtype=torch.bfloat16)
-    ms = cuda_ms(draw, 20)
-    held = sustained(draw)
-    plain_ms = cuda_ms(lambda: S.stacked_plain(mu, sg, words, rows,
-                                               torch.bfloat16), 2)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    mun, sgn = mu.expand(rows, P), sg.expand(rows, P)
-    lib_ms = cuda_ms(lambda: torch.normal(mun, sgn, generator=gen), 20)
-    b_ms, b_by = bound_ms(2 * P * 2 + 16 + rows * P * 2,
-                          (P // 2) * rows * SAMPLER_F32_OPS[False])
-    del mu, sg, mun, sgn
-    free_cuda()
     e0, l0, r0, _ = unsharded
     log(f"mc-sharded artifact (full width, b{BATCH} x {NUM_MC} MC as "
         f"{MC_SHARDS} shards of {rows} stacked draws on cuda:0, bf16): "
@@ -2800,23 +3210,44 @@ def phase_serving_mc_shards(args, smi: str, work: str, weights: str,
         f"patches/s [{smi}]; logits bit-equal to the one-process stacked "
         f"path on every batch, CSV columns equal; launches {launches}",
         summary=True)
-    log(f"stacked_sampler (bf16_stacked_kernel) via auv::stacked_sampler "
-        f"(device seed) at the shard's shape {rows} x P={P}, bf16 in and "
-        f"out: == plain bit for bit (max abs err {err}); kernel {ms:.4f} ms "
-        f"({held['ms']:.4f} ms a call over {held['calls']} back to back at "
-        f"SM {held['sm_mhz']} MHz, {held['watts']} W), plain "
-        f"{plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); exact path {calls} of "
-        f"{S.philox_calls(P, rows)} Philox calls ({share:.3e}) [{smi}]; "
-        f"{philox_note(P, rows)}", summary=True)
-    entry = {"name": "stacked_sampler:bf16_stacked_kernel", "route": "cuda",
-             "source": "multimodal_auv_torch/csrc/sampling.cu",
-             "replaces": "multimodal_auv_tpu/ops/sampling.py:198",
-             "launches": launches["stacked_sampler"], "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": lib_ms}
+
+    def time_kernel() -> dict:
+        """Kernel #2's times at the shard's shape, its plain version's,
+        ``torch.normal``'s and its bound, printed; its kernels-line entry.
+        ``main`` calls it once the processes beside phase 15 have ended,
+        so that the card runs nothing else meanwhile."""
+        draw = lambda: S.stacked_draws(mu, sg, seeds, rows,
+                                       out_dtype=torch.bfloat16)
+        ms = cuda_ms(draw, 20)
+        held = sustained(draw)
+        plain_ms = cuda_ms(lambda: S.stacked_plain(mu, sg, words, rows,
+                                                   torch.bfloat16), 2)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        mun, sgn = mu.expand(rows, P), sg.expand(rows, P)
+        lib_ms = cuda_ms(lambda: torch.normal(mun, sgn, generator=gen), 20)
+        b_ms, b_by = bound_ms(2 * P * 2 + 16 + rows * P * 2,
+                              (P // 2) * rows * SAMPLER_F32_OPS[False])
+        del mun, sgn
+        free_cuda()
+        log(f"stacked_sampler (bf16_stacked_kernel) via auv::stacked_sampler "
+            f"(device seed) at the shard's shape {rows} x P={P}, bf16 in and "
+            f"out: == plain bit for bit (max abs err {err}); kernel "
+            f"{ms:.4f} ms ({held['ms']:.4f} ms a call over {held['calls']} "
+            f"back to back at SM {held['sm_mhz']} MHz, {held['watts']} W), "
+            f"plain {plain_ms:.3f} ms, torch.normal {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); exact path {calls} of "
+            f"{S.philox_calls(P, rows)} Philox calls ({share:.3e}) [{smi}]; "
+            f"{philox_note(P, rows)}", summary=True)
+        return {"name": "stacked_sampler:bf16_stacked_kernel",
+                "route": "cuda",
+                "source": "multimodal_auv_torch/csrc/sampling.cu",
+                "replaces": "multimodal_auv_tpu/ops/sampling.py:198",
+                "launches": launches["stacked_sampler"], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}
+
     return launches["stacked_sampler"], (t_export, t_load,
-                                         N_SAMPLES / wall, size), entry
+                                         N_SAMPLES / wall, size), time_kernel
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2862,8 +3293,8 @@ def phase_serving_data_shards(args, smi: str, work: str, batches, key: int,
     local sums) not; both printed beside the unsharded step's logits at
     that depth (``_unsharded_logits``), which in bf16 do not bound them
     (PERF.md, Findings). Then the timed ``predict_batches`` with exactly
-    DATA_SHARDS x 30 split_sampler launches, and
-    ``check_composed_micro``. ``others``: the full-depth unsharded and
+    DATA_SHARDS x 30 split_sampler launches (``check_composed_micro``
+    runs in ``side_rank``). ``others``: the full-depth unsharded and
     mc-sharded artifacts' (export s, load s, patches/s, program MB),
     printed beside. Returns the split_sampler launches of the timed
     run."""
@@ -2997,7 +3428,6 @@ def phase_serving_data_shards(args, smi: str, work: str, batches, key: int,
         f"{_rel_err(control, ref):.3e}, the unsharded step with its "
         f"convolutions run per shard's rows {_rel_err(half_conv, ref):.3e}",
         summary=True)
-    check_composed_micro(smi, work)
     return launches["split_sampler"]
 
 
@@ -4404,7 +4834,7 @@ def learning_gates(pred, prob, unc, labels, is_ambig) -> dict:
             "unc_clean": u_clean, "ece": float(ece), "auroc": auroc}
 
 
-def phase_learning(args, smi: str, work: str) -> dict:
+def phase_learning(args, smi: str, work: str, started: tuple) -> dict:
     """Phase 21 ("learning"): tests/test_learning.py:64's recipe on the
     card. ``run_AUV_training_from_scratch(device=None)`` on a separable
     synthetic tree (tests/fixtures/make_tree.py) at micro(), 32 px, then
@@ -4417,13 +4847,104 @@ def phase_learning(args, smi: str, work: str) -> dict:
     runs its deterministic algorithms throughout: with its default ones
     the same run's uncertainty-error AUROC varied from 0.4 to 1.0 between
     runs on an H100 (the gate is > 0.5), so the phase's outcome was not a
-    function of the code. Returns the phase's launches."""
+    function of the code. It runs twice: in a process of its own (this
+    script with ``--job learning``) and then, as a witness, in this
+    process after every phase this process ran, in a directory of its
+    own; both pass every gate and their
+    digests (``recorded_train_steps``: each step's loss bits and updated
+    mu) must be equal, so the phase's numbers do not depend on what ran
+    before it in a process. ``started``: the first run's process, which
+    ``main`` starts beside phases 14 and 15 (deterministic algorithms:
+    what runs beside changes its times, not its bits). Returns both
+    runs' launches."""
+    (res,) = _finish_ranks(started)
+    log("in its own process: " + res["summary"], summary=True)
+    witness = os.path.join(work, "learning_in_process")
+    os.makedirs(witness)
+    launches, record = _learning(args, smi, witness)
+    record = [list(r) for r in record]
+    if record != res["record"]:
+        raise AssertionError(
+            f"learning: the run in this process after the earlier phases "
+            f"differs from the run in a fresh process: {record} against "
+            f"{res['record']}")
+    log(f"phase 21 (learning) in this process after phases 4-15, 17, 18 "
+        f"and 22: every "
+        f"gate held, its {len(record)} steps' losses and updated mu bit "
+        f"for bit those of the run in a fresh process", summary=True)
+    return {k: launches[k] + res["launches"][k] for k in launches}
+
+
+def side_rank(args) -> int:
+    """Phases that ``main`` runs in a process of their own (this script
+    with ``--job side`` or ``--job studies``) beside phases 14 and 15:
+    "side" runs phase 15's composed micro() check and phases 16 and 19,
+    in that order (``--weights``: phase 13's file; ``--mc_rate``: phase
+    4's patches/s; phase 19 on a bundle made from the seed as phase 4's
+    is), "studies" phase 20. Each phase runs as it would in ``main``.
+    Prints their log, then one ``SIDE {json}`` line: each phase's
+    launches and the summary lines."""
+    sys.path.insert(0, HERE)
+    from multimodal_auv_torch.config import BNNPriorSpec
+    from multimodal_auv_torch.device import resolve_device
+    from multimodal_auv_torch.models.model_utils import (
+        ArchConfig,
+        make_multimodal_bundle,
+    )
+
+    smi = smi_line()
+    resolve_device("cuda")  # TF32 off, as main does
+    t0 = time.perf_counter()
+    out = {}
+    if args.job == "studies":
+        out["studies"] = phase_studies(args, smi, args.work)
+        what = "phase 20"
+    else:
+        check_composed_micro(smi, args.work)
+        free_cuda()
+        out["dvp"] = phase_dvp(args, smi, args.work, args.weights,
+                               args.mc_rate)
+        free_cuda()
+        bundle = make_multimodal_bundle(
+            NUM_CLASSES, BNNPriorSpec(),
+            torch.Generator().manual_seed(args.seed), ArchConfig(),
+            device="cuda")
+        out["variants"] = phase_variants(args, smi, bundle, args.work)
+        del bundle
+        what = "phases 15 (composed micro()), 16 and 19"
+    log(f"{what} in a process of their own beside phases 14 and 15 (every "
+        f"time they print taken under that contention): "
+        f"{time.perf_counter() - t0:.1f} s", summary=True)
+    print("SIDE " + json.dumps(dict(out, summary=SUMMARY)), flush=True)
+    return 0
+
+
+def learning_rank(args) -> int:
+    """Phase 21 in this process (``--job learning``): prints its result
+    as one ``PHASE21 {json}`` line (the launches, the digest and the
+    summary)."""
+    sys.path.insert(0, HERE)
+    smi = phase_device()
+    from multimodal_auv_torch.device import resolve_device
+
+    resolve_device("cuda")  # TF32 off, as main does
+    work = os.path.join(args.work, "learning_fresh")
+    os.makedirs(work)
+    launches, record = _learning(args, smi, work)
+    print("PHASE21 " + json.dumps({"launches": launches, "record": record,
+                                   "summary": SUMMARY[-1]}), flush=True)
+    return 0
+
+
+def _learning(args, smi: str, work: str) -> tuple:
+    """Phase 21 in ``work`` with cuDNN's deterministic algorithms: its
+    launches and ``recorded_train_steps``' digest of its training."""
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=True):
-        return _learning(args, smi, work)
+        return _learning_run(args, smi, work)
 
 
-def _learning(args, smi: str, work: str) -> dict:
+def _learning_run(args, smi: str, work: str) -> tuple:
     from tests.fixtures.make_tree import make_separable_training_tree
 
     from multimodal_auv_torch.config import BNNPriorSpec
@@ -4451,7 +4972,8 @@ def _learning(args, smi: str, work: str) -> dict:
     state_path = os.path.join(work, "learn_state.pt")
     reset_launches()
     t0 = time.perf_counter()
-    with timed_train_steps(pipeline) as (times, _), contextlib.chdir(work):
+    with timed_train_steps(pipeline) as (times, _), \
+            recorded_train_steps(pipeline) as record, contextlib.chdir(work):
         ok = pipeline.run_AUV_training_from_scratch(
             spec.to_dict(), LEARN_LR, LEARN_EPOCHS, LEARN_MC, 10, 10,
             LEARN_BATCH, root, num_classes=0, arch=arch, seed=args.seed,
@@ -4520,7 +5042,160 @@ def _learning(args, smi: str, work: str) -> dict:
         f"{report['unc_clean']:.6g}, ECE {report['ece']:.4f}, AUROC "
         f"{report['auroc']}; launches training {trained}, probe {probed}; "
         f"phase {time.perf_counter() - t_phase:.1f} s", summary=True)
-    return {k: trained[k] + probed[k] for k in trained}
+    return {k: trained[k] + probed[k] for k in trained}, record
+
+
+def run_example(name: str, argv: list) -> str:
+    """Run ``examples/torch/<name>.py`` as ``__main__`` in this process
+    with ``argv`` (its directory first on sys.path, as Python puts a
+    script's there); returns what it printed."""
+    import io
+    import runpy
+
+    ex = os.path.join(HERE, "examples", "torch")
+    path = os.path.join(ex, f"{name}.py")
+    saved = sys.argv, list(sys.path)
+    sys.argv = [path] + list(argv)
+    sys.path.insert(0, ex)
+    sys.modules.pop("_bootstrap", None)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv, sys.path[:] = saved
+    return out.getvalue()
+
+
+def _rows(path: str) -> list:
+    with open(path, newline="") as f:
+        return [r for r in csv.reader(f) if r]
+
+
+def phase_examples(args, smi: str, work: str) -> dict:
+    """Phase 22: the ten port examples (``examples/torch/``) in this
+    process on the card at ``--tiny`` (``ArchConfig.micro()``, 32 px),
+    each at its smallest flags on trees written here (EXAMPLE_SAMPLES
+    labelled folders of 3 classes, 5 dives, phase 20's raw survey), each
+    producing its artefact: the inference CSV, the ledgers and
+    checkpoint of both training examples, the .pth export of the
+    from-scratch checkpoint, the data-prep folders, both noise studies'
+    results and CSVs, the serving artifact and its batches, the HTTP
+    replies, the research driver's sweep summary. The launches of every
+    example are counted from 0: the examples that run a model launch
+    the kernels they should, data-prep and export none. Returns the
+    launches of #1-#3 summed over the examples."""
+    from multimodal_auv_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    d = os.path.join(work, "examples")
+    tree = write_training_tree(os.path.join(d, "tree"), args.seed,
+                               num_classes=3, n_samples=EXAMPLE_SAMPLES)
+    dives = write_inference_tree(os.path.join(d, "dives"), args.seed, 5)
+    trees = {}
+    for name in ("scratch", "retrain", "research"):
+        trees[name] = shutil.copytree(tree, os.path.join(d, name))
+    raw, tiffs = write_raw_survey(os.path.join(d, "prep"), args.seed)
+    art = os.path.join(d, "art")
+    cuda = ["--device", "cuda", "--tiny"]
+    small = ["--num_mc", "2", "--batch_size", "4"]
+    model_file = lambda root: os.path.join(root, "models", os.listdir(
+        os.path.join(root, "models"))[0])
+    runs = [
+        ("example_inference", ["--data_dir", dives, "--output_csv",
+                               os.path.join(d, "inference.csv"),
+                               "--batch_size", "2", "--num_mc_samples", "2",
+                               "--allow_random_init"] + cuda,
+         ("split_sampler",)),
+        ("example_training_from_scratch", ["--root_dir", trees["scratch"],
+                                           "--epochs", "1"] + small + cuda,
+         ("stacked_sampler", "eps", "split_sampler")),
+        ("example_retraining", ["--data_dir", trees["retrain"],
+                                "--num_classes", "3", "--epochs", "1",
+                                "--allow_random_init"] + small + cuda,
+         ("stacked_sampler", "eps", "split_sampler")),
+        ("example_export", lambda: [
+            "--checkpoint", model_file(trees["scratch"]), "--num_classes",
+            "3", "--out", os.path.join(d, "export.pth")] + cuda, ()),
+        ("example_data_preparation", ["--raw_optical_images_folder", raw,
+                                      "--geotiff_folder", tiffs,
+                                      "--output_folder",
+                                      os.path.join(d, "prepared")], ()),
+        ("example_noise_study", ["--root_dir", tree, "--csv_dir",
+                                 os.path.join(d, "noise")] + small + cuda,
+         ("split_sampler",)),
+        ("example_unimodal_noise", ["--root_dir", tree, "--csv_dir",
+                                    os.path.join(d, "uninoise")]
+         + small + cuda, ("split_sampler",)),
+        ("example_export_serving", ["--output_dir", art, "--batch_size", "4",
+                                    "--num_mc_samples", "2",
+                                    "--allow_random_init"] + cuda,
+         ("split_sampler",)),
+        ("example_serve", ["--artifact", art, "--num_mc_samples", "2"] + cuda,
+         ("split_sampler",)),
+        ("research_driver", ["--root_dir", trees["research"], "--csv_dir",
+                             os.path.join(d, "research"),
+                             "--unimodal_epochs", "2", "--sweep_epochs", "1",
+                             "--num_mc", "2", "--grid", "30"] + cuda,
+         ("stacked_sampler", "eps", "split_sampler")),
+    ]
+    total = {"split_sampler": 0, "stacked_sampler": 0, "eps": 0}
+    printed = {}
+    with contextlib.chdir(d):  # the pipelines' logs/ and tensorboard_logs/
+        for name, argv, used in runs:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            printed[name] = run_example(name, argv() if callable(argv)
+                                        else argv)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            if sorted(got) != sorted(used):
+                raise AssertionError(f"{name}: kernel launches {got}, want "
+                                     f"launches of {used} only")
+            for k in total:
+                total[k] += got.get(k, 0)
+            log(f"phase 22 {name}: {time.perf_counter() - t0:.1f} s, "
+                f"launches {got}")
+
+    # the artefacts
+    if len(_rows(os.path.join(d, "inference.csv"))) != 6:
+        raise AssertionError("example_inference: not 5 rows and a header")
+    for root in (trees["scratch"], trees["retrain"]):
+        for f in ("multimodal_train_results.csv",
+                  "multimodal_eval_results.csv"):
+            if len(_rows(os.path.join(root, "csvs", f))) != 2:
+                raise AssertionError(f"{root}: {f}")
+        if len(os.listdir(os.path.join(root, "models"))) != 1:
+            raise AssertionError(f"{root}: no checkpoint")
+    from multimodal_auv_torch.interop.torch_import import load_torch_state_dict
+
+    if len(load_torch_state_dict(os.path.join(d, "export.pth"))) < 100:
+        raise AssertionError("example_export: the .pth holds too few keys")
+    samples = os.listdir(os.path.join(d, "prepared", "samples"))
+    if len(samples) != PREP_FRAMES:
+        raise AssertionError(f"example_data_preparation: {samples}")
+    for name, sub in (("example_noise_study", "noise"),
+                      ("example_unimodal_noise", "uninoise")):
+        n = sum(ln.startswith("{") for ln in printed[name].splitlines())
+        if n != 6 or not any(f.endswith(".csv")
+                             for f in os.listdir(os.path.join(d, sub))):
+            raise AssertionError(f"{name}: {n} results\n{printed[name]}")
+    if not os.path.exists(os.path.join(art, "meta.json")) or sum(
+            ln.startswith("batch ") for ln in
+            printed["example_export_serving"].splitlines()) != 3:
+        raise AssertionError(printed["example_export_serving"])
+    serve = printed["example_serve"]
+    if not serve.startswith("healthz:") or sum(
+            ln.startswith("sample ") for ln in serve.splitlines()) != 4:
+        raise AssertionError(serve)
+    if not os.path.exists(os.path.join(d, "research",
+                                       "patch_sweep_summary.csv")):
+        raise AssertionError(printed["research_driver"])
+    log(f"phase 22 (examples/torch, ten scripts at --tiny on the card): "
+        f"every artefact written, launches {total} [{smi}] in "
+        f"{time.perf_counter() - t_phase:.1f} s", summary=True)
+    return total
 
 
 def free_cuda() -> None:
@@ -4532,6 +5207,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--probe_learning", action="store_true",
+                    help="run one epoch of phase 21's training before the "
+                    "phases and after each, and log its digest")
     # one rank of phase 18 (the script starts them itself)
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
@@ -4540,8 +5218,14 @@ def main() -> int:
     ap.add_argument("--work", default="", help=argparse.SUPPRESS)
     ap.add_argument("--job", default="parallel", help=argparse.SUPPRESS)
     ap.add_argument("--weights", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mc_rate", type=float, default=0.0,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank is not None:
+        if args.job == "learning":
+            return learning_rank(args)
+        if args.job in ("side", "studies"):
+            return side_rank(args)
         return (serving_rank(args) if args.job.startswith("serving")
                 else parallel_rank(args))
 
@@ -4557,57 +5241,103 @@ def main() -> int:
     phase_build()
     # bulky work files (packed sets, the survey tree, GB-sized checkpoints)
     # stay out of OUT_DIR, which is kept after the run
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+    started = []  # the processes started beside this one's phases
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work, \
+            contextlib.ExitStack() as stack:
+        stack.callback(lambda: [_stop_ranks(p) for p in started])
+
+        def probe(tag: str) -> None:
+            if args.probe_learning:
+                learning_probe(args, work, tag)
+                free_cuda()
+
+        probe("the build")
+        if args.probe_learning:
+            # the same probe with NaN in the allocator's free blocks
+            poison_allocator()
+            learning_probe(args, work,
+                           "the build, on a poisoned allocator")
+            free_cuda()
+            probe("the build, again")
         bundle, split_entry, mc_rate = phase_main_path(args, smi, work)
+        probe("phase_main_path")
         kernels_line = [split_entry] + phase_training(args, smi, bundle,
                                                       work)
+        probe("phase_training")
         free_cuda()
         split_entry["launches"] += phase_fused(args, smi, bundle, work)
+        probe("phase_fused")
         free_cuda()
-        parallel = phase_parallel(args, smi, bundle, work)
+
+        def beside_ranks():
+            """Phases 22, 9, 10 and 11, run here while phase 18's ranks
+            run (none of them takes a time of the kernels line)."""
+            examples = phase_examples(args, smi, work)
+            free_cuda()
+            models, reparam_launches = phase_models(args, smi)
+            phase_unimodal_inference(args, smi, models["image_model"], work)
+            del models
+            free_cuda()
+            phase_unimodal_training(args, smi, work)
+            free_cuda()
+            return examples, reparam_launches
+
+        parallel, (examples, reparam_launches) = phase_parallel(
+            args, smi, bundle, work, beside=beside_ranks)
         for e in kernels_line:
             e["launches"] += parallel.get(e["name"], 0)
-        free_cuda()
-        variants = phase_variants(args, smi, bundle, work)
-        for e in kernels_line:
-            e["launches"] += variants[e["name"]]
+        probe("phases 18, 22, 9, 10 and 11")
         P_full = bundle.meta.n_padded
         del bundle
         free_cuda()
         reparam_entry = check_reparam_kernel(P_full)
-        free_cuda()
-        models, reparam_entry["launches"] = phase_models(args, smi)
-        phase_unimodal_inference(args, smi, models["image_model"], work)
-        del models
-        free_cuda()
-        phase_unimodal_training(args, smi, work)
+        reparam_entry["launches"] = reparam_launches
+        probe("check_reparam_kernel")
         kernels_line.append(reparam_entry)
         free_cuda()
         weights, split_launches = phase_pretrained_inference(args, smi, work)
+        probe("phase_pretrained_inference")
         free_cuda()
+        # phase 15's composed micro() check and phases 16 and 19 run in a
+        # process of their own, phase 20 in another and phase 21's first
+        # run in a third, while phases 14 and 15 run here
+        flags = ("--mc_rate", repr(mc_rate)) + (
+            ("--profile",) if args.profile else ())
+        for job in ("side", "studies", "learning"):
+            started.append(_start_ranks(1, "none", args, work, job=job,
+                                        weights=weights, extra=flags))
+        side, studies_run, learning_run = started[-3:]
         retrain = phase_retraining(args, smi, work, weights)
+        probe("phase_retraining")
         free_cuda()
         serving = phase_serving(args, smi, work, weights)
         split_launches += serving["split_sampler"]
+        probe("phase_serving")
         free_cuda()
-        split_launches += phase_dvp(args, smi, work, weights, mc_rate)
-        free_cuda()
-        studies = phase_studies(args, smi, work)
-        free_cuda()
-        learning = phase_learning(args, smi, work)
+        (res,) = _finish_ranks(side, relay=True)
+        (studies,) = _finish_ranks(studies_run, relay=True)
+        SUMMARY.extend(res["summary"] + studies["summary"])
+        split_launches += res["dvp"]
+        studies, variants = studies["studies"], res["variants"]
+        learning = phase_learning(args, smi, work, learning_run)
         free_cuda()
         # each kernel's launches on the paths: add phases 13, 14, 15, 16,
-        # 20 and 21 (17 and 18 were added above)
+        # 19, 20, 21 and 22 (17 and 18 were added above)
         retrain["split_sampler"] += split_launches
         retrain["stacked_sampler"] += serving["stacked_sampler"]
         for e in kernels_line:
             e["launches"] += (retrain[e["name"]] + studies.get(e["name"], 0)
-                              + learning.get(e["name"], 0))
+                              + variants.get(e["name"], 0)
+                              + learning.get(e["name"], 0)
+                              + examples.get(e["name"], 0))
         # #2's bf16 kernel at the mc shard: the mc-sharded run's launches
-        # (every stacked launch there writes bf16)
-        kernels_line.append(serving["bf16_entry"])
+        # (every stacked launch there writes bf16), timed now that the
+        # processes beside phase 15 have ended
+        kernels_line.append(serving["bf16_timer"]())
+        del serving
+        free_cuda()
         kernels_line += phase_probe(smi, P_full)
-    log("summary of phases 15, 16 (f) and 17-21:\n  " + "\n  ".join(SUMMARY))
+    log("summary of phases 15, 16 (f) and 17-22:\n  " + "\n  ".join(SUMMARY))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -12,10 +12,13 @@ Every file is written to a temporary name and renamed into place, so a
 crash mid-write leaves the previous checkpoint whole. Under a process
 group every rank checks that it names the same path
 (``parallel.distributed.assert_same_across_processes``) and rank 0 alone
-writes: the posterior is replicated, and a sharded optimizer's
-``state_dict`` gathers its moments (a collective every rank joins), so the
-file is the one a single process writes. Every rank reads the file to
-resume. Tensors are saved on
+writes. Under fsdp (``engine/optim.py::ShardedAdam``) ``save_train_state``
+gathers mu, rho and their moments first (``full_posterior`` and the
+optimizer's ``state_dict``, collectives every rank joins, on the caller's
+thread), so the file is the one a single process writes; the loops pass
+``save_model`` the gathered posterior the same way. Every rank reads the
+file to resume, and ``restore_train_state`` copies only this rank's shard
+of mu and rho into a sharded state. Tensors are saved on
 the CPU and restored onto the device of the state they are restored into.
 
 ``async_save=True`` (the JAX package's orbax ``AsyncCheckpointer``
@@ -53,7 +56,11 @@ from multimodal_auv_torch.bayes.packing import (
     _set_path,
     tree_to,
 )
-from multimodal_auv_torch.engine.optim import BayesTrainState
+from multimodal_auv_torch.engine.optim import (
+    BayesTrainState,
+    ShardedAdam,
+    full_posterior,
+)
 from multimodal_auv_torch.parallel.distributed import (
     assert_same_across_processes,
     is_coordinator,
@@ -165,8 +172,11 @@ def load_posterior(path: str, device=None) -> PackedPosterior:
 def save_train_state(path: str, state: BayesTrainState, epoch: int,
                      scheduler_counts: Optional[Dict[str, int]] = None,
                      async_save: bool = False) -> str:
+    """Write (posterior, Adam state, BatchNorm statistics, step, epoch,
+    scheduler counts) to ``path``: the whole posterior and moments, also
+    under fsdp, whose gathers every rank joins."""
     return _atomic_save({
-        "state": {"post": _post_dict(state.post),
+        "state": {"post": _post_dict(full_posterior(state)),
                   "opt_state": state.opt_state.state_dict(),
                   "batch_stats": state.batch_stats,
                   "step": int(state.step)},
@@ -192,7 +202,8 @@ def _copy_tree_(dst, src, where=()) -> None:
 def restore_train_state(path: str, state_template: BayesTrainState):
     """Returns ``(state, epoch, scheduler_counts)``: the template's
     posterior tensors and optimizer take the saved values in place (the
-    optimizer keeps its references to them).
+    optimizer keeps its references to them); a template sharded by fsdp
+    takes this rank's shard of mu, rho and their moments.
 
     ``scheduler_counts`` is ``None`` when the file holds no scheduler
     metadata; resume callers must refuse to proceed then (without it the
@@ -202,9 +213,12 @@ def restore_train_state(path: str, state_template: BayesTrainState):
                    weights_only=True)
     saved = d["state"]
     post = state_template.post
+    src = saved["post"]
+    if isinstance(state_template.opt_state, ShardedAdam):
+        own = state_template.opt_state.own
+        src = dict(src, mu=own(src["mu"]), rho=own(src["rho"]))
     with torch.no_grad():
-        _copy_tree_({"mu": post.mu, "rho": post.rho, "det": post.det},
-                    saved["post"])
+        _copy_tree_({"mu": post.mu, "rho": post.rho, "det": post.det}, src)
     state_template.opt_state.load_state_dict(saved["opt_state"])
     counts = d.get("meta", {}).get("scheduler_counts")
     sched = None if counts is None else {k: int(v) for k, v in counts.items()}

@@ -31,6 +31,7 @@ from multimodal_auv_torch.engine import checkpointing as ckpt
 from multimodal_auv_torch.engine.optim import (
     BayesTrainState,
     StepLR,
+    full_posterior,
     kl_annealing_weight,
     set_learning_rate,
 )
@@ -250,12 +251,12 @@ def train_multimodal_model(
                 writer.writerow([epoch, model_type, train_loss, train_accuracy,
                                  lr, last_kl, last_ce, sss_size, bathy_size])
         if epoch % 5 == 0 and not preempted:
-            ckpt.save_model(state.post, csv_path, name,
+            ckpt.save_model(full_posterior(state), csv_path, name,
                             async_save=async_checkpoints)
         return state, train_loss, train_accuracy
     except Exception:
         # crash-save, as the reference's bare except (multimodal.py:194-200)
-        ckpt.save_model(state.post, csv_path, name)
+        ckpt.save_model(full_posterior(state), csv_path, name)
         logger.error("Error at epoch %d", epoch, exc_info=True)
         if strict_errors:
             raise
@@ -277,6 +278,8 @@ def evaluate_multimodal_model(
     csv_path = str(Path(csv_path))
     device = state.post.mu.device
     try:
+        # under fsdp mu and rho are gathered once for the whole evaluation
+        post = full_posterior(state)
         csvfile, writer, write_header = _ledger_open(csv_path)
         with csvfile:
             if write_header:
@@ -309,7 +312,7 @@ def evaluate_multimodal_model(
                     batch, _multimodal_inputs(batch, bathy_patch_type,
                                               sss_patch_type),
                     nominal, device)
-                m = eval_step(state.post, state.batch_stats, inputs, labels,
+                m = eval_step(post, state.batch_stats, inputs, labels,
                               mask, generator, kl_scale)
                 account(lag.push(((np.asarray(batch["label"]), valid), m)))
             account(lag.flush())
@@ -507,11 +510,11 @@ def train_unimodal_model(
                 writer.writerow([epoch + 1, model_type, train_loss,
                                  train_accuracy, lr])
         if epoch % 5 == 0 and not preempted:
-            ckpt.save_model(state.post, csv_path, model_type,
+            ckpt.save_model(full_posterior(state), csv_path, model_type,
                             async_save=async_checkpoints)
         return state, train_accuracy, train_loss
     except Exception:
-        ckpt.save_model(state.post, csv_path, model_type)
+        ckpt.save_model(full_posterior(state), csv_path, model_type)
         logger.error("Error at epoch %d", epoch, exc_info=True)
         if strict_errors:
             raise
@@ -532,6 +535,8 @@ def evaluate_unimodal_model(
     csv_path = str(Path(csv_path))
     device = state.post.mu.device
     try:
+        # under fsdp mu and rho are gathered once for the whole evaluation
+        post = full_posterior(state)
         csvfile, writer, write_header = _ledger_open(csv_path)
         with csvfile:
             if write_header:
@@ -560,7 +565,7 @@ def evaluate_unimodal_model(
                 inputs, labels, mask, valid = _device_batch(
                     batch, [unimodal_input(batch, model_type)], nominal,
                     device)
-                m = eval_step(state.post, state.batch_stats, inputs, labels,
+                m = eval_step(post, state.batch_stats, inputs, labels,
                               mask, generator, kl_scale)
                 account(lag.push(((np.asarray(batch["label"]), valid), m)))
             account(lag.flush())
@@ -577,7 +582,7 @@ def evaluate_unimodal_model(
             ])
         return accuracy
     except Exception:
-        ckpt.save_model(state.post, csv_path, model_type)
+        ckpt.save_model(full_posterior(state), csv_path, model_type)
         logger.error("Error at epoch %d", epoch, exc_info=True)
         if strict_errors:
             raise

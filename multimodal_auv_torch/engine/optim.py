@@ -238,35 +238,34 @@ def kl_annealing_weight(epoch: int, total_num_epochs: int) -> float:
 
 
 class ShardedAdam:
-    """The optimizer of ``tx`` (``AdamDef`` or ``GatedAdamDef``) with the
-    Adam moments of the packed mu and rho on this rank's [lo, hi) shard:
-    the ``fsdp`` of ``parallel/mesh.py``. Only the optimizer state is
-    sharded. mu and rho stay whole on every rank, because the forward needs
-    them whole and a gather written as an all_reduce fills the whole
-    vector anyway; the deterministic leaves and their moments stay
-    replicated. The inner optimizer's mu and rho are views of this rank's
-    shard, and their gradients views of the summed gradients' shard (a
-    reduce_scatter written as the train step's all_reduce plus a slice), so
-    ``step`` updates mu and rho on the shard in place and then gathers them
-    (every rank zeroes the rest and sums): two more all_reduces of P floats
-    a step. Over N ranks that keeps 4 P / N of the four P-float moment
-    vectors. ``state_dict`` gathers the moments to the unsharded
-    optimizer's format, so a checkpoint is the same file with or without
-    fsdp; ``load_state_dict`` takes this rank's shard of one."""
+    """The optimizer of ``tx`` (``AdamDef`` or ``GatedAdamDef``) over this
+    rank's [lo, hi) shard of the packed mu and rho: the ``fsdp`` of
+    ``parallel/mesh.py``, which keeps mu, rho and their Adam moments
+    sharded at rest over every rank, as the JAX package's
+    ``posterior_sharding`` does. The shard is the master copy: the state's
+    posterior (``shard_state``) holds only it, with the deterministic
+    leaves (replicated, like their moments), and Adam steps on it alone.
 
-    def __init__(self, tx, post: PackedPosterior, bounds, axis):
-        self.post, (self.lo, self.hi), self.axis = post, bounds, axis
+    The train step gathers mu and rho for its forward (``gather``, one
+    ``all_gather_flat`` each), reduce-scatters their gradients onto the
+    shard (``scatter_grads``) and frees the full vectors before it
+    returns; every other caller that needs the whole posterior (the
+    evaluations, the checkpoints, the pipelines' result) takes it from
+    ``full_posterior``, which every rank must join. Over N ranks a rank
+    keeps 2 P / N of posterior, 2 P / N of gradients and 4 P / N of
+    moments, against 8 P unsharded. ``state_dict`` gathers the moments to
+    the unsharded optimizer's format, so a checkpoint is the same file
+    with or without fsdp; ``load_state_dict`` takes this rank's shard of
+    one."""
+
+    def __init__(self, tx, shard: PackedPosterior, bounds, n: int, axis):
+        (self.lo, self.hi), self.n, self.axis = bounds, int(n), axis
         lo, hi = self.lo, self.hi
-        self.shard = PackedPosterior(mu=post.mu.detach()[lo:hi],
-                                     rho=post.rho.detach()[lo:hi],
-                                     det=post.det)
         if isinstance(tx, GatedAdamDef):
             m = tx.mask
             tx = GatedAdamDef(tx.lr, tx.weight_decay, PackedPosterior(
                 mu=m.mu[lo:hi], rho=m.rho[lo:hi], det=m.det))
-        self.inner = tx.init(self.shard)
-        post.mu.requires_grad_(True)
-        post.rho.requires_grad_(True)
+        self.inner = tx.init(shard)
 
     @property
     def param_groups(self):
@@ -274,45 +273,75 @@ class ShardedAdam:
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.inner.zero_grad(set_to_none=set_to_none)
-        self.post.mu.grad = self.post.rho.grad = None
 
-    def _gather(self, shard: torch.Tensor, n: int) -> torch.Tensor:
-        from multimodal_auv_torch.parallel.collectives import all_reduce_
+    def own(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole length-n vector."""
+        return full[self.lo:self.hi]
 
-        full = shard.new_zeros(n)
-        full[self.lo:self.hi] = shard
-        return all_reduce_(full, self.axis)
+    def gather(self, shard: PackedPosterior,
+               requires_grad: bool = False) -> PackedPosterior:
+        """The whole posterior of the shard ``shard``: mu and rho gathered
+        over the axis (new tensors, leaves of their own that require grad
+        when asked), the deterministic leaves as they are. Every rank of
+        the axis must call it."""
+        from multimodal_auv_torch.parallel.collectives import all_gather_flat
+
+        def full(t):
+            out = all_gather_flat(t.detach(), self.axis, self.n).detach()
+            return out.requires_grad_(True) if requires_grad else out
+
+        return PackedPosterior(full(shard.mu), full(shard.rho), shard.det)
+
+    def scatter_grads(self, full: PackedPosterior,
+                      shard: PackedPosterior) -> None:
+        """Sum the gradients of the gathered mu and rho over the axis onto
+        the shard's ``.grad`` (one ``reduce_scatter_flat`` each) and drop
+        them from ``full``."""
+        from multimodal_auv_torch.parallel.collectives import (
+            reduce_scatter_flat,
+        )
+
+        for f, s in ((full.mu, shard.mu), (full.rho, shard.rho)):
+            s.grad = (None if f.grad is None else reduce_scatter_flat(
+                f.grad, self.axis, (self.lo, self.hi)))
+            f.grad = None
 
     @torch.no_grad()
     def step(self):
-        from multimodal_auv_torch.parallel.collectives import all_reduce_
-
-        for full, part in ((self.post.mu, self.shard.mu),
-                           (self.post.rho, self.shard.rho)):
-            part.grad = (None if full.grad is None
-                         else full.grad[self.lo:self.hi])
         self.inner.step()
-        for full in (self.post.mu.detach(), self.post.rho.detach()):
-            full[:self.lo].zero_()
-            full[self.hi:].zero_()
-            all_reduce_(full, self.axis)
 
     def state_dict(self):
+        from multimodal_auv_torch.parallel.collectives import all_gather_flat
+
         sd = self.inner.state_dict()
-        n = self.post.mu.shape[0]
         state = dict(sd["state"])
         for i in (0, 1):  # mu and rho
             if i in state:
-                state[i] = {k: (self._gather(v, n) if k.startswith("exp_avg")
-                                else v) for k, v in state[i].items()}
+                state[i] = {k: (all_gather_flat(v, self.axis, self.n)
+                                if k.startswith("exp_avg") else v)
+                            for k, v in state[i].items()}
         return {"state": state, "param_groups": sd["param_groups"]}
 
     def load_state_dict(self, sd) -> None:
         state = dict(sd["state"])
         for i in (0, 1):
             if i in state:
-                state[i] = {k: (v[self.lo:self.hi].clone()
+                state[i] = {k: (self.own(v).clone()
                                 if k.startswith("exp_avg") else v)
                             for k, v in state[i].items()}
         self.inner.load_state_dict({"state": state,
                                     "param_groups": sd["param_groups"]})
+
+
+def full_posterior(state: BayesTrainState,
+                   requires_grad: bool = False) -> PackedPosterior:
+    """The whole posterior of a train state: ``state.post`` itself, or
+    under fsdp (a ``ShardedAdam``) mu and rho gathered from every rank's
+    shard, which every rank must join (``requires_grad``: the gathered
+    vectors are leaves that require grad, as the train step differentiates
+    them). The one way the train step, the loops, the checkpoints and the
+    pipelines read a train state's posterior."""
+    opt = state.opt_state
+    if isinstance(opt, ShardedAdam):
+        return opt.gather(state.post, requires_grad=requires_grad)
+    return state.post

@@ -27,7 +27,12 @@ from multimodal_auv_torch.bayes.packing import kl_divergence
 from multimodal_auv_torch.config import BNNPriorSpec
 from multimodal_auv_torch.engine import uncertainty as U
 from multimodal_auv_torch.engine.mc import mc_logits, refresh_batch_stats
-from multimodal_auv_torch.engine.optim import BayesTrainState, trainable_leaves
+from multimodal_auv_torch.engine.optim import (
+    BayesTrainState,
+    ShardedAdam,
+    full_posterior,
+    trainable_leaves,
+)
 from multimodal_auv_torch.ops.preprocess import normalize_multimodal
 from multimodal_auv_torch.parallel.collectives import (
     LOCAL,
@@ -109,10 +114,14 @@ def make_elbo_loss_fn(module, meta, spec: BNNPriorSpec, num_mc: int, *,
 
 def _all_reduce_grads(post, mesh) -> None:
     """Sum every trainable leaf's gradient over all ranks: one all_reduce
-    of their concatenation (nothing on one rank)."""
+    of their concatenation (nothing on one rank). Leaves without a
+    gradient are left out (under fsdp the shard's mu and rho, whose
+    gradients come by reduce-scatter)."""
     if mesh is None or mesh.world_axis.size == 1:
         return
     leaves = [p for p in trainable_leaves(post) if p.grad is not None]
+    if not leaves:
+        return
     flat = torch.cat([p.grad.reshape(-1) for p in leaves])
     all_reduce_(flat, mesh.world_axis)
     for p, g in zip(leaves, flat.split([p.numel() for p in leaves])):
@@ -199,14 +208,14 @@ class AutoRematTrainStep:
         return self._step(state, inputs, labels, mask, generator, kl_weight,
                           batch_size_scale)
 
-    def _trial(self, state, inputs, labels, mask, generator, kl_weight,
-               bs_scale) -> int:
+    def _trial(self, post, state, inputs, labels, mask, generator,
+               kl_weight, bs_scale) -> int:
         def kept(units):
             loss_fn = self._trial_loss_fn(units * self._unit)
             trial_gen = torch.Generator(device=generator.device)
             trial_gen.set_state(generator.get_state())
             return saved_bytes(lambda: loss_fn(
-                state.post, state.batch_stats, inputs, labels, mask,
+                post, state.batch_stats, inputs, labels, mask,
                 trial_gen, kl_weight, bs_scale))
 
         with torch.enable_grad(), bn_sync(_data_axis(self._mesh)):
@@ -217,6 +226,9 @@ class AutoRematTrainStep:
 
     def _fits(self, *args) -> bool:
         state = args[0]
+        # under fsdp the step's gathered mu and rho are allocated before
+        # the budget is read, so it counts them, and the trial runs on them
+        post = full_posterior(state, requires_grad=True)
         budget = device_memory_budget(state.post.mu.device)
         self.budget_bytes = budget
         if budget is None:
@@ -225,7 +237,7 @@ class AutoRematTrainStep:
                         state.post.mu.device)
         else:
             try:
-                self.need_bytes = self._trial(*args)
+                self.need_bytes = self._trial(post, *args)
                 fits = self.need_bytes <= budget
             except Exception as e:
                 if not _is_oom(e):
@@ -244,6 +256,7 @@ class AutoRematTrainStep:
             misfits = torch.tensor([float(not fits)],
                                    device=state.post.mu.device)
             fits = float(all_reduce_(misfits, self._mesh.world_axis)) == 0.0
+        del post
         return fits
 
 
@@ -275,7 +288,12 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
     global batches). BatchNorm statistics are the global batch's, the
     draws are split over the mc axis, the gradients are summed over all
     ranks before the update (one all_reduce), and the metrics' scalars are
-    global; ``predicted`` holds this rank's rows."""
+    global; ``predicted`` holds this rank's rows. A state sharded by
+    fsdp (``parallel.mesh.shard_state``) has mu and rho gathered at entry
+    (``ShardedAdam.gather``), their gradients reduce-scattered onto the
+    shard (the deterministic leaves' still all-reduced) and the full
+    vectors freed before the step returns; the verdict of the NaN guard
+    is summed over all ranks, so every rank steps or skips together."""
     if remat == "auto":
         kw = dict(mc_chunk=mc_chunk, sample_dtype=sample_dtype,
                   packed_inputs=packed_inputs, mesh=mesh,
@@ -302,23 +320,32 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
              kl_weight, batch_size_scale) -> Tuple[BayesTrainState, Any]:
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
+        sharded = isinstance(opt, ShardedAdam)
+        post = full_posterior(state, requires_grad=True)
         with bn_sync(_data_axis(mesh)):
             loss, (output, ce, scaled_kl, new_bs) = loss_fn(
-                state.post, state.batch_stats, inputs, labels, mask,
+                post, state.batch_stats, inputs, labels, mask,
                 generator, kl_weight, batch_size_scale)
             loss.backward()
         predicted = output.detach().argmax(dim=-1)
         correct = ((predicted == labels) * mask).sum()
         total = mask.sum()
         _all_reduce_grads(state.post, mesh)
+        if sharded:
+            opt.scatter_grads(post, state.post)
+        del post, loss, output  # the gathered vectors and their graph
         ce, correct, total = all_reduce_(torch.stack(
             [ce.detach(), correct.to(ce.dtype), total]),
             _data_axis(mesh)).unbind()
+        scaled_kl = scaled_kl.detach()
         loss = ce + scaled_kl
         grads = [p.grad for p in trainable_leaves(state.post)
                  if p.grad is not None]
         finite = torch.stack([torch.isfinite(loss)]
                              + [torch.isfinite(g).all() for g in grads])
+        if sharded:  # each rank checked its own shard: every rank's verdict
+            finite = all_reduce_((~finite).to(torch.float32),
+                                 opt.axis) == 0
         loss_ok, *grads_ok = finite.tolist()  # the step's one host sync
         ok = loss_ok and all(grads_ok)
         if ok:
@@ -361,7 +388,9 @@ def make_eval_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
     ``mesh``: this rank's rows in, global scalars out (one all_reduce over
     the data axis), per-sample outputs of this rank's rows
     (``parallel.mesh.wrap_eval_step`` gathers them); the draws split over
-    the mc axis on the stacked path."""
+    the mc axis on the stacked path. Under fsdp ``post`` is the whole
+    posterior, gathered the train step's way by ``engine/optim.py::
+    full_posterior`` (the loops gather it once per evaluation)."""
     ws = None if mesh is None or mesh.mc == 1 else mesh
 
     @torch.no_grad()

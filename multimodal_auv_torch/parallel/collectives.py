@@ -1,17 +1,31 @@
-"""The collectives of the parallel layer, written with two operations of
-``torch.distributed`` only: ``all_reduce`` (sum) and ``broadcast``. Gloo
-carries no other operation for CUDA tensors, and two ranks on one card can
-only talk through gloo (NCCL refuses two ranks on one GPU), so one code
-path serves NCCL and gloo:
+"""The collectives of the parallel layer, over ``torch.distributed``.
 
-* an all_gather is an all_reduce into a zero-filled buffer
-  (``gather_rows``, ``gather_draws``);
-* a reduce_scatter is an all_reduce followed by taking one's own shard
-  (``engine/optim.py::ShardedAdam``).
+Most are written with two operations only, ``all_reduce`` (sum) and
+``broadcast``, which every backend carries for every device:
 
-That moves up to twice the bytes of the dedicated collectives. No
-collective is skipped or retried on the CPU when it fails: the error
-propagates.
+* an all_gather of rows is an all_reduce into a zero-filled buffer
+  (``gather_rows``, ``gather_draws``), which moves up to twice the bytes
+  of the dedicated collective.
+
+The flat vectors of fsdp (``engine/optim.py::ShardedAdam``: mu, rho and
+their Adam moments sharded at rest) go through ``all_gather_flat`` and
+``reduce_scatter_flat``, which issue the dedicated operations
+(``all_gather_into_tensor`` and ``reduce_scatter_tensor``, under their
+newer names ``all_gather_single`` and ``reduce_scatter_single`` where the
+installed torch has them) when the group's backend carries them for the
+tensor's device: NCCL, or gloo on CPU tensors. Gloo carries neither for
+CUDA tensors, and two ranks on one card can only talk through gloo (NCCL
+refuses two ranks on one GPU); there the gather is an all_reduce into a
+buffer filled with -0.0 (x + -0.0 is x for every x, signed zeros
+included, so both formulations give the same bits) and the reduce-scatter
+an all_reduce of the whole vector followed by a copy of this rank's
+slice. The choice is made from the backend and the device
+(``dedicated_ops``), never by trying one. The dedicated operations need
+equal chunks and the fsdp shards are ragged (``parallel/mesh.py::
+posterior_sharding``: the last shard short, trailing ones possibly
+empty), so a shard is padded to the common chunk and the gather's buffer
+of N chunks is cut to its first n elements. No collective is skipped or
+retried on the CPU when it fails: the error propagates.
 
 An ``Axis`` is one axis of the mesh as this rank sees it: its process
 group, its size and this rank's index on it. An axis of size 1 makes every
@@ -39,7 +53,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -49,7 +63,8 @@ from multimodal_auv_torch.parallel import local_shards as _local_shards
 
 # collectives this process issued, by kind; BatchNorm's forward reductions
 # also count under "bn" (a checkpointed chunk's re-forward counts again)
-COUNTS: Dict[str, int] = {"all_reduce": 0, "broadcast": 0, "bn": 0}
+COUNTS: Dict[str, int] = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
+                          "reduce_scatter": 0, "bn": 0}
 
 
 def reset_counts() -> None:
@@ -68,6 +83,7 @@ class Axis:
 
 
 LOCAL = Axis()
+SHARD_ALIGN = 1024  # the JAX package's pad multiple: fsdp's chunk
 # the group of a ``local_shards`` axis: threads of this process, not ranks
 LOCAL_SHARDS = "local_shards"
 
@@ -92,6 +108,101 @@ def broadcast_(t: torch.Tensor, src: int, axis: Axis) -> torch.Tensor:
         dist.broadcast(t, src=src, group=axis.group)
         COUNTS["broadcast"] += 1
     return t
+
+
+def dedicated_ops(axis: Axis, t: torch.Tensor) -> bool:
+    """Whether the group of ``axis`` carries ``all_gather_into_tensor``
+    and ``reduce_scatter_tensor`` for tensors on ``t``'s device: NCCL, or
+    gloo on the CPU (any other backend takes the all_reduce
+    formulation)."""
+    name = dist.get_backend(axis.group)
+    return name == "nccl" or (name == "gloo" and t.device.type == "cpu")
+
+
+def flat_chunk(n: int, size: int) -> int:
+    """The equal chunk of a length-``n`` vector over ``size`` ranks:
+    ``SHARD_ALIGN``-aligned, so rank i's slice is [i * chunk, (i + 1) *
+    chunk) cut to n (``parallel/mesh.py::posterior_sharding``)."""
+    return -(-n // (SHARD_ALIGN * size)) * SHARD_ALIGN
+
+
+def flat_bounds(n: int, axis: Axis) -> Tuple[int, int]:
+    """This rank's [lo, hi) of a length-``n`` vector over ``axis``."""
+    per = flat_chunk(n, axis.size)
+    return min(axis.index * per, n), min((axis.index + 1) * per, n)
+
+
+def _padded(t: torch.Tensor, length: int) -> torch.Tensor:
+    if t.numel() == length:
+        return t.contiguous()
+    out = t.new_zeros(length)
+    out[:t.numel()] = t
+    return out
+
+
+def all_gather_flat(shard: torch.Tensor, axis: Axis, n: int) -> torch.Tensor:
+    """The whole length-``n`` vector of which this rank holds
+    ``flat_bounds(n, axis)`` as ``shard`` (1-D): a new tensor, not
+    differentiable (``shard`` itself on an axis of size 1)."""
+    if axis.size == 1:
+        return shard
+    gather = (_gather_dedicated if dedicated_ops(axis, shard)
+              else _gather_by_sum)
+    return gather(shard, axis, n)
+
+
+def _gather_by_sum(shard: torch.Tensor, axis: Axis, n: int) -> torch.Tensor:
+    lo, hi = flat_bounds(n, axis)
+    out = torch.full((n,), -0.0, dtype=shard.dtype, device=shard.device)
+    out[lo:hi] = shard
+    return all_reduce_(out, axis)
+
+
+def _gather_dedicated(shard: torch.Tensor, axis: Axis,
+                      n: int) -> torch.Tensor:
+    """``all_gather_flat`` through the backend's all_gather of equal
+    chunks (on an axis of any size, one included)."""
+    per = flat_chunk(n, axis.size)
+    op = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    out = shard.new_empty(axis.size * per)
+    op(out, _padded(shard, per), group=axis.group)
+    COUNTS["all_gather"] += 1
+    return out[:n]
+
+
+def reduce_scatter_flat(full: torch.Tensor, axis: Axis,
+                        bounds: Tuple[int, int]) -> torch.Tensor:
+    """This rank's [lo, hi) = ``bounds`` (``flat_bounds``) of the sum over
+    ``axis`` of every rank's length-n ``full`` (1-D), as a tensor of its
+    own. On the all_reduce formulation ``full`` is summed in place (its
+    values are spent); ``full[lo:hi]`` itself on an axis of size 1."""
+    if axis.size == 1:
+        return full[bounds[0]:bounds[1]]
+    scatter = (_scatter_dedicated if dedicated_ops(axis, full)
+               else _scatter_by_sum)
+    return scatter(full, axis, bounds)
+
+
+def _scatter_by_sum(full: torch.Tensor, axis: Axis,
+                    bounds: Tuple[int, int]) -> torch.Tensor:
+    lo, hi = bounds
+    return all_reduce_(full, axis)[lo:hi].clone()
+
+
+def _scatter_dedicated(full: torch.Tensor, axis: Axis,
+                       bounds: Tuple[int, int]) -> torch.Tensor:
+    """``reduce_scatter_flat`` through the backend's reduce-scatter of
+    equal chunks (on an axis of any size, one included)."""
+    lo, hi = bounds
+    per = flat_chunk(full.numel(), axis.size)
+    op = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    out = full.new_empty(per)
+    op(out, _padded(full, axis.size * per), op=dist.ReduceOp.SUM,
+       group=axis.group)
+    COUNTS["reduce_scatter"] += 1
+    return out if hi - lo == per else out[:hi - lo].clone()
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -15,10 +15,15 @@ data x mc mesh is data x mc ranks, rank = d * mc + m (JAX's row-major
   chunk's seed with its draw offset folded in (``ops/sampling.py::
   draw_offset_seed``); the logits are gathered over the mc axis.
 
-With ``fsdp`` the Adam moments of the packed mu and rho live on 1024-aligned
-shards of all ranks (``engine/optim.py::ShardedAdam``): optimizer-state
-sharding only, since mu and rho stay whole on every rank for the forward;
-the BatchNorm statistics and every other leaf stay replicated. Without a process group
+With ``fsdp`` the packed mu and rho and their Adam moments live on
+1024-aligned shards of all ranks, at rest (``shard_state``,
+``engine/optim.py::ShardedAdam``), as the JAX package's
+``posterior_sharding`` places them: the train step gathers mu and rho for
+its forward and reduce-scatters their gradients (``parallel/
+collectives.py::all_gather_flat``, ``reduce_scatter_flat``), and
+``engine/optim.py::full_posterior`` gathers them for every other reader;
+the BatchNorm statistics, the deterministic leaves and their moments stay
+replicated. Without a process group
 ``make_mesh(MeshSpec(1, 1))`` is a mesh of one rank on which every
 collective is a no-op, as JAX's one-device mesh is. Unlike JAX, which can
 leave devices idle, a mesh must use every rank: data x mc == world size.
@@ -38,11 +43,14 @@ import torch.distributed as dist
 
 from multimodal_auv_torch.config import MeshSpec
 from multimodal_auv_torch.parallel import distributed as D
-from multimodal_auv_torch.parallel.collectives import LOCAL, Axis, local_shards
+from multimodal_auv_torch.parallel.collectives import (
+    LOCAL,
+    Axis,
+    flat_bounds,
+    local_shards,
+)
 
 logger = logging.getLogger(__name__)
-
-SHARD_ALIGN = 1024  # the JAX package's pad multiple
 
 
 @dataclass(frozen=True)
@@ -123,33 +131,37 @@ def make_mesh(spec: Optional[MeshSpec] = None) -> Mesh:
 def posterior_sharding(mesh: Mesh, n: int, fsdp: bool
                        ) -> Optional[Tuple[int, int]]:
     """This rank's [lo, hi) of a flat length-``n`` vector under ``fsdp``
-    (``SHARD_ALIGN``-aligned, the last shard ragged, trailing ones possibly
-    empty), or None when the vector is replicated."""
+    (``collectives.SHARD_ALIGN``-aligned, the last shard ragged, trailing
+    ones possibly empty), or None when the vector is replicated."""
     if not fsdp:
         return None
-    world = mesh.world_axis.size
-    per = -(-n // (SHARD_ALIGN * world)) * SHARD_ALIGN
-    return min(mesh.rank * per, n), min((mesh.rank + 1) * per, n)
-
-
-def shard_optimizer(mesh: Mesh, tx, post, fsdp: bool = False):
-    """``tx.init(post)``, or under ``fsdp`` the optimizer whose Adam
-    moments live on this rank's shard of mu and rho (``ShardedAdam``)."""
-    bounds = posterior_sharding(mesh, post.mu.shape[0], fsdp)
-    if bounds is None:
-        return tx.init(post)
-    from multimodal_auv_torch.engine.optim import ShardedAdam
-
-    return ShardedAdam(tx, post, bounds, mesh.world_axis)
+    return flat_bounds(n, mesh.world_axis)
 
 
 def shard_state(mesh: Mesh, state, tx, fsdp: bool = False):
-    """A ``BayesTrainState`` whose optimizer is ``shard_optimizer``'s."""
-    from multimodal_auv_torch.engine.optim import BayesTrainState
+    """A ``BayesTrainState`` for ``mesh``: with a new optimizer of ``tx``
+    over ``state.post``, or under ``fsdp`` one whose posterior holds only
+    this rank's shard of mu and rho (copies: ``state.post``'s vectors can
+    be freed) with the deterministic leaves, stepped by a ``ShardedAdam``
+    (``engine/optim.py::full_posterior`` gathers it back)."""
+    from multimodal_auv_torch.bayes.packing import PackedPosterior
+    from multimodal_auv_torch.engine.optim import (
+        BayesTrainState,
+        ShardedAdam,
+    )
 
-    return BayesTrainState(post=state.post,
-                           opt_state=shard_optimizer(mesh, tx, state.post,
-                                                     fsdp),
+    post = state.post
+    bounds = posterior_sharding(mesh, post.mu.shape[0], fsdp)
+    if bounds is None:
+        return BayesTrainState(post=post, opt_state=tx.init(post),
+                               batch_stats=state.batch_stats,
+                               step=state.step)
+    lo, hi = bounds
+    shard = PackedPosterior(mu=post.mu.detach()[lo:hi].clone(),
+                            rho=post.rho.detach()[lo:hi].clone(),
+                            det=post.det)
+    opt = ShardedAdam(tx, shard, bounds, post.mu.shape[0], mesh.world_axis)
+    return BayesTrainState(post=shard, opt_state=opt,
                            batch_stats=state.batch_stats, step=state.step)
 
 

@@ -27,6 +27,7 @@ from multimodal_auv_torch.engine.loops import train_and_evaluate_multimodal_mode
 from multimodal_auv_torch.engine.optim import (
     BayesTrainState,
     StepLR,
+    full_posterior,
     make_backbone_freeze_mask,
     make_optimizer,
     make_optimizer_with_freeze,
@@ -126,8 +127,9 @@ def _train_multimodal_common(
     else:
         tx = make_optimizer(lr, weight_decay)
     # data parallelism over the mesh's data axis, MC-ensemble parallelism
-    # over its mc axis, optional FSDP of the Adam moments; the epoch loops
-    # are untouched: the steps are wrapped, the loaders sharded
+    # over its mc axis, optional FSDP of mu, rho and their Adam moments;
+    # the epoch loops are untouched: the steps are wrapped, the loaders
+    # sharded
     mesh = None
     if mesh_spec is not None:
         mesh, mc_chunk = M.training_mesh(mesh_spec, batch_size_multimodal, num_mc,
@@ -137,6 +139,9 @@ def _train_multimodal_common(
                             batch_stats=bundle.batch_stats)
     if mesh is not None:
         state = M.shard_state(mesh, state, tx, fsdp)
+        # under fsdp the bundle holds the shard until the end (the whole mu
+        # and rho are freed), then the gathered posterior
+        bundle.post = state.post
     train_step = make_train_step(
         bundle.module, bundle.meta, spec, num_mc, mc_chunk=mc_chunk,
         sample_dtype=torch.bfloat16 if bf16_weights else None,
@@ -198,7 +203,7 @@ def _train_multimodal_common(
             if resume_checkpoint else
             "Pass resume_checkpoint= to make preempted runs resumable.")
     sum_writer.close()
-    bundle.post = state.post
+    bundle.post = full_posterior(state)
     bundle.batch_stats = state.batch_stats
     return state
 

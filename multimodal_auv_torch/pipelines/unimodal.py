@@ -29,6 +29,7 @@ from multimodal_auv_torch.engine.mc import mc_logits
 from multimodal_auv_torch.engine.optim import (
     BayesTrainState,
     StepLR,
+    full_posterior,
     make_optimizer,
 )
 from multimodal_auv_torch.engine.predict import (
@@ -206,6 +207,9 @@ def run_unimodal_training(
                             batch_stats=bundle.batch_stats)
     if mesh is not None:
         state = M.shard_state(mesh, state, tx, mesh.fsdp)
+        # under fsdp the bundle holds the shard until the end (the whole mu
+        # and rho are freed), then the gathered posterior
+        bundle.post = state.post
     tstep = make_train_step(bundle.module, bundle.meta, spec, num_mc,
                             mc_chunk=mc_chunk, mesh=mesh)
     estep = make_eval_step(bundle.module, bundle.meta, spec, num_mc,
@@ -254,6 +258,6 @@ def run_unimodal_training(
             if resume_checkpoint else
             "Pass resume_checkpoint= to make preempted runs resumable.")
     sum_writer.close()
-    bundle.post = state.post
+    bundle.post = full_posterior(state)
     bundle.batch_stats = state.batch_stats
     return state

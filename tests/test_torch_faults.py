@@ -166,3 +166,65 @@ def test_kernel_build_dir_env_wins(tmp_path, monkeypatch, read_only):
         assert kernels.build_dir() == tmp_path / "kb"
     finally:
         pkg.chmod(0o755)
+
+
+def test_torch_extra_covers_the_ports_module_imports():
+    """``pyproject.toml``'s ``torch`` extra lists every third-party
+    distribution the port imports at module level (its package's
+    import-time needs: a ``pip install --no-deps .`` plus these runs it);
+    the optional ones (zstandard, cv2, matplotlib, huggingface_hub,
+    tensorboard) are imported inside the functions that need them."""
+    import ast
+    import tomllib
+
+    repo = Path(__file__).resolve().parent.parent
+    with open(repo / "pyproject.toml", "rb") as f:
+        extra = tomllib.load(f)["project"]["optional-dependencies"]["torch"]
+    dist = {"torch": "torch", "numpy": "numpy", "PIL": "pillow",
+            "yaml": "pyyaml"}
+    stdlib = set(sys.stdlib_module_names)
+    seen = set()
+    for path in (repo / "multimodal_auv_torch").rglob("*.py"):
+        for node in ast.parse(path.read_text()).body:  # module level only
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.module and not node.level else [])
+            for name in names:
+                top = name.split(".")[0]
+                if top not in stdlib and top != "multimodal_auv_torch":
+                    seen.add(top)
+    assert seen <= set(dist), seen - set(dist)
+    assert {dist[m] for m in seen} <= set(extra)
+    assert "jax" not in extra and set(extra) <= set(dist.values())
+
+
+def test_no_deps_install_runs_the_torch_scripts(tmp_path):
+    """``pip install --no-deps --no-build-isolation .`` (offline: no
+    dependency resolved, no build backend fetched), as on a card machine
+    without the JAX stack, installs the port and its console scripts,
+    which then run: ``multimodal-auv-torch-data-check --help`` from the
+    install alone. Installed from a copy of the project file and the
+    port's package into a target directory."""
+    src = tmp_path / "src"
+    src.mkdir()
+    shutil.copy(REPO / "pyproject.toml", src)
+    shutil.copytree(REPO / "multimodal_auv_torch",
+                    src / "multimodal_auv_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    site = tmp_path / "site"
+    env = dict(os.environ, PIP_NO_INDEX="1",
+               PIP_DISABLE_PIP_VERSION_CHECK="1")
+    subprocess.run([sys.executable, "-m", "pip", "install", "--no-deps",
+                    "--no-build-isolation", "--no-index", "-q", "--target",
+                    str(site), "."], cwd=src, env=env, check=True,
+                   timeout=300)
+    script = site / "bin" / "multimodal-auv-torch-data-check"
+    assert script.exists()
+    env = dict(os.environ, PYTHONPATH=str(site))
+    out = subprocess.run([sys.executable, str(script), "--help"],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--root_dir" in out.stdout
+    assert (site / "multimodal_auv_torch" / "csrc" / "sampling.cu").exists()

@@ -105,8 +105,10 @@ def steps():
     from multimodal_auv_torch.bayes.packing import PackedPosterior
     from multimodal_auv_torch.engine.mc import mc_logits
     from multimodal_auv_torch.engine.moment import make_dvp_predict_step
+    from multimodal_auv_torch.engine import checkpointing as ckpt
     from multimodal_auv_torch.engine.optim import (
-        BayesTrainState, make_optimizer)
+        BayesTrainState, ShardedAdam, full_posterior, make_optimizer)
+    from multimodal_auv_torch.parallel import collectives as C
     from multimodal_auv_torch.engine.predict import make_packed_predict_step
     from multimodal_auv_torch.engine.steps import make_train_step
     from multimodal_auv_torch.models.model_utils import (
@@ -131,38 +133,115 @@ def steps():
         b.batch_stats = clone(saved["bs"])
         return b
 
-    def train(mesh, mc_chunk, fsdp=False):
+    def fresh(mesh, fsdp):
         b = bundle()
-        state = BayesTrainState(b.post, M.shard_optimizer(
-            mesh, make_optimizer({lr!r}, 1e-5), b.post, fsdp), b.batch_stats)
+        state = M.shard_state(mesh, BayesTrainState(b.post, None,
+                                                    b.batch_stats),
+                              make_optimizer({lr!r}, 1e-5), fsdp)
         step = M.wrap_train_step(mesh, make_train_step(
-            b.module, b.meta, BNNPriorSpec(), {num_mc}, mc_chunk=mc_chunk,
+            b.module, b.meta, BNNPriorSpec(), {num_mc}, mc_chunk=mesh.mc,
             packed_inputs=True, mesh=mesh))
-        state, m = step(state, u8, labels, mask,
-                        torch.Generator().manual_seed(9), {kl!r}, 4.0)
+        return state, step
+
+    def summary(state, m):
+        full = full_posterior(state)
+        grad = lambda t: (C.all_gather_flat(t.grad, state.opt_state.axis,
+                                            full.mu.shape[0])
+                          if full.mu is not state.post.mu else t.grad)
         bs = state.batch_stats["image_model_feat"]["bn1"]
         return {{"loss": m["loss"].numpy(), "fused": m["fused"].numpy(),
-                "mu": state.post.mu.detach().numpy().copy(),
-                "rho": state.post.rho.detach().numpy().copy(),
-                "grad_mu": state.post.mu.grad.numpy().copy(),
-                "grad_rho": state.post.rho.grad.numpy().copy(),
+                "mu": full.mu.detach().numpy().copy(),
+                "rho": full.rho.detach().numpy().copy(),
+                "grad_mu": grad(state.post.mu).numpy().copy(),
+                "grad_rho": grad(state.post.rho).numpy().copy(),
                 "bs_mean": bs["mean"].numpy(),
                 "exp_avg": state.opt_state.state_dict()["state"][0][
                     "exp_avg"].numpy()}}
 
+    def train(mesh, fsdp=False):
+        state, step = fresh(mesh, fsdp)
+        state, m = step(state, u8, labels, mask,
+                        torch.Generator().manual_seed(9), {kl!r}, 4.0)
+        return state, step, m
+
     out = {{}}
     data2, mc2 = M.make_mesh(MeshSpec(2, 1)), M.make_mesh(MeshSpec(1, 2))
     assert data2.coords == (rank, 0) and mc2.coords == (0, rank)
-    # data=2 under the JAX chunk keys' eps, with and without fsdp
+    # data=2 under the JAX chunk keys' eps, with and without fsdp (the
+    # fsdp one under the dedicated gloo ops); each state's checkpoint, and
+    # (plain noise) one more step after restoring the other layout's
     plain = S.eps_plain
     S.eps_plain = lambda P, seed, n, device=None, noise="f32": (
         torch.from_numpy(eps["%d_%d" % tuple(seed)][:n]))
+    states = {{}}
     for fsdp in (False, True):
-        for k, v in train(data2, 1, fsdp).items():
+        C.reset_counts()
+        state, step, m = train(data2, fsdp)
+        out[f"counts_fsdp{{int(fsdp)}}"] = np.array(
+            [C.COUNTS[k] for k in ("all_reduce", "all_gather",
+                                   "reduce_scatter")])
+        for k, v in summary(state, m).items():
             out[f"data2_fsdp{{int(fsdp)}}_{{k}}"] = v
+        out[f"rank_shape_fsdp{{int(fsdp)}}"] = np.array(
+            [state.post.mu.shape[0], state.post.rho.shape[0],
+             state.post.mu.grad.shape[0]])
+        ckpt.save_train_state(os.path.join(work, f"ckpt_fsdp{{int(fsdp)}}.pt"),
+                              state, 1, {{"multimodal": 1}})
+        states[fsdp] = state
+    out["rank_bounds"] = np.array(states[True].opt_state.own(
+        torch.arange(states[True].opt_state.n))[[0, -1]].numpy())
+    del states
     S.eps_plain = plain
+    dist.barrier()  # rank 0 has written both files
+    for fsdp in (False, True):
+        state, step = fresh(data2, fsdp)
+        state, _, _ = ckpt.restore_train_state(
+            os.path.join(work, f"ckpt_fsdp{{int(not fsdp)}}.pt"), state)
+        state, m = step(state, u8, labels, mask,
+                        torch.Generator().manual_seed(10), {kl!r}, 4.0)
+        for k, v in summary(state, m).items():
+            out[f"resumed_fsdp{{int(fsdp)}}_{{k}}"] = v
+    # a NaN planted in rank 1's shard of the mu gradient: every rank skips
+    scatter = ShardedAdam.scatter_grads
+
+    def planted(self, full, shard):
+        scatter(self, full, shard)
+        if rank == 1:
+            shard.mu.grad[0] = float("nan")
+
+    ShardedAdam.scatter_grads = planted
+    state, step = fresh(data2, True)
+    before = full_posterior(state).mu.clone()
+    state, m = step(state, u8, labels, mask,
+                    torch.Generator().manual_seed(9), {kl!r}, 4.0)
+    ShardedAdam.scatter_grads = scatter
+    out["nan_skipped"] = np.array([bool(m["skipped"]), torch.equal(
+        full_posterior(state).mu, before), state.step])
+    # the flat collectives in both formulations at a ragged n (1500: the
+    # last shard short) and one with an empty trailing shard (700), -0.0
+    # among the values: the same bits
+    ded = C.dedicated_ops
+    for n in (1500, 700):
+        g = torch.Generator().manual_seed(100 + rank)
+        lo, hi = C.flat_bounds(n, data2.world_axis)
+        full = torch.randn(n, generator=g)
+        full[::7] = -0.0
+        shard = full[lo:hi].clone()
+        for name, fn in (("dedicated", ded), ("all_reduce",
+                                              lambda axis, t: False)):
+            C.dedicated_ops = fn
+            C.reset_counts()
+            out[f"flat_gather_{{n}}_{{name}}"] = C.all_gather_flat(
+                shard, data2.world_axis, n).numpy()
+            out[f"rank_flat_scatter_{{n}}_{{name}}"] = C.reduce_scatter_flat(
+                full.clone(), data2.world_axis, (lo, hi)).numpy()
+            out[f"flat_counts_{{n}}_{{name}}"] = np.array(
+                [C.COUNTS[k] for k in ("all_reduce", "all_gather",
+                                       "reduce_scatter")])
+        C.dedicated_ops = ded
     # mc=2: each rank draws its row of every chunk of 2
-    for k, v in train(mc2, 2).items():
+    state, _, m = train(mc2)
+    for k, v in summary(state, m).items():
         out[f"mc2_{{k}}"] = v
     b = bundle()
     with torch.no_grad():
@@ -204,12 +283,14 @@ def pipelines():
     os.makedirs(cwd, exist_ok=True)
     os.chdir(cwd)  # logs/ and tensorboard_logs/ are cwd-relative
     mesh = MeshSpec(2, 1)
-    ok = run_AUV_training_from_scratch(
-        {{}}, {lr!r}, 1, {num_mc}, 10, 10, 4, os.path.join(work, "tree"),
-        arch=ArchConfig.micro(), device="cpu", use_packed_loader=True,
-        strict_errors=True, handle_preemption=False, mesh_spec=mesh,
-        resume_checkpoint=os.path.join(work, "state.pt"))
-    assert ok
+    for tree, spec in (("tree", mesh), ("tree_fsdp", MeshSpec(2, 1,
+                                                                fsdp=True))):
+        ok = run_AUV_training_from_scratch(
+            {{}}, {lr!r}, 1, {num_mc}, 10, 10, 4, os.path.join(work, tree),
+            arch=ArchConfig.micro(), device="cpu", use_packed_loader=True,
+            strict_errors=True, handle_preemption=False, mesh_spec=spec,
+            resume_checkpoint=os.path.join(work, f"state_{{tree}}.pt"))
+        assert ok
     run_auv_inference(os.path.join(work, "dives"), batch_size=4,
                       output_csv=os.path.join(work, "mesh.csv"),
                       num_mc_samples={num_mc}, allow_random_init=True,
@@ -377,18 +458,23 @@ def test_sharded_adam_matches_adam(gated):
         return make_optimizer(1e-3, 1e-5)
 
     mesh = M.make_mesh(MeshSpec(1, 1, fsdp=True))
+
+    def state_for(b, sharded):
+        st = BayesTrainState(b.post, None, b.batch_stats)
+        return M.shard_state(mesh, st, tx_for(b), sharded)
+
     runs = []
     for sharded in (False, True):
         b = bundle()
-        opt = (M.shard_optimizer(mesh, tx_for(b), b.post, True) if sharded
-               else tx_for(b).init(b.post))
+        st = state_for(b, sharded)
+        opt = st.opt_state
         g = torch.Generator().manual_seed(5)
         for _ in range(2):
             opt.zero_grad(set_to_none=True)
-            for p in trainable_leaves(b.post):
+            for p in trainable_leaves(st.post):
                 p.grad = torch.randn(p.shape, generator=g)
             opt.step()
-        runs.append((b, opt))
+        runs.append((st, opt))
     (b0, o0), (b1, o1) = runs
     assert type(o1).__name__ == "ShardedAdam"
     for a, c in zip(trainable_leaves(b0.post), trainable_leaves(b1.post)):
@@ -398,8 +484,7 @@ def test_sharded_adam_matches_adam(gated):
     for i in sd0["state"]:
         for k, v in sd0["state"][i].items():
             assert torch.equal(v, sd1["state"][i][k]), (i, k)
-    fresh = bundle()
-    o2 = M.shard_optimizer(mesh, tx_for(fresh), fresh.post, True)
+    o2 = state_for(bundle(), True).opt_state
     o2.load_state_dict(sd1)
     assert torch.equal(o2.state_dict()["state"][0]["exp_avg"],
                        sd1["state"][0]["exp_avg"])
@@ -545,7 +630,71 @@ def _fresh_state(pb):
                            pb.batch_stats)
 
 
-def test_two_rank_steps(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def steps_run(tmp_path_factory):
+    """The ``steps`` group's two ranks, spawned once on the JAX bundle's
+    posterior carried over, with the eps of JAX's chunk keys: (the JAX
+    bundle, both ranks' npz results, the eps, the JAX key, the work
+    directory)."""
+    jb = jmake(7, JSpec(), jax.random.PRNGKey(0), JArch.micro())
+    pb = _carried(jb)
+    P = pb.meta.n_padded
+    u8, labels, mask = _u8_batch()
+    work = str(tmp_path_factory.mktemp("steps"))
+    torch.save({"mu": pb.post.mu, "rho": pb.post.rho, "det": pb.post.det,
+                "bs": pb.batch_stats}, os.path.join(work, "bundle.pt"))
+    np.savez(os.path.join(work, "inputs.npz"), labels=labels, mask=mask,
+             **u8)
+    key = jax.random.PRNGKey(42)
+    seeds = chunk_seeds(torch.Generator().manual_seed(9), NUM_MC)
+    eps = {f"{a}_{b}": np.asarray(jax.random.normal(k, (1, P), jnp.float32))
+           for (a, b), k in zip(seeds, jax.random.split(key, NUM_MC))}
+    np.savez(os.path.join(work, "eps.npz"), **eps)
+    _spawn("steps", work)
+    ranks = [np.load(os.path.join(work, f"steps_{r}.npz")) for r in range(2)]
+    return jb, ranks, eps, key, work
+
+
+def _jax_mesh_step(jb, key, fsdp: bool):
+    """JAX's train step on a data=2 mesh of its virtual devices, the
+    packed posterior and its moments sharded over the mesh under
+    ``fsdp``: (new state, metrics)."""
+    u8, labels, mask = _u8_batch()
+    tx = jmake_optimizer(LR, 1e-5)
+    jstep = jmake_train_step(jb.module, jb.meta, JSpec(), tx, NUM_MC,
+                             impl="jnp", packed_inputs=True)
+    jstate = JState(post=jb.post, opt_state=tx.init(jb.post),
+                    batch_stats=jb.batch_stats,
+                    step=jnp.zeros((), jnp.int32))
+    jmesh = JM.make_mesh(JMeshSpec(data=2, mc=1))
+    with jax.set_mesh(jmesh):
+        st = JM.shard_state(jmesh, jstate, fsdp=fsdp)
+        return jstep(st, tuple(JM.shard_batch(jmesh, u8[k])
+                               for k in ("main", "bathy", "sss")),
+                     JM.shard_batch(jmesh, labels),
+                     JM.shard_batch(jmesh, mask), key, KL_WEIGHT, 4.0)
+
+
+def _held(grad_mu, meta) -> np.ndarray:
+    """The elements of the updated mu held against another framework's:
+    Adam's first step moves an element by lr * g / (|g| + 1e-8), whose
+    sensitivity to the gradient's rounding is lr * 1e-8 / g^2, and near
+    g = 0 the sign itself is rounding noise, so the updated mu is held
+    where the gradient exceeds 1e-5; and against JAX, whose gradients
+    differ from the port's by rounding that flips the sign of a few
+    percent-of-a-percent-sized ones (tests/test_torch_train.py bounds them
+    by 2% plus 1e-3 of their leaf's scale), where it exceeds 1e-2 of its
+    leaf's largest too. Returns (live, held) masks."""
+    g = np.abs(grad_mu)
+    floor = np.zeros_like(g)
+    for e in meta.entries:
+        sl = slice(e.offset, e.offset + e.size)
+        floor[sl] = 1e-2 * g[sl].max()
+    live = g > 1e-5
+    return live, live & (g > floor)
+
+
+def test_two_rank_steps(steps_run, monkeypatch):
     """Two gloo ranks, one data=2 mesh and one mc=2 mesh over them.
 
     * data=2 train step (remat on, chained BN, a ragged mask) under the
@@ -558,8 +707,10 @@ def test_two_rank_steps(tmp_path, monkeypatch):
       the elements whose gradient exceeds 1e-5 and 1e-2 of its leaf's
       largest (see the comment there). Both ranks hold the same mu and
       gradients.
-    * the same step with fsdp: mu, rho and the gathered Adam moment equal
-      to the plain data=2 step's (atol 1e-7).
+    * the same step with fsdp (mu and rho sharded at rest, gathered for
+      the forward, their gradients reduce-scattered): the gathered mu,
+      rho, gradients, Adam moment, loss and statistics bit-equal to the
+      plain data=2 step's (a sum of two terms has one order).
     * mc=2 (each rank draws its row of every chunk of 2, the real plain
       noise): eval logits bit-equal to the one-process stacked path's
       (the draws are bit-equal, the forwards the same code); the train
@@ -569,42 +720,15 @@ def test_two_rank_steps(tmp_path, monkeypatch):
       (|logit| ~1e-2: the random weights' near-uniform probabilities move
       little) to 1e-6 of its rows of the one-process logits.
     """
-    jb = jmake(7, JSpec(), jax.random.PRNGKey(0), JArch.micro())
-    pb = _carried(jb)
-    P = pb.meta.n_padded
+    jb, ranks, eps, key, _ = steps_run
     u8, labels, mask = _u8_batch()
-    work = str(tmp_path)
-    torch.save({"mu": pb.post.mu, "rho": pb.post.rho, "det": pb.post.det,
-                "bs": pb.batch_stats}, os.path.join(work, "bundle.pt"))
-    np.savez(os.path.join(work, "inputs.npz"), labels=labels, mask=mask,
-             **u8)
-    key = jax.random.PRNGKey(42)
-    seeds = chunk_seeds(torch.Generator().manual_seed(9), NUM_MC)
-    eps = {f"{a}_{b}": np.asarray(jax.random.normal(k, (1, P), jnp.float32))
-           for (a, b), k in zip(seeds, jax.random.split(key, NUM_MC))}
-    np.savez(os.path.join(work, "eps.npz"), **eps)
-
-    _spawn("steps", work)
-    ranks = [np.load(os.path.join(work, f"steps_{r}.npz")) for r in range(2)]
     out = ranks[0]
     for k in out.files:
         if not k.startswith("rank_"):
             np.testing.assert_array_equal(ranks[1][k], out[k], err_msg=k)
 
     # JAX's step on a data=2 mesh of virtual devices, the same eps
-    tx = jmake_optimizer(LR, 1e-5)
-    jstep = jmake_train_step(jb.module, jb.meta, JSpec(), tx, NUM_MC,
-                             impl="jnp", packed_inputs=True)
-    jstate = JState(post=jb.post, opt_state=tx.init(jb.post),
-                    batch_stats=jb.batch_stats,
-                    step=jnp.zeros((), jnp.int32))
-    jmesh = JM.make_mesh(JMeshSpec(data=2, mc=1))
-    with jax.set_mesh(jmesh):
-        st = JM.shard_state(jmesh, jstate)
-        jstate2, jm = jstep(st, tuple(JM.shard_batch(jmesh, u8[k])
-                                      for k in ("main", "bathy", "sss")),
-                            JM.shard_batch(jmesh, labels),
-                            JM.shard_batch(jmesh, mask), key, KL_WEIGHT, 4.0)
+    jstate2, jm = _jax_mesh_step(jb, key, fsdp=False)
     # the port's one-process step under the same eps
     monkeypatch.setattr(torch_sampling, "eps_plain",
                         lambda P_, seed, n, device=None, noise="f32":
@@ -616,24 +740,10 @@ def test_two_rank_steps(tmp_path, monkeypatch):
 
     np.testing.assert_allclose(float(out["data2_fsdp0_loss"]),
                                float(jm["loss"]), rtol=1e-4)
-    # Adam's first step moves an element by lr * g / (|g| + 1e-8): its
-    # sensitivity to the gradient's rounding is lr * 1e-8 / g^2, and near
-    # g = 0 the sign itself is rounding noise, so the updated mu is held
-    # on the elements whose gradient exceeds 1e-5 (the gradients
-    # themselves are held above, on every element)
-    g = np.abs(state.post.mu.grad.numpy())
-    live = g > 1e-5
+    # the updated mu is held where its gradient is not rounding noise
+    # (``_held``; the gradients themselves are held below, everywhere)
+    live, held = _held(state.post.mu.grad.numpy(), one.meta)
     assert live.mean() > 0.2
-    # against JAX, whose gradients differ from the port's by rounding
-    # that flips the sign of a few percent-of-a-percent-sized ones
-    # (tests/test_torch_train.py bounds them by 2% plus 1e-3 of their
-    # leaf's scale): held where the gradient exceeds 1e-2 of its leaf's
-    # largest too
-    floor = np.zeros_like(g)
-    for e in one.meta.entries:
-        sl = slice(e.offset, e.offset + e.size)
-        floor[sl] = 1e-2 * g[sl].max()
-    held = live & (g > floor)
     assert held.sum() > 1e5
     jmu = np.asarray(jstate2.post.mu)
     np.testing.assert_allclose(out["data2_fsdp0_mu"][held], jmu[held],
@@ -655,10 +765,11 @@ def test_two_rank_steps(tmp_path, monkeypatch):
         state.batch_stats["image_model_feat"]["bn1"]["mean"].numpy(),
         rtol=0, atol=1e-6)
     monkeypatch.undo()
-    for name in ("mu", "rho", "exp_avg", "loss"):
-        np.testing.assert_allclose(out[f"data2_fsdp1_{name}"],
-                                   out[f"data2_fsdp0_{name}"], rtol=0,
-                                   atol=1e-7, err_msg=name)
+    for name in ("mu", "rho", "grad_mu", "grad_rho", "exp_avg", "loss",
+                 "fused", "bs_mean"):
+        np.testing.assert_array_equal(out[f"data2_fsdp1_{name}"],
+                                      out[f"data2_fsdp0_{name}"],
+                                      err_msg=name)
 
     # mc=2 against the one-process stacked path and step (plain noise)
     one = _carried(jb)
@@ -709,6 +820,208 @@ def test_two_rank_steps(tmp_path, monkeypatch):
                                    atol=1e-6)
 
 
+def test_fsdp_state_holds_its_shard(steps_run):
+    """Under fsdp each rank's state holds mu, rho and mu's gradient at
+    the length of its ``posterior_sharding`` slice only (P / 2 each here,
+    the last shard ragged by the pad), data=2 the whole P; the fsdp step
+    issues one dedicated all_gather per vector and one reduce_scatter per
+    gradient (gloo carries both for CPU tensors) and one all_reduce more
+    than data=2 (the NaN guard's verdict)."""
+    from multimodal_auv_torch.parallel.collectives import Axis, flat_bounds
+
+    _, ranks, _, _, _ = steps_run
+    P = ranks[0]["data2_fsdp0_mu"].shape[0]
+    spans = [flat_bounds(P, Axis(2, r)) for r in range(2)]
+    assert spans[0][1] == spans[1][0] and spans[1][1] == P
+    for r, (lo, hi) in enumerate(spans):
+        assert 0 < hi - lo < P
+        np.testing.assert_array_equal(ranks[r]["rank_shape_fsdp1"],
+                                      [hi - lo] * 3)
+        np.testing.assert_array_equal(ranks[r]["rank_shape_fsdp0"], [P] * 3)
+        np.testing.assert_array_equal(ranks[r]["rank_bounds"], [lo, hi - 1])
+    c0, c1 = ranks[0]["counts_fsdp0"], ranks[0]["counts_fsdp1"]
+    assert list(c0[1:]) == [0, 0] and list(c1[1:]) == [2, 2]
+    assert c1[0] == c0[0] + 1
+
+
+def test_fsdp_checkpoint_and_resume(steps_run):
+    """The fsdp state's ``save_train_state`` file is the data=2 state's,
+    tensor for tensor (rank 0 writes the gathered posterior and moments);
+    each layout restored from the other's file and stepped once more
+    gives the same posterior, gradients, moments and loss, bit for bit."""
+    _, ranks, _, _, work = steps_run
+    got, gflat = _flat_state(os.path.join(work, "ckpt_fsdp1.pt"))
+    want, wflat = _flat_state(os.path.join(work, "ckpt_fsdp0.pt"))
+    assert (got["epoch"], got["meta"]) == (want["epoch"], want["meta"])
+    assert sorted(gflat) == sorted(wflat) and len(wflat) > 50
+    for k in wflat:
+        assert gflat[k].dtype == wflat[k].dtype, k
+        np.testing.assert_array_equal(gflat[k], wflat[k], err_msg=k)
+    out = ranks[0]
+    for name in ("mu", "rho", "grad_mu", "grad_rho", "exp_avg", "loss",
+                 "bs_mean"):
+        np.testing.assert_array_equal(out[f"resumed_fsdp1_{name}"],
+                                      out[f"resumed_fsdp0_{name}"],
+                                      err_msg=name)
+    # the resumed step moved the posterior on from the first step's
+    assert not np.array_equal(out["resumed_fsdp1_mu"],
+                              out["data2_fsdp1_mu"])
+
+
+def test_fsdp_nan_in_one_shard_skips_every_rank(steps_run):
+    """A NaN planted in rank 1's shard of the mu gradient (after the
+    reduce-scatter, where rank 0 cannot see it) makes both ranks skip the
+    update: the verdict is summed over the world, and the gathered mu is
+    unchanged on both."""
+    _, ranks, _, _, _ = steps_run
+    for r in range(2):
+        skipped, unchanged, step = ranks[r]["nan_skipped"]
+        assert skipped and unchanged and step == 1, r
+
+
+def test_fsdp_step_against_jax_fsdp(steps_run):
+    """The port's fsdp step (two gloo ranks) against the JAX package's
+    step on a data=2 mesh of its virtual devices with the posterior and
+    its moments sharded (``shard_state(fsdp=True)``), under the same eps:
+    loss rel 1e-4, the updated mu atol 1e-5 where its gradient is not
+    rounding noise (``_held``), the data=2 tolerances of
+    ``test_two_rank_steps``."""
+    jb, ranks, _, key, _ = steps_run
+    out = ranks[0]
+    jstate, jm = _jax_mesh_step(jb, key, fsdp=True)
+    assert len(jstate.post.mu.sharding.device_set) == 2
+    np.testing.assert_allclose(float(out["data2_fsdp1_loss"]),
+                               float(jm["loss"]), rtol=1e-4)
+    _, held = _held(out["data2_fsdp1_grad_mu"], _carried(jb).meta)
+    assert held.sum() > 1e5
+    np.testing.assert_allclose(out["data2_fsdp1_mu"][held],
+                               np.asarray(jstate.post.mu)[held], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1500, 700], ids=["ragged", "empty_tail"])
+def test_flat_collectives_both_formulations(steps_run, n):
+    """``all_gather_flat`` and ``reduce_scatter_flat`` on two gloo ranks
+    at a ragged n (1500 over chunks of 1024) and at one whose trailing
+    shard is empty (700), with -0.0 among the values: the dedicated
+    operations and the all_reduce formulation give the same bits, the
+    gather is the ranks' slices in order and the reduce-scatter this
+    rank's slice of the sum; each issues one operation of its kind."""
+    from multimodal_auv_torch.parallel.collectives import Axis, flat_bounds
+
+    _, ranks, _, _, _ = steps_run
+    fulls = []
+    for r in range(2):
+        full = torch.randn(n, generator=torch.Generator().manual_seed(
+            100 + r))
+        full[::7] = -0.0
+        fulls.append(full.numpy())
+    spans = [flat_bounds(n, Axis(2, r)) for r in range(2)]
+    gathered = np.concatenate([fulls[r][lo:hi]
+                               for r, (lo, hi) in enumerate(spans)])
+    bits = lambda a: np.asarray(a, np.float32).view(np.uint32)
+    for r, (lo, hi) in enumerate(spans):
+        out = ranks[r]
+        for name in ("dedicated", "all_reduce"):
+            np.testing.assert_array_equal(
+                bits(out[f"flat_gather_{n}_{name}"]), bits(gathered))
+            np.testing.assert_array_equal(
+                bits(out[f"rank_flat_scatter_{n}_{name}"]),
+                bits((fulls[0] + fulls[1])[lo:hi]))
+        np.testing.assert_array_equal(out[f"flat_counts_{n}_dedicated"],
+                                      [0, 1, 1])
+        np.testing.assert_array_equal(out[f"flat_counts_{n}_all_reduce"],
+                                      [2, 0, 0])
+    assert spans[1][1] - spans[1][0] == (0 if n == 700 else n - 1024)
+
+
+def test_flat_collectives_at_world_one():
+    """Under a process group of one rank (gloo, CPU tensors), as on an
+    axis of size 1 without one, ``all_gather_flat`` and
+    ``reduce_scatter_flat`` issue nothing and hand back the vector; the
+    dedicated formulations themselves (``_gather_dedicated``,
+    ``_scatter_dedicated``, which chip_smoke.py's NCCL check calls at
+    world 1) issue one operation each and give the vector's bits, -0.0
+    included, at a ragged n."""
+    import torch.distributed as dist
+
+    from multimodal_auv_torch.parallel import collectives as C
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        axis = M.make_mesh(MeshSpec(1, 1, fsdp=True)).world_axis
+        v = torch.randn(1500, generator=torch.Generator().manual_seed(5))
+        v[::7] = -0.0
+        bits = lambda t: t.view(torch.int32)
+        C.reset_counts()
+        assert C.all_gather_flat(v, axis, 1500) is v
+        assert torch.equal(bits(C.reduce_scatter_flat(v, axis, (0, 1500))),
+                           bits(v))
+        assert not any(C.COUNTS.values())
+        assert torch.equal(bits(C._gather_dedicated(v, axis, 1500)), bits(v))
+        assert torch.equal(bits(C._scatter_dedicated(v.clone(), axis,
+                                                     (0, 1500))), bits(v))
+        assert (C.COUNTS["all_gather"], C.COUNTS["reduce_scatter"],
+                C.COUNTS["all_reduce"]) == (1, 1, 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fsdp_step_frees_its_gathered_vectors():
+    """On one rank (no process group, every flat collective a no-op) the
+    fsdp state's step equals the plain step bit for bit, and the whole mu
+    and rho it gathered for its forward are freed by the time it
+    returns (weak references to them are dead)."""
+    import weakref
+
+    from multimodal_auv_torch.engine.optim import (
+        ShardedAdam,
+        full_posterior,
+    )
+    from multimodal_auv_torch.models.model_utils import make_multimodal_bundle
+
+    u8, labels, mask = _u8_batch()
+    t8 = [torch.from_numpy(u8[k]) for k in ("main", "bathy", "sss")]
+    gathered = []
+    gather = ShardedAdam.gather
+
+    def recording(self, shard, requires_grad=False):
+        full = gather(self, shard, requires_grad)
+        gathered.extend(weakref.ref(t) for t in (full.mu, full.rho))
+        return full
+
+    results = []
+    for fsdp in (False, True):
+        b = make_multimodal_bundle(7, BNNPriorSpec(),
+                                   torch.Generator().manual_seed(0),
+                                   ArchConfig.micro(), device="cpu")
+        mesh = M.make_mesh(MeshSpec(1, 1, fsdp=fsdp))
+        state = M.shard_state(mesh, BayesTrainState(b.post, None,
+                                                    b.batch_stats),
+                              make_optimizer(LR, 1e-5), fsdp)
+        step = make_train_step(b.module, b.meta, BNNPriorSpec(), NUM_MC,
+                               packed_inputs=True, mesh=mesh)
+        ShardedAdam.gather = recording
+        try:
+            state, m = step(state, t8, torch.from_numpy(labels),
+                            torch.from_numpy(mask),
+                            torch.Generator().manual_seed(9), KL_WEIGHT, 4.0)
+        finally:
+            ShardedAdam.gather = gather
+        if fsdp:
+            assert len(gathered) == 2
+            assert all(ref() is None for ref in gathered)
+        results.append((full_posterior(state), m))
+    (p0, m0), (p1, m1) = results
+    assert torch.equal(m0["fused"], m1["fused"])
+    for a, c in ((p0.mu, p1.mu), (p0.rho, p1.rho)):
+        assert torch.equal(a.detach(), c.detach())
+
+
 def _rows(path):
     with open(path, newline="") as f:
         return list(csv.reader(f))
@@ -743,6 +1056,8 @@ def pipelines_run(tmp_path_factory):
     make_inference_tree(os.path.join(work, "dives"), n_samples=5)
     single = str(tmp / "single")
     shutil.copytree(work, single)
+    shutil.copytree(os.path.join(work, "tree"),
+                    os.path.join(work, "tree_fsdp"))
     _spawn("pipelines", work)
     return work, single
 
@@ -771,7 +1086,7 @@ def test_two_rank_pipelines(pipelines_run, monkeypatch):
                       arch=ArchConfig.micro(), use_packed_loader=True,
                       device="cpu")
 
-    got, gflat = _flat_state(os.path.join(work, "state.pt"))
+    got, gflat = _flat_state(os.path.join(work, "state_tree.pt"))
     want, wflat = _flat_state(os.path.join(single, "state.pt"))
     assert got["epoch"] == want["epoch"] == 1
     assert got["meta"] == want["meta"]
@@ -816,6 +1131,38 @@ def test_two_rank_pipelines(pipelines_run, monkeypatch):
         np.array([[float(v) for v in r[2:]] for r in mesh_rows[1:]]),
         np.array([[float(v) for v in r[2:]] for r in one_rows[1:]]),
         rtol=0, atol=1e-5)
+
+
+def test_two_rank_fsdp_pipeline_equals_data2(pipelines_run):
+    """``run_AUV_training_from_scratch`` on the same two ranks with
+    ``MeshSpec(2, 1, fsdp=True)`` (mu, rho and their moments sharded at
+    rest; the loops' evaluation and checkpoints gather them) against the
+    data=2 run on a copy of the same tree: the resume checkpoint, the
+    epoch-0 ``save_model`` file and the ledgers are the same, bit for bit
+    (the manifest records fsdp)."""
+    work, _ = pipelines_run
+    got, gflat = _flat_state(os.path.join(work, "state_tree_fsdp.pt"))
+    want, wflat = _flat_state(os.path.join(work, "state_tree.pt"))
+    assert (got["epoch"], got["meta"]) == (want["epoch"], want["meta"])
+    assert sorted(gflat) == sorted(wflat) and len(wflat) > 50
+    for k in wflat:
+        np.testing.assert_array_equal(gflat[k], wflat[k], err_msg=k)
+    models = [os.path.join(work, t, "models") for t in ("tree_fsdp", "tree")]
+    (name,) = os.listdir(models[1])
+    assert os.listdir(models[0]) == [name]
+    a, b = (torch.load(os.path.join(d, name), weights_only=True)
+            for d in models)
+    for k in ("mu", "rho"):
+        assert torch.equal(a[k], b[k]), k
+    for name in ("multimodal_train_results.csv",
+                 "multimodal_eval_results.csv"):
+        assert _rows(os.path.join(work, "tree_fsdp", "csvs", name)) == \
+            _rows(os.path.join(work, "tree", "csvs", name)), name
+    with open(os.path.join(work, "tree_fsdp", "csvs",
+                           "run_manifest.json")) as f:
+        manifest = json.load(f)
+    assert manifest.get("config", manifest)["mesh"] == {
+        "data": 2, "mc": 1, "fsdp": True}
 
 
 def test_data_sharded_artifact_equals_mesh_step(pipelines_run, tmp_path):
