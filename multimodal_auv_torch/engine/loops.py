@@ -41,6 +41,7 @@ from multimodal_auv_torch.engine.steps import (
 )
 from multimodal_auv_torch.parallel.distributed import is_coordinator
 from multimodal_auv_torch.utils.plotting import save_confusion_matrix
+from multimodal_auv_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -83,7 +84,8 @@ def select_patch(batch: Dict, patch_type: Optional[str], kind: str) -> np.ndarra
 
 def _fetch(m) -> dict:
     """A step's metrics on the host: one copy of its ``fused`` tensor."""
-    vec = m["fused"].cpu().numpy()
+    with span("auv.drain"):
+        vec = m["fused"].cpu().numpy()
     if "skipped" in m:  # train-step layout
         return unfuse_train_metrics(vec)
     return unfuse_eval_metrics(vec, m["predicted"].shape[0])
@@ -156,7 +158,8 @@ def _device_batch(batch, inputs, nominal, device):
     inputs, labels, mask = _pad_batch([np.asarray(a) for a in inputs],
                                       labels, nominal)
     place = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return [place(a) for a in inputs], place(labels), place(mask), valid
+    with span("auv.place"):
+        return [place(a) for a in inputs], place(labels), place(mask), valid
 
 
 def _multimodal_inputs(batch, bathy_patch_type, sss_patch_type):

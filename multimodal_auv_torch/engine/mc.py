@@ -52,6 +52,7 @@ from multimodal_auv_torch.ops.sampling import (
     stacked_draws,
 )
 from multimodal_auv_torch.parallel.collectives import LOCAL, gather_draws
+from multimodal_auv_torch.utils.profiling import span
 
 # a chunk of at most this many forwards (on this rank) samples inside its
 # checkpoint; a larger one keeps its sampled stack (per-draw remat)
@@ -141,9 +142,10 @@ def split_mc_logits(module, meta: PackMeta, post: PackedPosterior,
     fast = _resolve_fast(fast_sampling, sample_dtype)
 
     def sample(k):
-        return gaussian_shift_scale_split(mu, sigma, seeds[k], mc_chunk,
-                                          out_dtype=sample_dtype,
-                                          fast_math=fast)
+        with span("auv.sample"):
+            return gaussian_shift_scale_split(mu, sigma, seeds[k], mc_chunk,
+                                              out_dtype=sample_dtype,
+                                              fast_math=fast)
 
     def forward(w):
         return module(meta.unpack(w, post.det), batch_stats, *inputs,
@@ -180,11 +182,14 @@ def stacked_mc_logits(module, meta: PackMeta, post: PackedPosterior,
         return module(meta.unpack(w, det), stats, *inputs, train=train,
                       batch_mask=mask)
 
-    return torch.cat([
-        draw_map(forward, stacked_draws(mu, sigma, seeds[k], rows,
-                                        out_dtype=sample_dtype),
-                 post.det, batch_stats, tuple(inputs), batch_mask)
-        for k in range(seeds.shape[0])])
+    def chunk(k):
+        with span("auv.sample"):
+            ws = stacked_draws(mu, sigma, seeds[k], rows,
+                               out_dtype=sample_dtype)
+        return draw_map(forward, ws, post.det, batch_stats, tuple(inputs),
+                        batch_mask)
+
+    return torch.cat([chunk(k) for k in range(seeds.shape[0])])
 
 
 def _mirror(mu: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
@@ -283,8 +288,10 @@ def mc_logits(module, meta: PackMeta, post: PackedPosterior, batch_stats,
     per_draw = remat and recording and not sample_in_remat
 
     def draws(seed, d0, n):
-        return gaussian_shift_scale(mu, sigma, draw_offset_seed(seed, d0, P),
-                                    n, out_dtype=sample_dtype)
+        with span("auv.sample"):
+            return gaussian_shift_scale(mu, sigma,
+                                        draw_offset_seed(seed, d0, P), n,
+                                        out_dtype=sample_dtype)
 
     def sample(seed):
         """This rank's k rows of the chunk of ``seed``: sampled rows below

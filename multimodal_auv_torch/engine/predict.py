@@ -23,6 +23,7 @@ from multimodal_auv_torch.ops.preprocess import normalize_multimodal
 from multimodal_auv_torch.ops.sampling import chunk_seed_words
 from multimodal_auv_torch.parallel.collectives import bn_sync, gather_rows
 from multimodal_auv_torch.parallel.distributed import host_rows, is_coordinator
+from multimodal_auv_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -78,12 +79,14 @@ def mesh_predict_step(logits_of: Callable, mesh) -> Callable:
     @torch.inference_mode()
     def step(post, batch_stats, inputs, generator, mask=None):
         rows = lambda a: host_rows(mesh, a)
-        with bn_sync(mesh.data_axis):
-            logits = logits_of(post, batch_stats, [rows(a) for a in inputs],
-                               generator, None if mask is None else rows(mask))
-        fused = gather_rows(fused_outputs(logits).T.contiguous(),
-                            mesh.data_axis).T
-        return _unfuse_outputs(fused)
+        with span("auv.step"):
+            with bn_sync(mesh.data_axis):
+                logits = logits_of(post, batch_stats,
+                                   [rows(a) for a in inputs], generator,
+                                   None if mask is None else rows(mask))
+            fused = gather_rows(fused_outputs(logits).T.contiguous(),
+                                mesh.data_axis).T
+            return _unfuse_outputs(fused)
 
     return step
 
@@ -174,8 +177,9 @@ def make_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
 
     @torch.inference_mode()
     def step(post, batch_stats, inputs, generator, mask=None):
-        return _mc_outputs(logits_of(post, batch_stats, inputs, generator,
-                                     mask))
+        with span("auv.step"):
+            return _mc_outputs(logits_of(post, batch_stats, inputs,
+                                         generator, mask))
 
     return step
 
@@ -247,10 +251,11 @@ def make_packed_predict_step(bundle: ModelBundle, num_mc_samples: int, *,
 
     @torch.inference_mode()
     def step(post, batch_stats, u8_inputs, generator, mask=None):
-        seeds = chunk_seed_words(generator, nchunks).to(post.mu.device,
-                                                        non_blocking=True)
-        return _mc_outputs(logits_fn(post, batch_stats, u8_inputs, seeds,
-                                     mask))
+        with span("auv.step"):
+            seeds = chunk_seed_words(generator, nchunks).to(
+                post.mu.device, non_blocking=True)
+            return _mc_outputs(logits_fn(post, batch_stats, u8_inputs, seeds,
+                                         mask))
 
     return step
 
@@ -270,7 +275,8 @@ def _serve_batches(step, post, batch_stats, place, batches: Iterable, writer,
 
     def drain(p):
         out, names, valid = p
-        cols = out["csv_cols"].cpu().numpy()  # one copy for all rows
+        with span("auv.drain"):
+            cols = out["csv_cols"].cpu().numpy()  # one copy for all rows
         pred, pu, au = cols[0].astype(np.int64), cols[1], cols[2]
         for i in range(valid):
             name = (names[i] if isinstance(names, (list, tuple, np.ndarray))
@@ -317,7 +323,12 @@ def _placer(bundle: ModelBundle, device: DeviceLike):
     dev = resolve_device(device)
     if bundle.device.type != dev.type:
         raise ValueError(f"bundle is on {bundle.device}, asked to run on {dev}")
-    return lambda a: torch.from_numpy(np.array(a)).to(dev)
+
+    def place(a):
+        with span("auv.place"):
+            return torch.from_numpy(np.array(a)).to(dev)
+
+    return place
 
 
 def multimodal_predict_and_save_packed(

@@ -40,6 +40,7 @@ from multimodal_auv_torch.parallel.collectives import (
     all_reduce_,
     bn_sync,
 )
+from multimodal_auv_torch.utils.profiling import span
 
 
 logger = logging.getLogger(__name__)
@@ -318,6 +319,12 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
 
     def step(state: BayesTrainState, inputs, labels, mask, generator,
              kl_weight, batch_size_scale) -> Tuple[BayesTrainState, Any]:
+        with span("auv.step"):
+            return _step(state, inputs, labels, mask, generator, kl_weight,
+                         batch_size_scale)
+
+    def _step(state, inputs, labels, mask, generator, kl_weight,
+              batch_size_scale):
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         sharded = isinstance(opt, ShardedAdam)
@@ -326,7 +333,8 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
             loss, (output, ce, scaled_kl, new_bs) = loss_fn(
                 post, state.batch_stats, inputs, labels, mask,
                 generator, kl_weight, batch_size_scale)
-            loss.backward()
+            with span("auv.backward"):
+                loss.backward()
         predicted = output.detach().argmax(dim=-1)
         correct = ((predicted == labels) * mask).sum()
         total = mask.sum()
@@ -346,7 +354,8 @@ def make_train_step(module, meta, spec: BNNPriorSpec, num_mc: int, *,
         if sharded:  # each rank checked its own shard: every rank's verdict
             finite = all_reduce_((~finite).to(torch.float32),
                                  opt.axis) == 0
-        loss_ok, *grads_ok = finite.tolist()  # the step's one host sync
+        with span("auv.guard"):
+            loss_ok, *grads_ok = finite.tolist()  # the step's one host sync
         ok = loss_ok and all(grads_ok)
         if ok:
             opt.step()

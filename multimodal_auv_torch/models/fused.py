@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from multimodal_auv_torch.models.fusion import _ATTN, AdditiveAttention
 from multimodal_auv_torch.models.resnet import Tree, batch_norm, cast, dense
+from multimodal_auv_torch.utils.profiling import span
 
 TRUNKS = ("image_model_feat", "bathy_model_feat", "sss_model_feat")
 
@@ -65,17 +66,18 @@ def fused_trunks_features(params: Tree, main: torch.Tensor,
         return (params[t] if sub is None else params[t][sub])[name]
 
     def gconv(y, name, stride, sub=None):
-        ks = []
-        for t in TRUNKS:
-            k = node(t, name, sub)["kernel"]
-            if k.shape[1] == 1:
-                # SSS conv1 is 1-in: zero input columns make the zero-padded
-                # input channels exact no-ops
-                k = F.pad(k, (0, 0, 0, 0, 0, 2))
-            ks.append(cast(k, dtype))
-        k = torch.cat(ks, dim=0)
-        return F.conv2d(y, k, stride=stride, padding=k.shape[-1] // 2,
-                        groups=3)
+        with span("auv.conv"):
+            ks = []
+            for t in TRUNKS:
+                k = node(t, name, sub)["kernel"]
+                if k.shape[1] == 1:
+                    # SSS conv1 is 1-in: zero input columns make the
+                    # zero-padded input channels exact no-ops
+                    k = F.pad(k, (0, 0, 0, 0, 0, 2))
+                ks.append(cast(k, dtype))
+            k = torch.cat(ks, dim=0)
+            return F.conv2d(y, k, stride=stride, padding=k.shape[-1] // 2,
+                            groups=3)
 
     def gbn(y, name, sub=None):
         p = {f: torch.cat([node(t, name, sub)[f] for t in TRUNKS])

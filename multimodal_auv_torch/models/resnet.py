@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_auv_torch.parallel.collectives import sync_sums
+from multimodal_auv_torch.utils.profiling import span
 
 Tree = Dict[str, object]
 
@@ -51,8 +52,9 @@ def conv(x: torch.Tensor, kernel: torch.Tensor, stride: int,
          dtype: torch.dtype) -> torch.Tensor:
     """Bias-free conv with flax's explicit (k//2, k//2) padding."""
     k = kernel.shape[-1]
-    return F.conv2d(cast(x, dtype), cast(kernel, dtype), stride=stride,
-                    padding=k // 2)
+    with span("auv.conv"):
+        return F.conv2d(cast(x, dtype), cast(kernel, dtype), stride=stride,
+                        padding=k // 2)
 
 
 def dense(x: torch.Tensor, p: Tree, dtype: torch.dtype) -> torch.Tensor:
@@ -67,22 +69,24 @@ def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
                ) -> Tuple[torch.Tensor, Optional[Tree]]:
     """flax BatchNorm over NCHW ``x``; ``batch_mask`` is a bool (B,).
     Returns (y, new running statistics if ``mutable`` else None)."""
-    x32 = cast(x, torch.float32)
-    if train:
-        mean, mean2 = _batch_moments(x32, batch_mask)
-        var = torch.clamp_min(mean2 - mean * mean, 0.0)
-    else:
-        mean, var = stats["mean"], stats["var"]
-    new = None
-    if mutable:
-        if not train:
-            raise ValueError("running statistics update only in train mode")
-        new = {k: MOMENTUM * stats[k] + (1 - MOMENTUM) * v.detach()
-               for k, v in (("mean", mean), ("var", var))}
-    y = x32 - mean.view(1, -1, 1, 1)
-    mul = torch.rsqrt(var + eps) * p["scale"]
-    y = y * mul.view(1, -1, 1, 1) + p["bias"].view(1, -1, 1, 1)
-    return cast(y, dtype), new
+    with span("auv.bn"):
+        x32 = cast(x, torch.float32)
+        if train:
+            mean, mean2 = _batch_moments(x32, batch_mask)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        else:
+            mean, var = stats["mean"], stats["var"]
+        new = None
+        if mutable:
+            if not train:
+                raise ValueError("running statistics update only in train "
+                                 "mode")
+            new = {k: MOMENTUM * stats[k] + (1 - MOMENTUM) * v.detach()
+                   for k, v in (("mean", mean), ("var", var))}
+        y = x32 - mean.view(1, -1, 1, 1)
+        mul = torch.rsqrt(var + eps) * p["scale"]
+        y = y * mul.view(1, -1, 1, 1) + p["bias"].view(1, -1, 1, 1)
+        return cast(y, dtype), new
 
 
 def _batch_moments(x32: torch.Tensor, batch_mask: Optional[torch.Tensor]

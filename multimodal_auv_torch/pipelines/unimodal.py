@@ -51,6 +51,7 @@ from multimodal_auv_torch.parallel.distributed import (
     process_count,
 )
 from multimodal_auv_torch.utils.manifest import write_run_manifest
+from multimodal_auv_torch.utils.profiling import span
 from multimodal_auv_torch.utils.tb import NullSummaryWriter, SummaryWriter
 
 logger = logging.getLogger(__name__)
@@ -89,16 +90,17 @@ def unimodal_predict_and_save(
 
     @torch.inference_mode()
     def step(x, mask):
-        logits = mc_logits(module, meta, bundle.post, bundle.batch_stats,
-                           (x,), generator, num_mc_samples, mc_chunk=mc_chunk,
-                           train=(bn_mode == "train"), remat=False,
-                           batch_mask=mask)
-        probs = U.softmax_probs(logits)
-        # one (3, batch) tensor: a single copy to the host per batch
-        return torch.stack([
-            U.predicted_class(probs).to(torch.float32),
-            U.variance_uncertainty(probs).to(torch.float32),
-            U.aleatoric_uncertainty(probs, eps=1e-7).to(torch.float32)])
+        with span("auv.step"):
+            logits = mc_logits(module, meta, bundle.post, bundle.batch_stats,
+                               (x,), generator, num_mc_samples,
+                               mc_chunk=mc_chunk, train=(bn_mode == "train"),
+                               remat=False, batch_mask=mask)
+            probs = U.softmax_probs(logits)
+            # one (3, batch) tensor: a single copy to the host per batch
+            return torch.stack([
+                U.predicted_class(probs).to(torch.float32),
+                U.variance_uncertainty(probs).to(torch.float32),
+                U.aleatoric_uncertainty(probs, eps=1e-7).to(torch.float32)])
 
     nominal = None
     with open(csv_path, "w", newline="") as f:
@@ -108,7 +110,8 @@ def unimodal_predict_and_save(
 
         def drain(p):
             out, names, valid = p
-            cols = out.cpu().numpy()
+            with span("auv.drain"):
+                cols = out.cpu().numpy()
             for i in range(valid):
                 name = names[i] if i < len(names) else f"sample_{i}"
                 writer.writerow([name, int(cols[0, i]), float(cols[1, i]),

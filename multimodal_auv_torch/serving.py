@@ -111,6 +111,7 @@ from multimodal_auv_torch.parallel.local_shards import (
     Turn,
     shard_context,
 )
+from multimodal_auv_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -461,10 +462,11 @@ def _shard_devices(device: DeviceLike, devices, mc_shards: int,
 def _to_device(a, dtype, dev: torch.device) -> torch.Tensor:
     """A host array on ``dev`` without waiting for the device's queue: a
     pinned copy sent asynchronously."""
-    t = torch.as_tensor(np.ascontiguousarray(a, dtype=dtype))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
+    with span("auv.place"):
+        t = torch.as_tensor(np.ascontiguousarray(a, dtype=dtype))
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t
 
 
 class _ShardWorkers:
