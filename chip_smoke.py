@@ -24,7 +24,11 @@ result line):
    MOPED random weights), ``multimodal_predict_and_save_packed`` with 20 MC
    samples at batch 4 (a ragged tail of 2). Checks the CSV, that the port
    on the card agrees with the port on the CPU at micro() size, and the
-   kernel launch counts of the timed run: 30 split_sampler, no other.
+   kernel launch counts of the timed run: 30 split_sampler and one
+   ``bn_stats`` and one ``bn_apply`` per BatchNorm layer and draw (3 x 53
+   x 60), no other. The BatchNorm kernels run in every forward on the card
+   that records no gradient; a phase checks their launches where it names
+   them (this one and 17), the samplers' always.
 5. training kernels: the stacked sampler and the eps kernel against their
    plain versions bit for bit (the small P's and full P, chunks 1, 2, 3,
    f32 and bf16 outputs); eps kernel == stacked at (0, 1) == split (f32
@@ -371,7 +375,11 @@ kernels line's times are taken with the card to themselves.
 
 The kernels line's launches of #1-#3 add phases 13, 14, 15, 16, 17, 18,
 19, 20, 21 and 22 to their paths' counts (phase 19's comparison runs and
-phase 18's resume and full-depth steps not counted). Beside each
+phase 18's resume and full-depth steps not counted). After phase 8 come
+BatchNorm's kernels #8 and #9 (``check_bn_kernels``): their device time
+over one draw's 53 layers at b128, one trunk and the grouped three,
+beside the bytes' bound and the plain operations' time, and the host's
+microseconds a layer. Beside each
 sampler's bound the script prints the
 noise contract's Philox calls for that launch and their estimated INT32
 time, labelled as an estimate; it is not part of ``bound_ms``.
@@ -419,6 +427,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # TFLOP/s counts a fused multiply-add as two.
 F32_OPS_PER_S = 132 * 128 * 1.98e9
 NUM_CLASSES, NUM_MC, BATCH, N_SAMPLES, IMAGE = 7, 20, 4, 10, 256
+# BatchNorm layers of a ResNet-50 trunk (models/fused.py::
+# grouped_layer_count), and the batch of the benchmark's predict cells, at
+# which the BatchNorm kernels are timed
+BN_LAYERS, BN_BATCH = 53, 128
 TRAIN_BATCH, TRAIN_SAMPLES = 12, 32  # the reference's b12 x 20 MC
 # phase 7's tree: two train steps (phase 14 runs the three-step epoch of
 # TRAIN_SAMPLES folders through the same loops)
@@ -543,15 +555,25 @@ def reset_launches() -> None:
 
 
 def check_launches(phase: str, want: dict) -> dict:
-    """The launch counts since the last reset must be exactly ``want``
-    (every kernel not named there: 0)."""
+    """The launch counts since the last reset must be exactly ``want``:
+    every sampler kernel not named there 0; the BatchNorm kernels, a pair
+    per layer of every forward that records no gradient, where named
+    (phases 4 and 17, and every training phase: its evaluations' draws,
+    none in a train step)."""
     from multimodal_auv_torch.ops import kernels
 
     got = dict(kernels.LAUNCHES)
-    full = {k: want.get(k, 0) for k in got}
-    if got != full:
+    full = {k: want.get(k, 0) for k in got
+            if k in want or k not in kernels.BN_KERNELS}
+    if {k: got[k] for k in full} != full:
         raise AssertionError(f"{phase}: kernel launches {got}, want {full}")
     return got
+
+
+def bn_launches(draws: int, layers: int) -> dict:
+    """The BatchNorm kernels' launches of ``draws`` forwards of ``layers``
+    BatchNorm layers each: one statistics and one apply launch a layer."""
+    return {"bn_stats": draws * layers, "bn_apply": draws * layers}
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -840,8 +862,9 @@ def phase_main_path(args, smi: str, work: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_batches = -(-N_SAMPLES // BATCH)
-    launches = check_launches("inference path",
-                              {"split_sampler": n_batches * NUM_MC // 2})
+    launches = check_launches("inference path", {
+        "split_sampler": n_batches * NUM_MC // 2,
+        **bn_launches(n_batches * NUM_MC, 3 * BN_LAYERS)})
     log(f"main path: {N_SAMPLES} patches, {n_batches} batches of {BATCH} x "
         f"{NUM_MC} MC in {wall:.3f} s = {N_SAMPLES / wall:.3f} patches/s "
         f"[{smi}]; peak memory "
@@ -852,7 +875,7 @@ def phase_main_path(args, smi: str, work: str):
 
     if args.profile:
         profile_batch(bundle, step, args.seed)
-    return bundle, entry, N_SAMPLES / wall
+    return bundle, entry, N_SAMPLES / wall, launches
 
 
 def profile_batch(bundle, step, seed: int) -> None:
@@ -907,10 +930,10 @@ def profile_run(label: str, filename: str, fn) -> None:
     return len(kern), busy_ms / wall_ms
 
 
-def phase_fused(args, smi: str, bundle, work: str) -> int:
+def phase_fused(args, smi: str, bundle, work: str) -> dict:
     """Phase 17: the grouped trunks against the unfused module at full
-    width (see the module docstring). Returns the split_sampler launches
-    of its counted run."""
+    width (see the module docstring). Returns the kernel launches of its
+    counted run."""
     from multimodal_auv_torch.engine.predict import (
         make_packed_logits_fn,
         make_packed_predict_step,
@@ -989,7 +1012,8 @@ def phase_fused(args, smi: str, bundle, work: str) -> int:
     reset_launches()
     run(True, csv_path)
     launches = check_launches("fused path", {
-        "split_sampler": -(-N_SAMPLES // BATCH) * NUM_MC // 2})
+        "split_sampler": -(-N_SAMPLES // BATCH) * NUM_MC // 2,
+        **bn_launches(-(-N_SAMPLES // BATCH) * NUM_MC, BN_LAYERS)})
     check_csv(csv_path)
     walls = {False: [], True: []}
     for fused in (True, False, False, True):
@@ -1018,7 +1042,7 @@ def phase_fused(args, smi: str, bundle, work: str) -> int:
                 f"device events, busy share {share:.3f}", summary=True)
     log(f"phase 17 (fused): {time.perf_counter() - t_phase:.1f} s",
         summary=True)
-    return launches["split_sampler"]
+    return launches
 
 
 def _clone_tree(t):
@@ -1618,6 +1642,7 @@ def phase_parallel(args, smi: str, bundle, work: str, beside=None):
     phases 22, 9, 10 and 11) runs in this process while the ranks run. Returns the launches of #2 and #3
     its ranks counted on their paths, and ``beside()``'s result."""
     from multimodal_auv_torch.bayes.packing import softplus
+    from multimodal_auv_torch.ops import kernels
     from multimodal_auv_torch.ops import sampling as S
 
     t_phase = time.perf_counter()
@@ -1665,12 +1690,16 @@ def phase_parallel(args, smi: str, bundle, work: str, beside=None):
         log(f"phase 18 {r['backend']} rank {r['rank']}/{r['world']}: "
             f"{json.dumps(body)}", summary=True)
     want = {"stacked_sampler": 2 * NUM_MC, "eps": NUM_MC}
-    full = lambda w: {k: w.get(k, 0) for k in by[("data2", 0, "gloo")][
-        "launches"]}
+    # the samplers' launches (the BatchNorm kernels run in the ranks'
+    # inference, not in their recorded training forwards)
+    samplers = lambda got: {k: v for k, v in got.items()
+                            if k not in kernels.BN_KERNELS}
+    full = lambda w: {k: w.get(k, 0) for k in samplers(by[(
+        "data2", 0, "gloo")]["launches"])}
     for label in ("data2_bf16", "data2", "data2_fsdp"):
         a, b = by[(label, 0, "gloo")], by[(label, 1, "gloo")]
         for r in (a, b):
-            if r["launches"] != full(want) or r["skipped"]:
+            if samplers(r["launches"]) != full(want) or r["skipped"]:
                 raise AssertionError(f"{label}: {r}")
         if (a["mu_sum"], a["mu_sq"]) != (b["mu_sum"], b["mu_sq"]):
             raise AssertionError(f"{label}: the ranks' mu differ")
@@ -1735,7 +1764,7 @@ def phase_parallel(args, smi: str, bundle, work: str, beside=None):
         raise AssertionError(f"fsdp's save_train_state file against "
                              f"data=2's: {f}")
     for label in ("nccl_world1", "nccl_world1_fsdp"):
-        if by[(label, 0, "nccl")]["launches"] != full(want):
+        if samplers(by[(label, 0, "nccl")]["launches"]) != full(want):
             raise AssertionError(f"{label}: launches")
     coll = by[("nccl_world1_fsdp", 0, "nccl")]["collectives"]
     if any(coll.values()):
@@ -1748,7 +1777,7 @@ def phase_parallel(args, smi: str, bundle, work: str, beside=None):
         raise AssertionError(f"NCCL's dedicated all_gather and "
                              f"reduce_scatter at world 1: {flat}")
     for r in range(2):
-        if by[("mc2", r, "gloo")]["launches"] != full(
+        if samplers(by[("mc2", r, "gloo")]["launches"]) != full(
                 {"stacked_sampler": NUM_MC // 2}):
             raise AssertionError(f"mc=2 rank {r}: launches")
     c = by[("mc2_vs_stacked", 0, "gloo")]
@@ -2159,9 +2188,11 @@ def phase_training(args, smi: str, bundle, work: str):
         raise AssertionError(f"run_AUV_training_from_scratch returned {ok}")
     train_idx, test_idx = split_indices(SCRATCH_SAMPLES)
     n_steps = -(-len(train_idx) // TRAIN_BATCH)
+    eval_draws = -(-len(test_idx) // TRAIN_BATCH) * NUM_MC
     launches = check_launches("training path", {
         "stacked_sampler": n_steps * NUM_MC * 2, "eps": n_steps * NUM_MC,
-        "split_sampler": -(-len(test_idx) // TRAIN_BATCH) * NUM_MC})
+        "split_sampler": eval_draws,
+        **bn_launches(eval_draws, 3 * BN_LAYERS)})
     peak = torch.cuda.max_memory_allocated() / 2**30
     later = times[1:]
     per_step = sum(later) / len(later)
@@ -2312,6 +2343,215 @@ def check_reparam_kernel(P_full: int):
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
+
+
+def resnet50_bn_geometries(width: int = 64, image: int = IMAGE) -> list:
+    """(channels, spatial side) of each BatchNorm layer of one ResNet-50
+    trunk in forward order, and whether its epilogue adds the identity
+    (bn3) and applies ReLU (all but the downsample's)."""
+    layers = [(width, image // 2, False, True)]  # the stem
+    side, planes = image // 4, width
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        for b in range(blocks):
+            out = side // (2 if stage > 0 and b == 0 else 1)
+            layers += [(planes, side, False, True), (planes, out, False, True)]
+            if b == 0:
+                layers.append((4 * planes, out, False, False))
+            layers.append((4 * planes, out, True, True))
+            side = out
+        planes *= 2
+    return layers
+
+
+def _device_ms(fn, repeats: int) -> dict:
+    """Device ms of one ``fn()`` by kernel family from the profiler's
+    kernel events: "bn_stats" and "bn_apply" (the BatchNorm kernels) and
+    "other" (every other kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {"bn_stats": 0.0, "bn_apply": 0.0, "other": 0.0}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        fam = ("bn_stats" if "bn_stats" in name else "bn_apply"
+               if "bn_apply" in name else "other")
+        out[fam] += float(e.get("dur", 0)) / 1e3 / repeats
+    return out
+
+
+def check_bn_kernels(smi: str) -> list:
+    """Kernels #8 and #9 (csrc/batchnorm.cu) over one draw's BatchNorm
+    layers of ResNet-50 at b128, 256 px (the predict cells' shapes): one
+    trunk's 53 layers and the grouped trunks' 3 C, channels-last bf16 as
+    the trunks hand them over. First each geometry against the plain
+    versions, with every row kept and with the last two masked off: the
+    statistics within 1e-5 of the sums of |x| and x^2 (their f32 summation
+    order differs), the apply bit for bit from the same statistics, with
+    the layer's own residual and ReLU. Then device time by the profiler's
+    kernel events (5 passes), beside the bytes each needs at
+    HBM_BYTES_PER_S, the plain operations' time (statistics: the masked
+    sums and the division; apply: the normalisation with its ReLU and
+    residual add) and the library's time for the whole layer
+    (``torch.batch_norm`` in training mode, then the in-place add and
+    ReLU; it has no row mask, and the port does not call it); the host's
+    microseconds a ``batch_norm`` call on the kernels at a tiny shape.
+    Returns their kernels-line entries, ``launches`` left to the caller."""
+    from multimodal_auv_torch.models.resnet import batch_norm
+    from multimodal_auv_torch.ops import batchnorm as BN
+
+    res = {}
+    err = {"bn_stats": 0.0, "bn_apply": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(8)
+    mask = torch.ones(BN_BATCH, dtype=torch.bool, device="cuda")
+    part = mask.clone()
+    part[-2:] = False
+    for trunks in (1, 3):
+        layers = resnet50_bn_geometries()
+        acts, idents = {}, {}
+        for c, side, add, _ in layers:
+            for d in (acts, idents) if add else (acts,):
+                if (c, side) not in d:
+                    d[(c, side)] = (torch.randn(
+                        BN_BATCH, trunks * c, side, side, generator=g,
+                        device="cuda") * 1.5 + 0.5).bfloat16().contiguous(
+                        memory_format=torch.channels_last)
+        vecs = {c: (torch.rand(trunks * c, device="cuda") + 0.5,
+                    torch.randn(trunks * c, device="cuda"))
+                for c in {c for c, _, _, _ in layers}}
+
+        with torch.inference_mode():
+            for c, side, add, relu in dict.fromkeys(layers):
+                x = acts[(c, side)]
+                for m in (mask, part):
+                    got = BN.stats(x, m, False)
+                    want = BN.stats_plain(x, m, False)
+                    xm = x[m].float()
+                    bound = 1e-5 * torch.cat([xm.abs().sum(dim=(0, 2, 3)),
+                                              (xm * xm).sum(dim=(0, 2, 3))])
+                    del xm
+                    over = float(((got[:-1] - want[:-1]).abs()
+                                  - bound).max())
+                    if got[-1] != want[-1] or over > 0:
+                        raise AssertionError(
+                            f"bn_stats off the plain sums at C {trunks * c}, "
+                            f"side {side}: count {float(got[-1])} against "
+                            f"{float(want[-1])}, {over} past 1e-5 of the "
+                            f"sums of |x| and x^2")
+                    moments = BN.stats_plain(x, m, True)[:-1]
+                    err["bn_stats"] = max(err["bn_stats"], float(
+                        (BN.stats(x, m, True)[:-1] - moments).abs().max()))
+                # from the plain statistics of the masked rows
+                mean, m2 = moments.chunk(2)
+                r = idents[(c, side)] if add else None
+                y = BN.apply(x, mean, m2, *vecs[c], 1e-5, False, r, relu)
+                want = BN.apply_plain(x, mean, m2, *vecs[c], 1e-5, False, r,
+                                      relu)
+                gap = float((y.float() - want.float()).abs().max())
+                err["bn_apply"] = max(err["bn_apply"], gap)
+                if not torch.equal(y, want):
+                    raise AssertionError(
+                        f"bn_apply off the plain operations at C "
+                        f"{trunks * c}, side {side}, residual {add}, relu "
+                        f"{relu}: max |gap| {gap}")
+                del y, want
+
+        def kernels_pass():
+            for c, side, add, relu in layers:
+                x = acts[(c, side)]
+                st = BN.stats(x, mask, True)
+                mean, m2 = st[:-1].chunk(2)
+                BN.apply(x, mean, m2, *vecs[c], 1e-5, False,
+                         idents[(c, side)] if add else None, relu)
+
+        def plain_stats():
+            for c, side, _, _ in layers:
+                sums, count = BN.masked_sums(acts[(c, side)].float(), mask)
+                sums / count
+
+        def plain_apply():
+            for c, side, add, relu in layers:
+                x = acts[(c, side)]
+                mean = torch.zeros(trunks * c, device="cuda")
+                BN.apply_plain(x.float(), mean, mean + 1, *vecs[c], 1e-5,
+                               True, idents[(c, side)] if add else None,
+                               relu, x.dtype)
+
+        def library():
+            for c, side, add, relu in layers:
+                y = torch.batch_norm(acts[(c, side)], *vecs[c], None, None,
+                                     True, 0.0, 1e-5, True)
+                if add:
+                    y.add_(idents[(c, side)])
+                if relu:
+                    y.relu_()
+
+        with torch.inference_mode():
+            k = _device_ms(kernels_pass, 5)
+            ps = _device_ms(plain_stats, 2)["other"]
+            pa = _device_ms(plain_apply, 2)["other"]
+            lib = _device_ms(library, 5)["other"]
+        elems = [BN_BATCH * trunks * c * side * side
+                 for c, side, _, _ in layers]
+        stats_bytes = 2 * sum(elems)
+        apply_bytes = sum(e * (6 if add else 4) for e, (_, _, add, _)
+                          in zip(elems, layers))
+        res[trunks] = (k, ps, pa, stats_bytes, apply_bytes, lib)
+        log(f"BatchNorm kernels, one draw of {len(layers)} layers at "
+            f"b{BN_BATCH} x {trunks} trunk(s): bn_stats {k['bn_stats']:.3f} "
+            f"ms (bound {stats_bytes / HBM_BYTES_PER_S * 1e3:.3f}, plain "
+            f"{ps:.3f}), bn_apply {k['bn_apply']:.3f} ms (bound "
+            f"{apply_bytes / HBM_BYTES_PER_S * 1e3:.3f}, plain {pa:.3f}), "
+            f"other kernels {k['other']:.3f} ms; the whole layer "
+            f"{k['bn_stats'] + k['bn_apply']:.3f} ms against the library's "
+            f"torch.batch_norm + add + relu {lib:.3f} ms; max |kernel - "
+            f"plain| so far: means {err['bn_stats']:.3g}, apply "
+            f"{err['bn_apply']:.3g} [{smi}]", summary=True)
+        del acts, idents
+    # the host's cost of one layer on the kernels, the card near idle
+    x = torch.randn(2, 64, 4, 4, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    p = {"scale": torch.ones(64, device="cuda"),
+         "bias": torch.zeros(64, device="cuda")}
+    with torch.inference_mode():
+        for n in (10, 400):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                batch_norm(x, p, None, True, mask[:2], torch.float32,
+                           relu=True, residual=x)
+            torch.cuda.synchronize()
+            host_us = (time.perf_counter() - t0) / n * 1e6
+    log(f"batch_norm on the kernels: {host_us:.1f} us of host a layer",
+        summary=True)
+    entries = []
+    for name, i, j in (("bn_stats", 3, 1), ("bn_apply", 4, 2)):
+        one, three = res[1], res[3]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "multimodal_auv_torch/csrc/batchnorm.cu",
+            "replaces": "no TPU kernel: flax BatchNorm was XLA's",
+            "launches": None, "max_abs_err": err[name], "layers": BN_LAYERS,
+            "ms": one[0][name], "ms_grouped": three[0][name],
+            "plain_ms": one[j], "plain_ms_grouped": three[j],
+            "bound_ms": one[i] / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_grouped": three[i] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            # the whole layer (statistics, apply and epilogue) in the
+            # library: compare with bn_stats' ms plus bn_apply's
+            "library_layer_ms": one[5], "library_layer_ms_grouped": three[5],
+            "host_us_per_layer": host_us})
+    return entries
 
 
 def check_sample_and_apply_card_vs_cpu() -> None:
@@ -2507,10 +2747,11 @@ def phase_unimodal_training(args, smi: str, work: str) -> None:
     wall = time.perf_counter() - t0
     train_idx, test_idx = split_indices(TRAIN_SAMPLES)
     n_steps = -(-len(train_idx) // UNI_TRAIN_BATCH)
+    eval_draws = -(-len(test_idx) // UNI_TRAIN_BATCH) * UNI_TRAIN_MC
     launches = check_launches("unimodal training", {
         "stacked_sampler": n_steps * UNI_TRAIN_MC * 2,
-        "eps": n_steps * UNI_TRAIN_MC,
-        "split_sampler": -(-len(test_idx) // UNI_TRAIN_BATCH) * UNI_TRAIN_MC})
+        "eps": n_steps * UNI_TRAIN_MC, "split_sampler": eval_draws,
+        **bn_launches(eval_draws, BN_LAYERS)})
     peak = torch.cuda.max_memory_allocated() / 2**30
     if state.step != n_steps or len(times) != n_steps:
         raise AssertionError(f"{state.step} steps, {len(times)} timed; want "
@@ -2839,9 +3080,11 @@ def phase_retraining(args, smi: str, work: str, weights: str) -> dict:
         raise AssertionError(f"the retrain CLI exited {rc}")
     train_idx, test_idx = split_indices(TRAIN_SAMPLES)
     n_steps = -(-len(train_idx) // TRAIN_BATCH)
+    eval_draws = -(-len(test_idx) // TRAIN_BATCH) * NUM_MC
     launches = check_launches("retraining", {
         "stacked_sampler": n_steps * NUM_MC * 2, "eps": n_steps * NUM_MC,
-        "split_sampler": -(-len(test_idx) // TRAIN_BATCH) * NUM_MC})
+        "split_sampler": eval_draws,
+        **bn_launches(eval_draws, 3 * BN_LAYERS)})
     peak = torch.cuda.max_memory_allocated() / 2**30
     if imported["stats"]["dropped"] != 4:
         raise AssertionError(f"import stats {imported['stats']}: want fc2's "
@@ -4562,10 +4805,12 @@ def check_native(raw: str, tiffs: str, smi: str) -> None:
 def _study_launches(n_train: int, n_eval: int, runs: int) -> dict:
     """Launches of ``runs`` epochs of n_train train steps (chunk 1, remat
     on: each draw sampled in the forward and again in the re-forward,
-    its eps regenerated in the backward) and n_eval eval batches."""
+    its eps regenerated in the backward; no BatchNorm kernel) and n_eval
+    eval batches (the three trunks' BatchNorm kernels each draw)."""
     return {"stacked_sampler": runs * n_train * STUDY_MC * 2,
             "eps": runs * n_train * STUDY_MC,
-            "split_sampler": runs * n_eval * STUDY_MC}
+            "split_sampler": runs * n_eval * STUDY_MC,
+            **bn_launches(runs * n_eval * STUDY_MC, 3 * BN_LAYERS)}
 
 
 def phase_studies(args, smi: str, work: str) -> dict:
@@ -4723,14 +4968,19 @@ def phase_studies(args, smi: str, work: str) -> dict:
         events = json.load(f)["traceEvents"]
     kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
     samp = [e for e in kern if "sampler_kernel" in e.get("name", "")]
-    if len(samp) != sum(inside.values()):
-        raise AssertionError(f"trace: {len(samp)} sampler_kernel events, "
-                             f"{inside} launches counted")
+    bn = [e for e in kern if any(k in e.get("name", "")
+                                 for k in kernels.BN_KERNELS)]
+    n_samp = sum(v for k, v in inside.items() if k not in kernels.BN_KERNELS)
+    n_bn = sum(inside[k] for k in kernels.BN_KERNELS)
+    if len(samp) != n_samp or len(bn) != n_bn:
+        raise AssertionError(f"trace: {len(samp)} sampler_kernel and "
+                             f"{len(bn)} BatchNorm kernel events, {inside} "
+                             f"launches counted")
     log(f"phase 20 trace: one evaluation batch (b{STUDY_BATCH} x "
         f"{STUDY_MC} MC) under utils.profiling.trace in {t_trace:.2f} s: "
         f"{len(kern)} kernel events, {len(samp)} sampler_kernel == "
-        f"{sum(inside.values())} launches counted; trace "
-        f"{os.path.getsize(path) / 2**20:.1f} MiB", summary=True)
+        f"{n_samp} and {len(bn)} BatchNorm == {n_bn} launches counted; "
+        f"trace {os.path.getsize(path) / 2**20:.1f} MiB", summary=True)
     del bundle, state, estep, events, kern, samp
     free_cuda()
 
@@ -4957,6 +5207,7 @@ def _learning_run(args, smi: str, work: str) -> tuple:
         make_optimizer,
     )
     from multimodal_auv_torch.engine.predict import make_predict_step
+    from multimodal_auv_torch.models.fused import grouped_layer_count
     from multimodal_auv_torch.models.model_utils import (
         ArchConfig,
         make_multimodal_bundle,
@@ -4990,7 +5241,9 @@ def _learning_run(args, smi: str, work: str) -> tuple:
     trained = check_launches("learning: training", {
         "stacked_sampler": LEARN_EPOCHS * n_steps * LEARN_MC * 2,
         "eps": LEARN_EPOCHS * n_steps * LEARN_MC,
-        "split_sampler": LEARN_EPOCHS * n_evals * LEARN_MC})
+        "split_sampler": LEARN_EPOCHS * n_evals * LEARN_MC,
+        **bn_launches(LEARN_EPOCHS * n_evals * LEARN_MC,
+                      3 * grouped_layer_count(arch.stage_sizes))})
 
     bundle = make_multimodal_bundle(
         LEARN_CLASSES, spec, torch.Generator().manual_seed(args.seed), arch,
@@ -5149,7 +5402,8 @@ def phase_examples(args, smi: str, work: str) -> dict:
             printed[name] = run_example(name, argv() if callable(argv)
                                         else argv)
             torch.cuda.synchronize()
-            got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            got = {k: v for k, v in kernels.LAUNCHES.items()
+                   if v and k not in kernels.BN_KERNELS}
             if sorted(got) != sorted(used):
                 raise AssertionError(f"{name}: kernel launches {got}, want "
                                      f"launches of {used} only")
@@ -5259,13 +5513,15 @@ def main() -> int:
                            "the build, on a poisoned allocator")
             free_cuda()
             probe("the build, again")
-        bundle, split_entry, mc_rate = phase_main_path(args, smi, work)
+        bundle, split_entry, mc_rate, main_launches = phase_main_path(
+            args, smi, work)
         probe("phase_main_path")
         kernels_line = [split_entry] + phase_training(args, smi, bundle,
                                                       work)
         probe("phase_training")
         free_cuda()
-        split_entry["launches"] += phase_fused(args, smi, bundle, work)
+        fused_launches = phase_fused(args, smi, bundle, work)
+        split_entry["launches"] += fused_launches["split_sampler"]
         probe("phase_fused")
         free_cuda()
 
@@ -5294,6 +5550,13 @@ def main() -> int:
         reparam_entry["launches"] = reparam_launches
         probe("check_reparam_kernel")
         kernels_line.append(reparam_entry)
+        free_cuda()
+        # #8 and #9: the launches phases 4 and 17 counted (and checked);
+        # the later phases' are added below, as for every kernel
+        for e in check_bn_kernels(smi):
+            e["launches"] = (main_launches[e["name"]]
+                             + fused_launches[e["name"]])
+            kernels_line.append(e)
         free_cuda()
         weights, split_launches = phase_pretrained_inference(args, smi, work)
         probe("phase_pretrained_inference")

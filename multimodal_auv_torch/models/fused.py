@@ -22,8 +22,10 @@ BatchNorm is ``models/resnet.py::batch_norm`` (flax train-mode numerics,
 masked, synchronised over the data group under a mesh) over the
 concatenated 3C channels with the three trunks' scale and bias
 concatenated: per channel, so each modality's channels see exactly their
-own statistics. Inference only: train-mode BN statistics, no running
-statistics update, and ``train=False`` raises, as in the JAX package.
+own statistics; it carries the ReLU and the residual add after it, which
+on the card are its kernels' epilogue. Inference only: train-mode BN
+statistics, no running statistics update, and ``train=False`` raises, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -79,25 +81,26 @@ def fused_trunks_features(params: Tree, main: torch.Tensor,
             return F.conv2d(y, k, stride=stride, padding=k.shape[-1] // 2,
                             groups=3)
 
-    def gbn(y, name, sub=None):
+    def gbn(y, name, sub=None, relu=True, residual=None):
         p = {f: torch.cat([node(t, name, sub)[f] for t in TRUNKS])
              for f in ("scale", "bias")}
-        return batch_norm(y, p, None, True, mask, dtype, eps=eps)[0]
+        return batch_norm(y, p, None, True, mask, dtype, eps=eps, relu=relu,
+                          residual=residual)[0]
 
     x = gconv(x, "conv1", 2)
-    x = F.max_pool2d(torch.relu(gbn(x, "bn1")), 3, stride=2, padding=1)
+    x = F.max_pool2d(gbn(x, "bn1"), 3, stride=2, padding=1)
     for stage, blocks in enumerate(stage_sizes):
         for blk in range(blocks):
             stride = 2 if (stage > 0 and blk == 0) else 1
             sub = f"layer{stage + 1}_{blk}"
-            out = torch.relu(gbn(gconv(x, "conv1", 1, sub), "bn1", sub))
-            out = torch.relu(gbn(gconv(out, "conv2", stride, sub), "bn2", sub))
-            out = gbn(gconv(out, "conv3", 1, sub), "bn3", sub)
+            out = gbn(gconv(x, "conv1", 1, sub), "bn1", sub)
+            out = gbn(gconv(out, "conv2", stride, sub), "bn2", sub)
             identity = x
             if blk == 0:
                 identity = gbn(gconv(x, "downsample_conv", stride, sub),
-                               "downsample_bn", sub)
-            x = torch.relu(out + identity)
+                               "downsample_bn", sub, relu=False)
+            x = gbn(gconv(out, "conv3", 1, sub), "bn3", sub,
+                    residual=identity)
     feats = x.mean(dim=(2, 3))  # (B, 3 * feature_size)
     return tuple(feats.chunk(3, dim=1))
 

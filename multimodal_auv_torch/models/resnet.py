@@ -17,7 +17,10 @@ biased variance E[x^2] - E[x]^2 (clipped at 0), taken in train mode over
 the rows where ``batch_mask`` is true; eps 1e-5; normalisation in f32, then
 a cast to the activation dtype. Running statistics are read in eval mode.
 Under ``parallel.collectives.bn_sync(axis)`` the train-mode statistics are
-the global batch's: the sums over every rank of the data axis.
+the global batch's: the sums over every rank of the data axis. Where no
+gradient is recorded through a layer on the card, BatchNorm and the ReLU
+and residual add after it run as two kernels (``ops/batchnorm.py``) with
+the same roundings; elsewhere as plain operations.
 With ``mutable=True`` (train mode only) ``forward`` also returns them
 advanced by flax's update, ra = 0.9 ra + (1 - 0.9) batch_stat with the
 biased batch variance over the ``batch_mask`` rows, detached. The update
@@ -32,7 +35,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_auv_torch.parallel.collectives import sync_sums
+from multimodal_auv_torch.ops import batchnorm as bn_kernels
+from multimodal_auv_torch.ops.batchnorm import (
+    apply_plain,
+    masked_sums,
+    on_kernels,
+)
+from multimodal_auv_torch.parallel.collectives import bn_synced, sync_sums
 from multimodal_auv_torch.utils.profiling import span
 
 Tree = Dict[str, object]
@@ -65,15 +74,27 @@ def dense(x: torch.Tensor, p: Tree, dtype: torch.dtype) -> torch.Tensor:
 
 def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
                batch_mask: Optional[torch.Tensor], dtype: torch.dtype,
-               eps: float = 1e-5, mutable: bool = False
+               eps: float = 1e-5, mutable: bool = False, relu: bool = False,
+               residual: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """flax BatchNorm over NCHW ``x``; ``batch_mask`` is a bool (B,).
-    Returns (y, new running statistics if ``mutable`` else None)."""
+    """flax BatchNorm over NCHW ``x`` (a conv output, in ``dtype``);
+    ``batch_mask`` is a bool (B,). ``residual`` (x's shape, in ``dtype``)
+    is added to the result and ``relu`` applies ReLU last: the
+    bottleneck's epilogue. Returns (y, new running statistics if
+    ``mutable`` else None).
+
+    Where no gradient is recorded through it, on the card
+    (``ops.batchnorm.on_kernels``), the layer is two kernels, the
+    statistics (inside ``_batch_moments``) and the normalisation with its
+    epilogue (``auv::bn_apply``); elsewhere it is the plain operations."""
     with span("auv.bn"):
-        x32 = cast(x, torch.float32)
+        fused = on_kernels(x, p["scale"], p["bias"], residual)
+        xs = x if fused else cast(x, torch.float32)
+        var = second = None
         if train:
-            mean, mean2 = _batch_moments(x32, batch_mask)
-            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            mean, second = _batch_moments(xs, batch_mask)
+            if mutable or not fused:
+                var = torch.clamp_min(second - mean * mean, 0.0)
         else:
             mean, var = stats["mean"], stats["var"]
         new = None
@@ -83,25 +104,37 @@ def batch_norm(x: torch.Tensor, p: Tree, stats: Tree, train: bool,
                                  "mode")
             new = {k: MOMENTUM * stats[k] + (1 - MOMENTUM) * v.detach()
                    for k, v in (("mean", mean), ("var", var))}
-        y = x32 - mean.view(1, -1, 1, 1)
-        mul = torch.rsqrt(var + eps) * p["scale"]
-        y = y * mul.view(1, -1, 1, 1) + p["bias"].view(1, -1, 1, 1)
-        return cast(y, dtype), new
+        if fused:
+            y = bn_kernels.apply(x, mean, second if var is None else var,
+                                 p["scale"], p["bias"], eps, var is not None,
+                                 residual, relu)
+        else:
+            y = apply_plain(xs, mean, var, p["scale"], p["bias"], eps, True,
+                            residual, relu, dtype)
+        return y, new
 
 
-def _batch_moments(x32: torch.Tensor, batch_mask: Optional[torch.Tensor]
+def _batch_moments(x: torch.Tensor, batch_mask: Optional[torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(E[x], E[x^2]) per channel over the (masked) rows of every rank of
     the BN axis: the sums and sums of squares, and their count, summed by
     one (2C + 1) differentiable all_reduce (parallel/collectives.py::
-    sync_sums; nothing on an axis of size 1)."""
-    rows = x32.shape[0]
-    if batch_mask is not None:
-        x32 = torch.where(batch_mask.view(-1, 1, 1, 1), x32, 0.0)
-        rows = batch_mask.sum().to(torch.float32)
-    sums, count = sync_sums(
-        torch.cat([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3))]),
-        rows * (x32.shape[2] * x32.shape[3]))
+    sync_sums; nothing on an axis of size 1). From the statistics kernel
+    where ``x`` is on the card with no gradient to record (it divides by
+    the count itself when no other rank adds to the sums), else from the
+    plain sums of ``x`` in f32."""
+    if on_kernels(x):
+        c = x.shape[1]
+        alone = not bn_synced()
+        out = bn_kernels.stats(x, batch_mask, alone)
+        if alone:
+            return out[:c], out[c:2 * c]
+        count = (out[2 * c] if batch_mask is not None
+                 else x.shape[0] * x.shape[2] * x.shape[3])
+        sums, count = sync_sums(out[:2 * c], count)
+    else:
+        sums, count = sync_sums(*masked_sums(cast(x, torch.float32),
+                                             batch_mask))
     return (sums / count).chunk(2)
 
 
@@ -148,22 +181,26 @@ class Bottleneck(nn.Module):
                 mutable: bool = False):
         """The block's output, and with ``mutable`` its new statistics."""
         dt = self.dtype
-        new_s = {}
+        # keys bn1, bn2, bn3, downsample_bn, though downsample_bn runs
+        # before bn3 (its output is bn3's residual)
+        new_s = dict.fromkeys(("bn1", "bn2", "bn3") + (
+            ("downsample_bn",) if self.downsample else ()))
 
-        def bn(name, y):
+        def bn(name, y, relu=True, residual=None):
             y, new_s[name] = batch_norm(y, p[name], s.get(name), train,
-                                        batch_mask, dt, mutable=mutable)
+                                        batch_mask, dt, mutable=mutable,
+                                        relu=relu, residual=residual)
             return y
 
-        out = torch.relu(bn("bn1", conv(x, p["conv1"]["kernel"], 1, dt)))
-        out = torch.relu(bn("bn2", conv(out, p["conv2"]["kernel"],
-                                        self.stride, dt)))
-        out = bn("bn3", conv(out, p["conv3"]["kernel"], 1, dt))
+        out = bn("bn1", conv(x, p["conv1"]["kernel"], 1, dt))
+        out = bn("bn2", conv(out, p["conv2"]["kernel"], self.stride, dt))
         identity = x
         if self.downsample:
             identity = bn("downsample_bn", conv(
-                x, p["downsample_conv"]["kernel"], self.stride, dt))
-        out = torch.relu(out + identity)
+                x, p["downsample_conv"]["kernel"], self.stride, dt),
+                relu=False)
+        out = bn("bn3", conv(out, p["conv3"]["kernel"], 1, dt),
+                 residual=identity)
         return (out, new_s) if mutable else out
 
 
@@ -216,9 +253,9 @@ class ResNet(nn.Module):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW (a view)
         x = conv(x, p["conv1"]["kernel"], 2, dt)
         x, new_s = batch_norm(x, p["bn1"], s.get("bn1"), train, batch_mask,
-                              dt, mutable=mutable)
+                              dt, mutable=mutable, relu=True)
         new_s = {"bn1": new_s}
-        x = F.max_pool2d(torch.relu(x), 3, stride=2, padding=1)  # -inf pad
+        x = F.max_pool2d(x, 3, stride=2, padding=1)  # -inf pad
         for name in self.block_names:
             x = getattr(self, name)(p[name], s.get(name, {}), x, train,
                                     batch_mask, mutable)

@@ -45,7 +45,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"split_sampler": 0, "stacked_sampler": 0,
                             "eps": 0, "reparam_sampler": 0, "rng_bits": 0,
                             "rng_bmlite": 0, "eps_fast": 0,
-                            "noise_parts": 0}
+                            "noise_parts": 0, "bn_stats": 0, "bn_apply": 0}
+
+# the BatchNorm kernels (csrc/batchnorm.cu): every forward on the card that
+# records no gradient launches them, a pair per BatchNorm layer
+BN_KERNELS = ("bn_stats", "bn_apply")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()

@@ -295,6 +295,12 @@ def bn_sync(axis: Optional[Axis]):
         _BN_AXIS = prev
 
 
+def bn_synced() -> bool:
+    """Whether BatchNorm's sums are summed over other ranks or shards here
+    (the BN axis has more than one member)."""
+    return _BN_AXIS.size > 1
+
+
 def sync_sums(sums: torch.Tensor, count=None):
     """A BatchNorm layer's per-channel sums and their element count (a
     number or a 0-d tensor) over the BN axis: (sums, count), summed by one

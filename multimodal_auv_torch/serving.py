@@ -96,6 +96,9 @@ import numpy as np
 import torch
 
 from multimodal_auv_torch.device import DeviceLike, resolve_device
+# registers torch.ops.auv.bn_stats and auv::bn_apply, which programs
+# exported on the card call
+from multimodal_auv_torch.ops import batchnorm  # noqa: F401
 # also registers torch.ops.auv.split_sampler and auv::stacked_sampler,
 # which the programs call
 from multimodal_auv_torch.ops.sampling import (

@@ -573,3 +573,257 @@ def test_bf16_stacked_bracket_covers_all_words():
         c_max, 1 + 2.0 ** -20)
     have_r, have_sc = S.library_bracket_constants()
     assert all(a <= b for a, b in zip(need_r, have_r)) and need_sc <= have_sc
+
+
+# BatchNorm geometries of ResNet-50 at b128, 256 px: (channels, spatial
+# side) of every distinct layer, per trunk; the grouped trunks
+# (models/fused.py) run each at 3 C
+BN_GEOMETRIES = [(64, 128), (64, 64), (128, 64), (256, 64), (128, 32),
+                 (512, 32), (256, 32), (256, 16), (1024, 16), (512, 16),
+                 (512, 8), (2048, 8)]
+BN_ROWS = 128
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |t| (the normal spacing; subnormals' floor)."""
+    e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _bn_case(C: int, side: int, layout, seed: int):
+    """A conv-output-like bf16 activation at b128 in ``layout``, its
+    scale and bias, an identity, and a mask with the last two rows off."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (BN_ROWS, C, side, side)
+    shift = torch.randn(C, 1, 1, generator=g, device="cuda")
+    x = (torch.randn(shape, generator=g, device="cuda") * 1.5 + shift)
+    x = x.bfloat16().contiguous(memory_format=layout)
+    res = torch.randn(shape, generator=g, device="cuda").bfloat16() \
+        .contiguous(memory_format=layout)
+    scale = torch.rand(C, generator=g, device="cuda") + 0.2
+    bias = torch.randn(C, generator=g, device="cuda") * 0.1
+    mask = torch.ones(BN_ROWS, dtype=torch.bool, device="cuda")
+    mask[-2:] = False
+    return x, res, scale, bias, mask
+
+
+@pytest.mark.parametrize("layout", [torch.channels_last,
+                                    torch.contiguous_format],
+                         ids=["channels_last", "nchw"])
+@pytest.mark.parametrize("trunks", [1, 3], ids=["trunk", "grouped"])
+@pytest.mark.parametrize("C,side", BN_GEOMETRIES,
+                         ids=[f"c{c}s{s}" for c, s in BN_GEOMETRIES])
+def test_bn_kernels_match_plain_at_resnet50_geometries(C, side, trunks,
+                                                        layout):
+    """``bn_stats`` and ``bn_apply`` against their plain twins at each BN
+    geometry of ResNet-50 at b128 (one trunk's C and the grouped 3 C), in
+    both layouts, with masked-off rows. Given the same statistics the apply
+    kernel equals the plain operations bit for bit, with and without the
+    residual and ReLU. The statistics differ only by the order of their f32
+    sums, so with the kernel's own statistics an element may differ by what
+    that difference moves it (the mean's gap times the multiplier, plus
+    |x - mean| times the multipliers' gap) and one bf16 ulp of the
+    normalised value (plus one of the output where the identity is added
+    after it)."""
+    _cuda_or_skip()
+    from multimodal_auv_torch.ops import batchnorm as BN
+
+    C *= trunks
+    x, res, scale, bias, mask = _bn_case(C, side, layout, C + side)
+    with torch.inference_mode():
+        for m in (mask, None):
+            got = torch.ops.auv.bn_stats(x, m, False)
+            want = BN.stats_plain(x, m, False)
+            assert got[-1] == want[-1]  # the count, exactly
+            xm = x.float() if m is None else x.float()[m]
+            bound = 1e-5 * torch.cat([xm.abs().sum(dim=(0, 2, 3)),
+                                      (xm * xm).sum(dim=(0, 2, 3))])
+            assert ((got[:-1] - want[:-1]).abs() <= bound).all()
+            means = torch.ops.auv.bn_stats(x, m, True)
+            want_means = BN.stats_plain(x, m, True)
+            assert means[-1] == want[-1]
+            assert ((means[:-1] - want_means[:-1]).abs()
+                    <= bound / want[-1]).all()
+        mean, m2 = want_means[:-1].chunk(2)  # the plain twin's, mask None
+        kmean, km2 = means[:-1].chunk(2)
+        for relu, r in ((False, None), (True, None), (True, res)):
+            plain = BN.apply_plain(x, mean, m2, scale, bias, 1e-5, False, r,
+                                   relu)
+            same = torch.ops.auv.bn_apply(x, mean, m2, scale, bias, 1e-5,
+                                          False, r, relu)
+            assert same.stride() == x.stride()
+            assert torch.equal(same, plain)
+            own = torch.ops.auv.bn_apply(x, kmean, km2, scale, bias, 1e-5,
+                                         False, r, relu)
+            assert torch.equal(own, BN.apply_plain(
+                x, kmean, km2, scale, bias, 1e-5, False, r, relu))
+            y = BN.apply_plain(x, mean, m2, scale, bias, 1e-5, False, None,
+                               False)
+            mul, kmul = (torch.rsqrt(torch.clamp_min(b - a * a, 0.0) + 1e-5)
+                         * scale for a, b in ((mean, m2), (kmean, km2)))
+            d = (x.float() - mean.view(1, -1, 1, 1)).abs()
+            moved = ((kmean - mean).abs() * kmul).view(1, -1, 1, 1) + d * (
+                kmul - mul).abs().view(1, -1, 1, 1)
+            # and the f32 roundings of (x - mean) * mul + bias, which a
+            # small result after cancellation shows in its bf16 ulps
+            f32 = 2.0 ** -22 * (d * kmul.view(1, -1, 1, 1)
+                                + bias.abs().view(1, -1, 1, 1))
+            tol = moved + f32 + _bf16_ulp(y) + (0 if r is None
+                                                else _bf16_ulp(plain))
+            gap = (own.float() - plain.float()).abs()
+            over = gap - tol
+            k = int(over.argmax())
+            assert float(over.max()) <= 0, (
+                f"gap {float(gap.flatten()[k])} over tolerance "
+                f"{float(tol.flatten()[k])} at y {float(y.flatten()[k])}, "
+                f"{int((gap > _bf16_ulp(y)).sum())} elements past one ulp")
+
+
+def test_bn_eval_mode_and_running_statistics_on_card():
+    """Eval-mode BatchNorm (running statistics) through the apply kernel
+    equals the plain operations bit for bit; with ``mutable`` the running
+    statistics are the plain update of the kernel's mean and variance."""
+    _cuda_or_skip()
+    from multimodal_auv_torch.models.resnet import batch_norm
+    from multimodal_auv_torch.ops import batchnorm as BN
+
+    x, res, scale, bias, mask = _bn_case(256, 16, torch.channels_last, 1)
+    p = {"scale": scale, "bias": bias}
+    stats = {"mean": torch.randn(256, device="cuda") * 0.1,
+             "var": torch.rand(256, device="cuda") + 0.5}
+    with torch.inference_mode():
+        before = kernels.LAUNCHES["bn_apply"]
+        y, _ = batch_norm(x, p, stats, False, None, torch.bfloat16,
+                          relu=True, residual=res)
+        assert kernels.LAUNCHES["bn_apply"] == before + 1
+        want = BN.apply_plain(x, stats["mean"], stats["var"], scale, bias,
+                              1e-5, True, res, True)
+        assert torch.equal(y, want)
+        y, new = batch_norm(x, p, stats, True, mask, torch.bfloat16,
+                            mutable=True)
+        mean, m2 = torch.ops.auv.bn_stats(x, mask, True)[:-1].chunk(2)
+        var = torch.clamp_min(m2 - mean * mean, 0.0)
+        assert torch.equal(new["mean"], 0.9 * stats["mean"] + 0.1 * mean)
+        assert torch.equal(new["var"], 0.9 * stats["var"] + 0.1 * var)
+        assert torch.equal(y, BN.apply_plain(x, mean, var, scale, bias, 1e-5,
+                                             True, None, False))
+
+
+def test_bn_kernels_refuse_other_layouts():
+    """A tensor neither channels-last nor contiguous NCHW is refused, not
+    read wrongly."""
+    _cuda_or_skip()
+    x = torch.zeros(4, 8, 6, 6, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError, match="channels-last or contiguous"):
+        torch.ops.auv.bn_stats(x, None, False)
+
+
+def test_bn_launches_per_draw_predict_and_none_in_training():
+    """One ``bn_apply`` and one ``bn_stats`` per BatchNorm layer and draw
+    in a packed predict batch: 53 a draw with the grouped trunks, 3 x 53
+    with three trunks, ResNet-50's stage sizes; none in a training step,
+    whose forward autograd records."""
+    _cuda_or_skip()
+    from multimodal_auv_torch.engine.optim import (
+        BayesTrainState,
+        make_optimizer,
+    )
+    from multimodal_auv_torch.engine.steps import make_train_step
+    from multimodal_auv_torch.models.fused import grouped_layer_count
+
+    arch = ArchConfig(width=8, image_size=32, dtype=torch.float32)
+    bundle = make_multimodal_bundle(3, BNNPriorSpec(),
+                                    torch.Generator().manual_seed(0), arch,
+                                    device="cuda")
+    layers = grouped_layer_count(arch.stage_sizes)
+    assert layers == 53
+    rng = np.random.default_rng(0)
+    u8 = tuple(torch.from_numpy(rng.integers(0, 256, (4, 32, 32, c),
+                                             dtype=np.uint8)).cuda()
+               for c in (3, 3, 1))
+    for fused, per_draw in ((True, layers), (False, 3 * layers)):
+        step = make_packed_predict_step(bundle, 4, fused_trunks=fused)
+        before = dict(kernels.LAUNCHES)
+        step(bundle.post, bundle.batch_stats, u8,
+             torch.Generator().manual_seed(1), torch.ones(4, device="cuda"))
+        torch.cuda.synchronize()
+        for name in ("bn_stats", "bn_apply"):
+            assert kernels.LAUNCHES[name] - before[name] == 4 * per_draw
+    state = BayesTrainState(bundle.post,
+                            make_optimizer(1e-3, 1e-5).init(bundle.post),
+                            bundle.batch_stats)
+    step = make_train_step(bundle.module, bundle.meta, BNNPriorSpec(), 2)
+    before = dict(kernels.LAUNCHES)
+    inputs = [torch.rand(4, 32, 32, c, device="cuda") for c in (3, 3, 1)]
+    state, m = step(state, inputs, torch.tensor([0, 1, 2, 0], device="cuda"),
+                    torch.ones(4, device="cuda"),
+                    torch.Generator().manual_seed(2), 1e-6, 2.0)
+    torch.cuda.synchronize()
+    assert not m["skipped"]
+    assert all(kernels.LAUNCHES[k] == before[k]
+               for k in ("bn_stats", "bn_apply"))
+
+
+def test_bn_artifact_exported_on_card_holds_bn_ops(tmp_path):
+    """A micro() artifact exported on the card holds ``auv::bn_apply`` and
+    ``auv::bn_stats`` (one each per BN layer and draw of its chunk program)
+    and gives the in-process step's answers bit for bit."""
+    _cuda_or_skip()
+    from multimodal_auv_torch.serving import (
+        export_predict_artifact,
+        load_predict_artifact,
+    )
+
+    bundle = make_multimodal_bundle(3, BNNPriorSpec(),
+                                    torch.Generator().manual_seed(0),
+                                    ArchConfig.micro(), device="cuda")
+    d = str(tmp_path / "art")
+    export_predict_artifact(bundle, d, batch_size=4, num_mc_samples=4,
+                            image_size=32)
+    art = load_predict_artifact(d)
+    targets = [str(n.target) for n in art._programs[art.device].graph.nodes]
+    layers = 3 * (1 + 3 * 2 + 2)  # micro(): two stages of one block
+    assert sum("auv.bn_apply" in t for t in targets) == layers * art.mc_chunk
+    assert sum("auv.bn_stats" in t for t in targets) == layers * art.mc_chunk
+    rng = np.random.default_rng(1)
+    u8 = [rng.integers(0, 256, (4, 32, 32, c), dtype=np.uint8)
+          for c in (3, 3, 1)]
+    out = art.predict(*u8, key=7)
+    ref = make_packed_predict_step(bundle, 4)(
+        bundle.post, bundle.batch_stats,
+        tuple(torch.from_numpy(a).cuda() for a in u8),
+        torch.Generator().manual_seed(7), torch.ones(4, device="cuda"))
+    np.testing.assert_array_equal(out["csv_cols"],
+                                  ref["csv_cols"].cpu().numpy())
+    np.testing.assert_array_equal(out["mean_prob"],
+                                  ref["mean_prob"].cpu().numpy())
+
+
+def test_bn_eager_forward_does_not_import_dynamo():
+    """A forward on the card launches the BatchNorm kernels directly, not
+    through the ops, whose first call imports torch._dynamo (~8 s of
+    set-up in a process that calls no other op, as sidescan inference)."""
+    _cuda_or_skip()
+    import subprocess
+    import sys
+
+    code = "\n".join([
+        "import sys, torch",
+        "from multimodal_auv_torch.bayes.packing import tree_to",
+        "from multimodal_auv_torch.models.resnet import (ResNet,",
+        "    forward_layout)",
+        "from multimodal_auv_torch.ops import kernels",
+        "m = ResNet((1, 1), 8, 3, torch.bfloat16)",
+        "p, s = m.init(torch.Generator().manual_seed(0), 1)",
+        "p, s = tree_to(forward_layout(p), 'cuda'), tree_to(s, 'cuda')",
+        "with torch.inference_mode():",
+        "    m(p, s, torch.rand(4, 32, 32, 1, device='cuda'), True,",
+        "      torch.ones(4, device='cuda'))",
+        "torch.cuda.synchronize()",
+        "assert kernels.LAUNCHES['bn_apply'] == 1 + 3 * 2 + 2",
+        "print('torch._dynamo' in sys.modules)",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "False"
